@@ -1,0 +1,63 @@
+"""Label codec: text <-> integer labels, and the JSON class map on disk.
+
+A copy of ``crnn_ocr_tpu/data/codec.py::LabelCodec`` (the part the
+recognition path uses). Blank is always ``num_classes``, the last logit,
+per the Keras CTC convention.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Sequence
+
+
+class LabelCodec:
+    """Bidirectional char <-> index map."""
+
+    def __init__(self, classes: Dict[str, int]):
+        self.classes = dict(classes)
+        self.inverse = {v: k for k, v in self.classes.items()}
+        if len(self.inverse) != len(self.classes):
+            raise ValueError("class map is not a bijection")
+
+    @classmethod
+    def from_alphabet(cls, alphabet: str) -> "LabelCodec":
+        return cls({c: i for i, c in enumerate(alphabet)})
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.classes)
+
+    @property
+    def blank_index(self) -> int:
+        return len(self.classes)
+
+    def text_to_labels(self, text: str, strict: bool = True) -> List[int]:
+        """Encode text; with ``strict=False`` unknown chars are dropped."""
+        if strict:
+            try:
+                return [self.classes[c] for c in text]
+            except KeyError as e:
+                raise KeyError(
+                    f"character {e.args[0]!r} not in class map "
+                    f"({self.num_classes} classes); use strict=False to drop"
+                ) from None
+        return [self.classes[c] for c in text if c in self.classes]
+
+    def labels_to_text(self, labels: Sequence[int]) -> str:
+        # -1 is dense-decode padding; blank never appears after decoding
+        # but is skipped all the same.
+        return "".join(
+            self.inverse[int(l)]
+            for l in labels
+            if int(l) >= 0 and int(l) in self.inverse
+        )
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.classes, f, ensure_ascii=False, indent=0)
+
+    @classmethod
+    def load(cls, path: str) -> "LabelCodec":
+        with open(path) as f:
+            return cls(json.load(f))
