@@ -1,7 +1,7 @@
 """Label codec: text <-> integer labels, and the JSON class map on disk.
 
 A copy of ``crnn_ocr_tpu/data/codec.py::LabelCodec`` (the part the
-recognition path uses). Blank is always ``num_classes``, the last logit,
+recognition and training paths use). Blank is always ``num_classes``, the last logit,
 per the Keras CTC convention.
 """
 
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import json
 from typing import Dict, List, Sequence
+
+import numpy as np
 
 
 class LabelCodec:
@@ -52,6 +54,18 @@ class LabelCodec:
             for l in labels
             if int(l) >= 0 and int(l) in self.inverse
         )
+
+    def encode_batch(self, texts: Sequence[str], max_len: int | None = None,
+                     strict: bool = True):
+        """Dense (B, L) int32 labels + (B,) true encoded lengths, 0-padded
+        (``crnn_ocr_tpu/data/codec.py:66-79``)."""
+        encs = [self.text_to_labels(t, strict=strict) for t in texts]
+        lens = np.array([len(e) for e in encs], np.int32)
+        L = int(max_len or max(1, lens.max()))
+        out = np.zeros((len(texts), L), np.int32)
+        for i, enc in enumerate(encs):
+            out[i, : min(len(enc), L)] = enc[:L]
+        return out, np.minimum(lens, L)
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:

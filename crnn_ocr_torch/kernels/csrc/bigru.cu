@@ -1,14 +1,18 @@
 // BiGRU recurrence, both directions, the time loop inside the kernel.
 //
-// Replaces crnn_ocr_tpu/kernels/bigru.py::bigru_pallas_raw (the Pallas body
-// _kernel, whose sequential grid over T carried h in VMEM). Keras GRU with
+// Replaces crnn_ocr_tpu/kernels/bigru.py::bigru_pallas_raw (K2, the Pallas
+// body _kernel, whose sequential grid over T carried h in VMEM) and
+// bigru_pallas_train (K3, _kernel_train: the same recurrence that also
+// writes the gate activations for the analytic backward). Keras GRU with
 // reset_after, gates z|r|h:
 //   rec = round(h) . U[d] + b_rec[d]   (round: to the compute type)
 //   z = sig(xz + rz), r = sig(xr + rr), hh = tanh(xh + r * rh)
 //   h = z * h + (1 - z) * hh           (h carried in f32)
 // xw (T, 2, B, 3H) holds the input projections plus the input bias, with
 // direction 1 already time-reversed by the caller; hs (T, 2, B, H) is
-// written in xw's type, direction 1 still reversed.
+// written in xw's type, direction 1 still reversed. K3 also writes gates
+// (T, 2, B, 4H) f32 = [z | r | hh | rh] per step, rh being the recurrent
+// h-part including its bias, exactly the values the step used.
 //
 // Design: the work is split by (direction, tile of batch rows), never by
 // hidden columns, so no block needs another block's state, no grid-wide
@@ -33,11 +37,20 @@
 //   U[d][k][j] read from global memory, round(h) (here h itself) in shared
 //   memory as [H][kBT].
 //
-// Bound on the H100 per layer at the main path (T=64, B=256, H=256, bf16):
-// bytes, 50.3 MB of xw in + 16.8 MB of hs out = 67.9 MB / 3.35 TB/s =
+// K3 is each kernel instantiated with kStash = true, chosen by a non-null
+// gates pointer: the serving instances (kStash = false) compile to the code
+// they had before the stash existed. The stash adds, per (row, unit), four
+// f32 stores to the step's epilogue; each lane writes its two adjacent units
+// of a gate as one 8-byte store.
+//
+// Bound on the H100 per layer at the serving path (T=64, B=256, H=256,
+// bf16): bytes, 50.3 MB of xw in + 16.8 MB of hs out = 67.9 MB / 3.35 TB/s =
 // 20.3 us; operations, 12.9 GFLOP / 989 TFLOP/s = 13 us; plus 64 dependent
-// steps. Each block re-reads its direction's 384 KB of U from L2 every
-// step, which bounds this design near 3.4 us per step. Left for later: U resident in
+// steps. K3 at the training path (T=64, B=128, H=256, bf16): xw 25.2 MB +
+// hs 8.4 MB + gates 67.1 MB = 100.7 MB / 3.35 TB/s = 30 us; 6.4 GFLOP is
+// 6.5 us at the bf16 peak; so bytes bound it, the gate stash above all.
+// Each block re-reads its direction's 384 KB of U from L2 every step, which
+// bounds this design near 3.4 us per step. Left for later: U resident in
 // shared memory (a 2-CTA cluster with distributed shared memory at H = 256)
 // and wgmma.
 
@@ -66,20 +79,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// Keras reset_after gate math; h carried in f32.
+// Keras reset_after gate math; h carried in f32. z, r, hh are returned for
+// the gate stash.
 __device__ __forceinline__ float gru_cell(float h, float xz, float xr,
                                           float xh, float rz, float rr,
-                                          float rh) {
-  const float z = sigmoid(xz + rz);
-  const float r = sigmoid(xr + rr);
-  const float hh = tanhf(xh + r * rh);
+                                          float rh, float& z, float& r,
+                                          float& hh) {
+  z = sigmoid(xz + rz);
+  r = sigmoid(xr + rr);
+  hh = tanhf(xh + r * rh);
   return z * h + (1.f - z) * hh;
 }
 
+// gates: (T, 2, B, 4H) f32, written only when kStash.
+template <bool kStash>
 __global__ void __launch_bounds__(1024)
 bigru_f32_kernel(const float* __restrict__ xw, const float* __restrict__ U,
                  const float* __restrict__ brec, float* __restrict__ hs,
-                 int steps, int B, int H) {
+                 float* __restrict__ gates, int steps, int B, int H) {
   extern __shared__ float4 smem4[];  // 2 buffers of [H][kBT] floats
   float* smem = reinterpret_cast<float*>(smem4);
   const int j = threadIdx.x;
@@ -138,9 +155,20 @@ bigru_f32_kernel(const float* __restrict__ xw, const float* __restrict__ U,
         xr = x[H + j];
         xh = x[2 * H + j];
       }
-      h[i] = gru_cell(h[i], xz, xr, xh, az[i] + bz, ar[i] + br, ah[i] + bh);
+      const float rh = ah[i] + bh;
+      float z, r, hh;
+      h[i] = gru_cell(h[i], xz, xr, xh, az[i] + bz, ar[i] + br, rh, z, r, hh);
       hout[j * kBT + i] = h[i];
-      if (b < B) hs[row * H + j] = h[i];
+      if (b < B) {
+        hs[row * H + j] = h[i];
+        if (kStash) {
+          float* gt = gates + row * 4 * H + j;
+          gt[0] = z;
+          gt[H] = r;
+          gt[2 * H] = hh;
+          gt[3 * H] = rh;
+        }
+      }
     }
     __syncthreads();
   }
@@ -184,12 +212,14 @@ constexpr int kStageBytes = kMmaJT * 3 * 256;
 // Each warp streams its own B fragments through a ring of kStages
 // shared-memory stages with cp.async, kStages - 1 k-steps ahead; the ring
 // runs on across time steps, since U does not change.
-template <int kMaxThreads, int kStages>
+// gates: (T, 2, B, 4H) f32, written only when kStash.
+template <int kMaxThreads, int kStages, bool kStash>
 __global__ void __launch_bounds__(kMaxThreads)
 bigru_mma_kernel(const __nv_bfloat16* __restrict__ xw,
                  const __nv_bfloat16* __restrict__ ut,
                  const float* __restrict__ brec,
-                 __nv_bfloat16* __restrict__ hs, int steps, int B, int H) {
+                 __nv_bfloat16* __restrict__ hs, float* __restrict__ gates,
+                 int steps, int B, int H) {
   extern __shared__ uint4 smem_u4[];
   __nv_bfloat16* hA = reinterpret_cast<__nv_bfloat16*>(smem_u4);
   const int lda = H + 8;  // padded row: the 8 rows of a fragment hit
@@ -309,23 +339,33 @@ bigru_mma_kernel(const __nv_bfloat16* __restrict__ xw,
       for (int r = 0; r < 2; ++r) {
         const int row = g + 8 * r;
         const int b = b0 + row;
-        float hn[2];
+        float hn[2], gz[2], gr[2], ghh[2], grh[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 2 * r + e;
           const float xz = e ? bf16_hi(xv[s][0][r]) : bf16_lo(xv[s][0][r]);
           const float xr = e ? bf16_hi(xv[s][1][r]) : bf16_lo(xv[s][1][r]);
           const float xh = e ? bf16_hi(xv[s][2][r]) : bf16_lo(xv[s][2][r]);
+          grh[e] = acc[s][2][c] + bias[s][2][e];
           h[s][c] = gru_cell(h[s][c], xz, xr, xh, acc[s][0][c] + bias[s][0][e],
-                             acc[s][1][c] + bias[s][1][e],
-                             acc[s][2][c] + bias[s][2][e]);
+                             acc[s][1][c] + bias[s][1][e], grh[e], gz[e],
+                             gr[e], ghh[e]);
           hn[e] = h[s][c];
         }
         const uint32_t packed = pack_bf16(hn[0], hn[1]);
         *reinterpret_cast<uint32_t*>(An + row * lda + j) = packed;
-        if (b < B)
-          *reinterpret_cast<uint32_t*>(
-              hs + (((size_t)t * 2 + d) * B + b) * H + j) = packed;
+        if (b < B) {
+          const size_t rowi = ((size_t)t * 2 + d) * B + b;
+          *reinterpret_cast<uint32_t*>(hs + rowi * H + j) = packed;
+          if (kStash) {
+            float2* gt = reinterpret_cast<float2*>(gates + rowi * 4 * H + j);
+            const int q = H / 2;  // one gate's width in float2
+            gt[0] = make_float2(gz[0], gz[1]);
+            gt[q] = make_float2(gr[0], gr[1]);
+            gt[2 * q] = make_float2(ghh[0], ghh[1]);
+            gt[3 * q] = make_float2(grh[0], grh[1]);
+          }
+        }
       }
     }
     __syncthreads();
@@ -338,27 +378,25 @@ cudaError_t set_smem(const void* fn, size_t smem) {
                               (int)smem);
 }
 
-}  // namespace
-
-// f32: xw (T, 2, B, 3H), U (2, H, 3H), brec (2, 3H) -> hs (T, 2, B, H).
-extern "C" int crnn_bigru_f32(const void* xw, const void* U, const void* brec,
-                              void* hs, int steps, int B, int H,
-                              void* stream) {
+template <bool kStash>
+cudaError_t launch_f32(const void* xw, const void* U, const void* brec,
+                       void* hs, void* gates, int steps, int B, int H,
+                       void* stream) {
   const size_t smem = 2 * (size_t)H * kBT * sizeof(float);
-  cudaError_t e = set_smem((const void*)bigru_f32_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = set_smem((const void*)bigru_f32_kernel<kStash>, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid((B + kBT - 1) / kBT, 2);
-  bigru_f32_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
+  bigru_f32_kernel<kStash><<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xw), static_cast<const float*>(U),
-      static_cast<const float*>(brec), static_cast<float*>(hs), steps, B, H);
-  return (int)cudaGetLastError();
+      static_cast<const float*>(brec), static_cast<float*>(hs),
+      static_cast<float*>(gates), steps, B, H);
+  return cudaGetLastError();
 }
 
-// bf16: xw, hs bf16 as above; ut (2, 3H, H) bf16 is U prepared as the
-// mma kernel's header says; brec f32. H % 16 == 0, H <= 1024.
-extern "C" int crnn_bigru_bf16(const void* xw, const void* ut,
-                               const void* brec, void* hs, int steps, int B,
-                               int H, void* stream) {
+template <bool kStash>
+cudaError_t launch_bf16(const void* xw, const void* ut, const void* brec,
+                        void* hs, void* gates, int steps, int B, int H,
+                        void* stream) {
   const int warps = (H / 8 + kMmaJT - 1) / kMmaJT;
   const size_t a_bytes = 2 * (size_t)kMmaRows * (H + 8) * sizeof(__nv_bfloat16);
   dim3 grid((B + kMmaRows - 1) / kMmaRows, 2);
@@ -367,21 +405,46 @@ extern "C" int crnn_bigru_bf16(const void* xw, const void* ut,
   const __nv_bfloat16* u = static_cast<const __nv_bfloat16*>(ut);
   const float* b = static_cast<const float*>(brec);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(hs);
+  float* g = static_cast<float*>(gates);
   cudaError_t e;
   if (warps <= 8) {  // H <= 256: a 6-stage ring per warp fits
     const size_t smem = a_bytes + (size_t)warps * 6 * kStageBytes;
-    e = set_smem((const void*)bigru_mma_kernel<256, 6>, smem);
-    if (e != cudaSuccess) return (int)e;
-    bigru_mma_kernel<256, 6><<<grid, warps * 32, smem, s>>>(x, u, b, o,
-                                                             steps, B, H);
+    e = set_smem((const void*)bigru_mma_kernel<256, 6, kStash>, smem);
+    if (e != cudaSuccess) return e;
+    bigru_mma_kernel<256, 6, kStash><<<grid, warps * 32, smem, s>>>(
+        x, u, b, o, g, steps, B, H);
   } else {  // up to 32 warps: one stage each, no lookahead
     const size_t smem = a_bytes + (size_t)warps * kStageBytes;
-    e = set_smem((const void*)bigru_mma_kernel<1024, 1>, smem);
-    if (e != cudaSuccess) return (int)e;
-    bigru_mma_kernel<1024, 1><<<grid, warps * 32, smem, s>>>(x, u, b, o,
-                                                              steps, B, H);
+    e = set_smem((const void*)bigru_mma_kernel<1024, 1, kStash>, smem);
+    if (e != cudaSuccess) return e;
+    bigru_mma_kernel<1024, 1, kStash><<<grid, warps * 32, smem, s>>>(
+        x, u, b, o, g, steps, B, H);
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K2, or K3 when gates is not null (then gates (T, 2, B, 4H) f32 is written
+// too). f32: xw (T, 2, B, 3H), U (2, H, 3H), brec (2, 3H) -> hs (T, 2, B, H).
+extern "C" int crnn_bigru_f32(const void* xw, const void* U, const void* brec,
+                              void* hs, void* gates, int steps, int B, int H,
+                              void* stream) {
+  return (int)(gates ? launch_f32<true>(xw, U, brec, hs, gates, steps, B, H,
+                                        stream)
+                     : launch_f32<false>(xw, U, brec, hs, nullptr, steps, B,
+                                         H, stream));
+}
+
+// bf16: xw, hs bf16 as above; ut (2, 3H, H) bf16 is U prepared as the mma
+// kernel's header says; brec f32. H % 16 == 0, H <= 1024.
+extern "C" int crnn_bigru_bf16(const void* xw, const void* ut,
+                               const void* brec, void* hs, void* gates,
+                               int steps, int B, int H, void* stream) {
+  return (int)(gates ? launch_bf16<true>(xw, ut, brec, hs, gates, steps, B, H,
+                                         stream)
+                     : launch_bf16<false>(xw, ut, brec, hs, nullptr, steps, B,
+                                          H, stream));
 }
 
 extern "C" const char* crnn_error_string(int err) {

@@ -1,7 +1,14 @@
-"""Greedy CTC decoding (``crnn_ocr_tpu/ops/ctc.py:199-256,798-803``).
+"""CTC loss and greedy decoding (``crnn_ocr_tpu/ops/ctc.py:59-191``,
+``:199-256``, ``:798-803``).
 
-Blank is the last class, ``C - 1``. Greedy alignment and the pixel-span
-mapping come with the slice that ports beam search and alignment.
+Blank is the last class, ``C - 1``. The loss from normalized log-probs
+(the JAX package's ``ctc_forward_log_loss`` and ``ctc_loss_from_log_probs``)
+is ``kernels.ctc_loss.ctc_loss``: K6 and K7 on the card, their plain
+versions on the CPU, so its gradient is the kernels' analytic one;
+``NEG = -1e30`` stands for log 0 there, and a sample with no valid
+alignment gets a loss of 1e30 and a zero gradient. Greedy alignment and
+the pixel-span mapping come with the slice that ports beam search and
+alignment.
 """
 
 from __future__ import annotations
@@ -10,7 +17,17 @@ from typing import List, Tuple
 
 import torch
 
+from crnn_ocr_torch.kernels.ctc_loss import ctc_loss
+
 KERAS_EPSILON = 1e-7
+
+
+def ctc_batch_cost(labels, y_pred, input_length, label_length):
+    """``K.ctc_batch_cost``: post-softmax ``y_pred`` (B, T, C) -> (B, 1)
+    loss. As Keras, the log-probs are ``log_softmax(log(y_pred + 1e-7))``."""
+    logits = torch.log(y_pred.float() + KERAS_EPSILON)
+    return ctc_loss(torch.log_softmax(logits, dim=-1), labels, input_length,
+                    label_length)[:, None]
 
 
 def ctc_greedy_decode(

@@ -18,9 +18,21 @@ Per model, under the prefix ``hard_`` (``fonts-hard``) or ``small_``
   (``fused_stem_serve`` and ``bigru_pallas_raw``) -- the bf16 rounding
   points that the port's CUDA kernels copy.
 
+``--train`` writes ``crnn_ocr_torch/testdata/train_goldens.npz`` instead,
+from the committed greedy goldens: one f32 ``fonts-hard`` train step of the
+JAX package (``train/step.py``'s loss: dropout 0, the scan CTC and scan
+recurrence, which its tests hold equal to the Pallas kernels) on the 64
+``hard`` lines repeated to 128, bucket 256, labels padded to 32:
+
+* ``loss_vec`` (128,), ``loss`` and ``grad_norm`` (the global norm before
+  clipping);
+* ``gradnorm/<name>``: each parameter's gradient norm, under the port's
+  ``state_dict`` names;
+* ``stats/<name>``: every BatchNorm's running statistics after the step.
+
 Run from the repo root (several minutes on the CPU):
 
-    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py
+    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py [--train]
 """
 
 from __future__ import annotations
@@ -34,6 +46,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata", "greedy_goldens.npz")
+TRAIN_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                         "train_goldens.npz")
+TRAIN_BATCH, TRAIN_BUCKET, TRAIN_MAX_LABEL = 128, 256, 32
 
 N_LINES = 64
 # Each model's own training task (fonts-hard: the FontConfig that
@@ -87,10 +102,77 @@ def jax_predict(name: str, images, dtype: str, pallas: bool):
     return [p.text for p in out], np.array([p.score for p in out], np.float32)
 
 
+def train_batch(g, codec):
+    """The train golden's batch from the committed greedy goldens: canvas,
+    heights, widths (numpy, the 64 ``hard`` lines repeated to 128), dense
+    labels and label lengths."""
+    reps = TRAIN_BATCH // len(g["hard_heights"])
+    canvas = np.concatenate([g["hard_canvas"]] * reps)
+    hs = np.concatenate([g["hard_heights"]] * reps)
+    ws = np.concatenate([g["hard_widths"]] * reps)
+    truth = [str(t) for t in g["hard_truth"]] * reps
+    labels, lab_len = codec.encode_batch(truth, TRAIN_MAX_LABEL)
+    return canvas, hs, ws, labels, lab_len
+
+
+def write_train_golden() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from crnn_ocr_torch.infer.weights import params_from_jax
+    from crnn_ocr_tpu.infer import load_pretrained
+    from crnn_ocr_tpu.models import CRNN
+    from crnn_ocr_tpu.ops.preprocess import preprocess_batch
+    from crnn_ocr_tpu.train.step import ctc_loss_vec, optax_global_norm
+
+    base = load_pretrained("fonts-hard")
+    cfg = dataclasses.replace(base.cfg, dtype="float32", dropout_rate=0.0,
+                              use_pallas_rnn=False, use_fused_stem=False)
+    model = CRNN(cfg=cfg)
+    params, stats = base._vars["params"], base._vars["batch_stats"]
+    g = np.load(OUT)
+    canvas, hs, ws, labels, lab_len = train_batch(g, base.codec)
+    x, w_new = preprocess_batch(canvas, hs, ws, out_h=cfg.height,
+                                out_w=TRAIN_BUCKET)
+    T = TRAIN_BUCKET // cfg.width_downsample
+    il = jnp.maximum(jnp.minimum(w_new // cfg.width_downsample, T)
+                     - cfg.ctc_time_slice, 1).astype(jnp.int32)
+
+    def loss_fn(p):
+        logits, mutated = model.apply(
+            {"params": p, "batch_stats": stats}, x[..., None], train=True,
+            mutable=["batch_stats"], rngs={"dropout": jax.random.key(0)})
+        loss_vec = ctc_loss_vec(logits, jnp.asarray(labels), il,
+                                jnp.asarray(lab_len),
+                                ctc_time_slice=cfg.ctc_time_slice)
+        loss = jnp.mean(jnp.minimum(loss_vec, 1e4))
+        return loss, (loss_vec, mutated["batch_stats"])
+
+    (loss, (loss_vec, new_stats)), grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    grad_sd = params_from_jax(to_np(grads), to_np(new_stats))
+    stat_sd = params_from_jax(to_np(params), to_np(new_stats))
+    arrays = {"loss_vec": np.asarray(loss_vec), "loss": np.float32(loss),
+              "grad_norm": np.float32(optax_global_norm(grads))}
+    for k, v in grad_sd.items():
+        if k.endswith(("running_mean", "running_var")):
+            arrays[f"stats/{k}"] = stat_sd[k].numpy()
+        else:
+            arrays[f"gradnorm/{k}"] = np.float32(np.linalg.norm(v.numpy()))
+    np.savez_compressed(TRAIN_OUT, **arrays)
+    print(f"train golden: loss {float(loss):.6f} grad_norm "
+          f"{float(arrays['grad_norm']):.6f}; wrote {TRAIN_OUT} "
+          f"({os.path.getsize(TRAIN_OUT)} bytes)")
+
+
 def main() -> int:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if "--train" in sys.argv[1:]:
+        write_train_golden()
+        return 0
     from crnn_ocr_tpu.ops.preprocess import pack_canvas
 
     arrays = {}
