@@ -45,9 +45,41 @@ lines repeated, labels padded to 32):
    steps' whole time, the p50 step, a
    per-stage breakdown, a profiler trace, and ``fit`` with an evaluation.
 
+Slice 3, the STN front end (``fonts-warp-stn``: n_units 256, bf16, fixed
+bucket 256; and ``fonts-stn``), on the 64 lines of each model's own task in
+``crnn_ocr_torch/testdata/stn_goldens.npz``:
+
+9. K11 (bilinear sampler) and K12 (its backward) against their plain
+   versions on the path's own tensors: the frames and theta of
+   ``fonts-warp-stn`` at B 256 (serving) and B 128 (training), bf16 and
+   f32, TF32 off; ``d_img`` also through autograd with an image that
+   requires a gradient. ``F.grid_sample`` (border, align_corners) and its
+   backward are the yardsticks.
+10. Golden texts: ``fonts-stn`` and ``fonts-warp-stn`` in f32 equal to the
+    JAX predictor's (scores rtol 1e-4); ``fonts-warp-stn`` as shipped
+    (bf16) at most 1 line in 64 off the JAX bf16 golden, and the kernel
+    run's texts equal the plain versions'.
+11. Serving ``fonts-warp-stn`` counted, as phase 4: each ``predict`` must
+    launch K11 once, K1 once and K2 twice; stages split into the STN's
+    localization, the sampler and the rest.
+12. One f32 ``fonts-warp-stn`` train step: kernels against plain versions,
+    and against the JAX step (``stn_goldens.npz``, ``train/``).
+13. Fine-tuning ``fonts-warp-stn`` counted, as phase 8 (bf16, B 128): each
+    step must launch K11 and K12 once, K3 twice, K6 and K7 once, K1 and K2
+    never; the loss must fall.
+14. Serving in turns: ``fonts-hard`` on its lines and on the STN task's,
+    and ``fonts-warp-stn`` on its own, alternated within the call, so that
+    the STN's cost and the lines' cost read apart from the host's drift.
+
 The last lines are the card's ``name, power.limit``, the kernels' JSON
-line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's) and
-``{"ok": true, "device": {...}}``.
+line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's, K11
+with phase 11's and K12 with phase 13's) and
+``{"ok": true, "device": {...}}``. In the kernels' line ``ms`` is the
+kernel's device time per call (``device_ms``: torch.profiler's kernel
+durations) and ``event_ms`` the CUDA-event time of one call, which also
+counts the card waiting on the host's launch; ``plain_ms`` and
+``library_ms`` are CUDA-event times, ``library_device_ms`` the yardstick's
+device time.
 """
 
 from __future__ import annotations
@@ -93,6 +125,50 @@ def time_ms(fn, warmup: int = 3, reps: int = 25) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed durations of the work
+    it puts on the card (kernels, copies), from torch.profiler over ``reps``
+    calls after a warm-up call. A CUDA-event timing of one call
+    (``time_ms``) also counts the card waiting for the host to launch it,
+    which for a kernel of tens of microseconds is most of the reading."""
+    import torch
+
+    fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    prof, _ = profiled(run)
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    return us / reps / 1e3
+
+
+def profiled(run):
+    """torch.profiler (host and card) over ``run()``, synchronized at both
+    ends: (the profile, the window's wall time in µs). The profiler at times
+    hands back a window with no device records at all (once in ~20 windows
+    of one call on the H100); such a window is run again, at most twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               for e in prof.events()):
+            return prof, wall_us
+    raise RuntimeError("the profiler saw no work on the device in 3 windows")
+
+
 def bound_ms(bytes_moved: float, ops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype]
@@ -106,13 +182,14 @@ def nbytes(*ts) -> int:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run every kernel call site (K1, K2, K3, K6, K7) through its plain
-    version, on the card, for the comparison runs of phases 3 and 7: the
-    autograd Functions, the BiGRU backward and the CTC gradient assembly
-    stay as they are."""
+    """Run every kernel call site (K1, K2, K3, K6, K7, K11, K12) through its
+    plain version, on the card, for the comparison runs of phases 3, 7, 10
+    and 12: the autograd Functions, the BiGRU backward and the CTC gradient
+    assembly stay as they are."""
     import torch
     import crnn_ocr_torch.models.crnn as crnn_mod
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import grid_sample as gs
 
     def gru_train(xw, u, rec_bias, u_kernel=None):
         with torch.no_grad():
@@ -123,7 +200,9 @@ def plain_kernels():
               lambda xw, u, rb, u_kernel=None: bigru.bigru_plain(xw, u, rb)),
              (bigru, "bigru_train", gru_train),
              (ctc_loss, "ctc_alphas", ctc_loss.ctc_alphas_plain),
-             (ctc_loss, "ctc_betas", ctc_loss.ctc_betas_plain)]
+             (ctc_loss, "ctc_betas", ctc_loss.ctc_betas_plain),
+             (gs, "sample_pix", gs.sample_pix_plain),
+             (gs, "sample_pix_bwd", gs.sample_pix_bwd_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for mod, name, fn in sites:
         setattr(mod, name, fn)
@@ -136,18 +215,28 @@ def plain_kernels():
 
 def reset_launches() -> None:
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import grid_sample as gs
 
     fused_stem.launches = bigru.launches = bigru.train_launches = 0
     ctc_loss.alpha_launches = ctc_loss.beta_launches = 0
+    gs.launches = gs.bwd_launches = 0
 
 
 def read_launches() -> dict:
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import grid_sample as gs
 
     return {"fused_stem": fused_stem.launches, "bigru": bigru.launches,
             "bigru_train": bigru.train_launches,
             "ctc_alpha": ctc_loss.alpha_launches,
-            "ctc_beta": ctc_loss.beta_launches}
+            "ctc_beta": ctc_loss.beta_launches,
+            "grid_sample": gs.launches, "grid_sample_bwd": gs.bwd_launches}
+
+
+def require_launches(counts: dict, want: dict, what: str) -> None:
+    """Every kernel's count equal to ``want``'s (0 where it has none)."""
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    require(not bad, f"{what} launched {counts}; expected {want}")
 
 
 def golden_lines(g, key: str):
@@ -216,8 +305,10 @@ def check_stem(model, x_img, dtype_name: str):
         kernel="fused_stem", dtype=dtype_name, shape=list(img.shape), C=C,
         max_abs_err=float(err.max()), tolerance=tol_text, ok=ok,
         kernel_ms=time_ms(lambda: fs.fused_stem_serve(img, w, scale, bias)),
+        kernel_device_ms=device_ms(
+            lambda: fs.fused_stem_serve(img, w, scale, bias)),
         plain_ms=time_ms(lambda: fs.fused_stem_plain(img, w, scale, bias)),
-        library_ms=time_ms(library),
+        library_ms=time_ms(library), library_device_ms=device_ms(library),
         library="cudnn conv2d + affine + relu + max_pool2d",
         bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
     )
@@ -278,7 +369,7 @@ def check_bigru(model, feat, dtype_name: str):
     res = dict(
         kernel="bigru", dtype=dtype_name, T=T, B=B, H=H, max_abs_err=err,
         tolerance=f"{tol} abs", ok=err <= tol,
-        kernel_ms=time_ms(kernel),
+        kernel_ms=time_ms(kernel), kernel_device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: bg.bigru_plain(xw, u, rb)),
         bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
         library="torch.nn.GRU bidirectional (cuDNN) on the layer input; "
@@ -289,6 +380,7 @@ def check_bigru(model, feat, dtype_name: str):
     res["library_vs_port_max_abs"] = float(
         (gru(feat)[0].float() - rnn(feat).float()).abs().max())
     res["library_ms"] = time_ms(lambda: gru(feat))
+    res["library_device_ms"] = device_ms(lambda: gru(feat))
     emit("kernel_check", **res)
     require(res["ok"], f"bigru {dtype_name}: max error {err} beyond {tol}")
     return res
@@ -302,13 +394,17 @@ def predict_golden(name, g, key, dtype=None):
     return [o.text for o in out], [o.score for o in out]
 
 
-def phase_goldens(g):
+def phase_goldens(g, f32_models, bf16_model):
+    """Golden texts on the card: each ``(name, key)`` of ``f32_models`` in
+    f32 against the JAX predictor's texts and scores in ``g``, and
+    ``bf16_model`` as shipped (bf16) against the JAX bf16 golden and
+    against the plain versions' run on the card."""
     import numpy as np
 
     results = {}
     # f32: every text equal, scores within rtol 1e-4 (atol 1e-5: a score is
     # a sum of ~60 log-probs, and near-certain lines score near 0)
-    for name, key in (("fonts-hard", "hard"), ("fonts-small", "small")):
+    for name, key in f32_models:
         texts, scores = predict_golden(name, g, key, "float32")
         want_t = [str(t) for t in g[f"{key}_texts_f32"]]
         want_s = g[f"{key}_scores_f32"]
@@ -326,35 +422,35 @@ def phase_goldens(g):
                 f"{name} f32 differs from the JAX golden")
     # bf16 as shipped: at most 1 of 64 lines off the JAX bf16 golden, and
     # the kernel run's texts equal the plain-version run's on the card
-    texts, scores = predict_golden("fonts-hard", g, "hard")
-    want_t = [str(t) for t in g["hard_texts_bf16"]]
+    name, key = bf16_model
+    texts, scores = predict_golden(name, g, key)
+    want_t = [str(t) for t in g[f"{key}_texts_bf16"]]
     bad = [(i, a, b) for i, (a, b) in enumerate(zip(texts, want_t)) if a != b]
     with plain_kernels():
-        plain_texts, _ = predict_golden("fonts-hard", g, "hard")
+        plain_texts, _ = predict_golden(name, g, key)
     plain_bad = [(i, a, b) for i, (a, b) in enumerate(zip(texts, plain_texts))
                  if a != b]
-    truth = [str(t) for t in g["hard_truth"]]
-    emit("goldens", run="fonts-hard bfloat16", lines=len(texts),
+    truth = [str(t) for t in g[f"{key}_truth"]]
+    emit("goldens", run=f"{name} bfloat16", lines=len(texts),
          text_mismatches=bad, kernel_vs_plain_mismatches=plain_bad,
          line_accuracy_vs_truth=float(np.mean(
              [a == b for a, b in zip(texts, truth)])))
-    require(len(bad) <= 1, f"fonts-hard bf16: {len(bad)} lines differ from "
+    require(len(bad) <= 1, f"{name} bf16: {len(bad)} lines differ from "
                            "the JAX bf16 golden (at most 1 may)")
-    require(not plain_bad, "fonts-hard bf16: kernel texts differ from the "
-                           "plain version's on the card")
+    require(not plain_bad, f"{name} bf16: kernel texts differ from the "
+                           "plain versions' on the card")
     return results
 
 
-def phase_throughput(g, card: str):
-    """The main path, counted: ``REPS`` timed ``predict`` calls with the
-    launch counts set to 0 just before them and read just after."""
+def phase_throughput(card: str, name: str, lines, want: dict):
+    """The main path, counted: ``REPS`` timed ``predict`` calls of ``name``
+    (as shipped) on ``lines`` with the launch counts set to 0 just before
+    them and read just after; ``want``: each kernel's launches per call."""
     import torch
     from crnn_ocr_torch import load_pretrained
 
     reps = 20
-    pred = load_pretrained("fonts-hard", device="cuda")
-    lines = golden_lines(g, "hard")
-    lines = (lines * (BATCH // len(lines) + 1))[:BATCH]
+    pred = load_pretrained(name, device="cuda")
     for _ in range(3):
         pred.predict(lines, bucket=BUCKET)
     torch.cuda.synchronize()
@@ -365,24 +461,20 @@ def phase_throughput(g, card: str):
         out = pred.predict(lines, bucket=BUCKET)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
-    emit("launches", predict_calls=reps, **counts)
-    require(counts["fused_stem"] == reps,
-            f"fused_stem launched {counts['fused_stem']} times in {reps} "
-            "predict calls (1 per call expected)")
-    require(counts["bigru"] == 2 * reps,
-            f"bigru launched {counts['bigru']} times in {reps} predict "
-            "calls (2 per call expected, one per BiGRU layer)")
-    require(counts["bigru_train"] == counts["ctc_alpha"]
-            == counts["ctc_beta"] == 0,
-            f"serving launched a training kernel: {counts}")
+    emit("launches", model=name, predict_calls=reps, **counts)
+    require_launches(counts, {k: v * reps for k, v in want.items()},
+                     f"{name}: {reps} predict calls")
     require(len(out) == BATCH and all(isinstance(o.text, str) for o in out),
             "throughput run returned malformed predictions")
 
     # per-stage breakdown through the Predictor's own steps, synchronized
-    # after each stage
+    # after each stage (an STN model's front end split into its
+    # localization net and the sampler)
     m = pred.model
-    stages = {k: [] for k in ("preprocess", "stem", "backbone", "rnn_head",
-                              "decode")}
+    keys = ["preprocess", "stem", "backbone", "rnn_head", "decode"]
+    if m.stn is not None:
+        keys[1:1] = ["stn_localize", "sampler"]
+    stages = {k: [] for k in keys}
 
     def clock(key, t0):
         torch.cuda.synchronize()
@@ -396,6 +488,8 @@ def phase_throughput(g, card: str):
             t = time.perf_counter()
             x, w_new = pred.preprocess(lines, BUCKET)
             t = clock("preprocess", t)
+            if m.stn is not None:
+                x, t = stn_stages(m, x, clock, t)
             s = m.stem(x)
             t = clock("stem", t)
             f = m.backbone(s)
@@ -406,31 +500,35 @@ def phase_throughput(g, card: str):
             clock("decode", t)
     stage_ms = {k: statistics.median(v[3:]) for k, v in stages.items()}
     p50 = statistics.median(batch_ms)
-    res = dict(model="fonts-hard", dtype="bfloat16", batch=BATCH,
+    res = dict(model=name, dtype=str(m.dtype).split(".")[-1], batch=BATCH,
                bucket=BUCKET, lines_per_s=BATCH / (p50 / 1e3),
                p50_batch_ms=p50, min_batch_ms=min(batch_ms),
                max_batch_ms=max(batch_ms), stage_ms=stage_ms,
                card=card)
     emit("throughput", **res)
-    emit("trace", **trace_predict(pred, lines))
+    emit("trace", model=name, **trace_predict(pred, lines))
     return counts
+
+
+def stn_stages(m, x, clock, t):
+    """The STN's forward (``models/stn.py::STN.forward``) as two clocked
+    stages: the localization net's theta, then the warp (K11 on the card).
+    Returns the warped frames and the clock."""
+    x = x.to(m.dtype)
+    theta = m.stn.localize(x)
+    t = clock("stn_localize", t)
+    x = m.stn.warp(x, theta)
+    return x, clock("sampler", t)
 
 
 def trace_predict(pred, lines, n: int = 5) -> dict:
     """torch.profiler over ``n`` predict calls: the device's busy share of
     the wall time, and the ops that take the most device and host time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
         for _ in range(n):
             pred.predict(lines, bucket=BUCKET)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    return _trace_summary(prof, wall_us, n)
+
+    return _trace_summary(*profiled(run), n)
 
 
 # ---- slice 2: training fonts-hard, B = 128, bucket 256 ----
@@ -441,34 +539,38 @@ TRAIN_LR = 1e-4  # fine-tuning rate for the counted run: a tenth of the
 TRAIN_STEPS, TRAIN_WARMUP = 30, 3
 
 
-def train_setup(g, dtype: str, dropout: float):
-    """A fonts-hard train state on the card (the shipped weights, ``dtype``
-    and ``dropout``), its raw host batch (the 64 golden lines repeated to
-    128, labels padded to 32) and the device batch produced from it."""
+def train_setup(g, dtype: str, dropout: float, name: str = "fonts-hard",
+                key: str = "hard"):
+    """A train state of bundled model ``name`` on the card (its shipped
+    weights, ``dtype`` and ``dropout``), its raw host batch (the 64 golden
+    ``key`` lines repeated to 128, labels padded to 32) and the device
+    batch produced from it."""
     import dataclasses
 
     import numpy as np
     from crnn_ocr_torch.config import load_model_config
     from crnn_ocr_torch.data.codec import LabelCodec
     from crnn_ocr_torch.data.pipeline import produce_batch
-    from crnn_ocr_torch.infer.weights import (JAX_PRETRAINED, NPZ_DIR,
-                                              load_npz, params_from_jax)
+    from crnn_ocr_torch.infer.pretrained import REGISTRY
+    from crnn_ocr_torch.infer.weights import (JAX_PRETRAINED, import_keras_h5,
+                                              params_from_jax)
     from crnn_ocr_torch.train.state import create_train_state
 
-    src = os.path.join(JAX_PRETRAINED, "fonts_hard")
+    src = os.path.join(JAX_PRETRAINED, REGISTRY[name])
     cfg = dataclasses.replace(
         load_model_config(os.path.join(src, "model_config.json")),
         dtype=dtype, dropout_rate=dropout)
     codec = LabelCodec.load(os.path.join(src, "classes.json"))
-    reps = TRAIN_BATCH // len(g["hard_heights"])
-    truth = [str(t) for t in g["hard_truth"]] * reps
+    reps = TRAIN_BATCH // len(g[f"{key}_heights"])
+    truth = [str(t) for t in g[f"{key}_truth"]] * reps
     labels, lab_len = codec.encode_batch(truth, TRAIN_MAX_LABEL)
-    host = {"the_input": np.concatenate([g["hard_canvas"]] * reps),
-            "heights": np.concatenate([g["hard_heights"]] * reps),
-            "widths": np.concatenate([g["hard_widths"]] * reps),
+    host = {"the_input": np.concatenate([g[f"{key}_canvas"]] * reps),
+            "heights": np.concatenate([g[f"{key}_heights"]] * reps),
+            "widths": np.concatenate([g[f"{key}_widths"]] * reps),
             "the_labels": labels, "label_length": lab_len,
             "bucket": BUCKET, "texts": truth}
-    sd = params_from_jax(*load_npz(os.path.join(NPZ_DIR, "fonts_hard.npz")))
+    sd = params_from_jax(*import_keras_h5(
+        os.path.join(src, "weights.h5"), cfg))
     state = create_train_state(cfg, sd, device="cuda",
                                learning_rate=TRAIN_LR)
     return cfg, codec, state, host, produce_batch(dict(host), "cuda", cfg)
@@ -522,9 +624,11 @@ def check_bigru_train(state, batch, dtype_name: str):
         tolerance=("hs 2e-2 abs; gates 3e-2 + 2e-2 * |plain|" if bf16
                    else "hs and gates 1e-4 abs"),
         kernel_ms=time_ms(lambda: bg.bigru_train(xw, u, rb, uk)),
+        kernel_device_ms=device_ms(lambda: bg.bigru_train(xw, u, rb, uk)),
         k2_same_inputs_ms=time_ms(lambda: bg.bigru_infer(xw, u, rb, uk)),
         plain_ms=time_ms(lambda: bg.bigru_train_plain(xw, u, rb), reps=5),
         library_ms=time_ms(lambda: gru(feat_g)),
+        library_device_ms=device_ms(lambda: gru(feat_g)),
         library="torch.nn.GRU bidirectional (cuDNN), training-mode forward "
                 "on the layer input; includes the input projection",
         bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
@@ -569,6 +673,7 @@ def check_ctc(state, batch, cfg, dtype_name: str):
                    tolerance="1e-4 + 1e-5 * |plain| where finite; NEG "
                              "where plain is NEG",
                    kernel_ms=time_ms(lambda: fn(emits, flags, lens)),
+                   kernel_device_ms=device_ms(lambda: fn(emits, flags, lens)),
                    plain_ms=time_ms(lambda: plain(emits, flags, lens),
                                     reps=5),
                    bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
@@ -585,9 +690,12 @@ def check_ctc(state, batch, cfg, dtype_name: str):
 
     loss = lib_fwd()
     out[0]["library_ms"] = time_ms(lib_fwd)
+    out[0]["library_device_ms"] = device_ms(lib_fwd)
     out[0]["library"] = "F.ctc_loss forward (reduction='none')"
     ones = torch.ones_like(loss)
     out[1]["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        loss, lp_t, ones, retain_graph=True))
+    out[1]["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
         loss, lp_t, ones, retain_graph=True))
     out[1]["library"] = "F.ctc_loss backward alone (autograd.grad)"
     with torch.no_grad():
@@ -612,17 +720,23 @@ def phase_train_kernels(g):
     return checks
 
 
-def phase_train_parity(g):
-    """Phase 7: one f32 train step (dropout 0) through the kernels against
-    the same step through the plain versions on the card, and against the
-    JAX package's step (``testdata/train_goldens.npz``)."""
+TRAIN_KERNELS = {"bigru_train": 2, "ctc_alpha": 1, "ctc_beta": 1}
+STN_TRAIN_KERNELS = dict(TRAIN_KERNELS, grid_sample=1, grid_sample_bwd=1)
+
+
+def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
+                       gold=None, want: dict = TRAIN_KERNELS):
+    """Phases 7 and 12: one f32 train step of ``name`` (dropout 0) through
+    the kernels against the same step through the plain versions on the
+    card, and against the JAX package's step ``gold`` (by default
+    ``testdata/train_goldens.npz``); ``want``: the kernel step's launches."""
     import numpy as np
     import torch
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
 
     def one_step(plain: bool):
-        cfg, _, state, _, batch = train_setup(g, "float32", 0.0)
+        cfg, _, state, _, batch = train_setup(g, "float32", 0.0, name, key)
         ctx = plain_kernels() if plain else contextlib.nullcontext()
         with ctx:
             state.optimizer.zero_grad(set_to_none=True)
@@ -640,10 +754,7 @@ def phase_train_parity(g):
     k_loss, k_vec, k_norm, k_grads, k_sd = one_step(False)
     kernel_counts = read_launches()
     p_loss, p_vec, p_norm, p_grads, p_sd = one_step(True)
-    require(kernel_counts["bigru_train"] == 2 and
-            kernel_counts["ctc_alpha"] == 1 and kernel_counts["ctc_beta"] == 1,
-            f"the kernel step did not run through the kernels: "
-            f"{kernel_counts}")
+    require_launches(kernel_counts, want, f"{name}: the f32 kernel step")
     # kernels against plain versions: loss and norm rtol 2e-5; every
     # parameter's gradient rtol 1e-4 / atol 1e-4 of the leaf's largest (f32
     # sums in other orders; the CTC gradient takes the rounding of alphas
@@ -656,25 +767,25 @@ def phase_train_parity(g):
     # per leaf: the smallest atol, as a share of its largest gradient, that
     # passes it at rtol 1e-4
     grad_err = {}
-    for name, want in p_grads.items():
-        excess = (k_grads[name] - want).abs() - 1e-4 * want.abs()
-        grad_err[name] = (float(excess.clamp(min=0).max())
+    for leaf, want in p_grads.items():
+        excess = (k_grads[leaf] - want).abs() - 1e-4 * want.abs()
+        grad_err[leaf] = (float(excess.clamp(min=0).max())
                           / max(float(want.abs().max()), 1e-30))
     grads_off = [n for n, e in grad_err.items() if e > 1e-4]
     bad = []
-    for name, want in p_sd.items():
-        got = k_sd[name]
+    for leaf, want in p_sd.items():
+        got = k_sd[leaf]
         off = (got - want).abs() > 2e-5 + 2e-4 * want.abs()
-        if name in p_grads:
-            gr = p_grads[name].abs()
+        if leaf in p_grads:
+            gr = p_grads[leaf].abs()
             noise = gr <= 1e-5 * gr.max()
             err_off = (got - want).abs()[off]
             if (bool((off & ~noise).any()) or float(off.float().mean()) > 1e-3
                     or (err_off.numel() and float(err_off.max())
                         > 2 * TRAIN_LR)):
-                bad.append(name)
+                bad.append(leaf)
         elif bool(off.any()):
-            bad.append(name)
+            bad.append(leaf)
     worst = max(grad_err, key=grad_err.get)
     res = dict(
         loss=k_loss, plain_loss=p_loss, grad_norm=k_norm,
@@ -695,14 +806,15 @@ def phase_train_parity(g):
     # (standardized frames within 1e-4 of JAX's), so loss rtol 1e-4, each
     # line's loss 1e-3 + 1e-3 relative, the global and per-parameter
     # gradient norms rtol 2e-3, the BatchNorm statistics atol 1e-4
-    gold = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
-                                "train_goldens.npz"))
+    if gold is None:
+        gold = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                                    "train_goldens.npz"))
     vec_err = np.abs(k_vec.cpu().numpy() - gold["loss_vec"])
     vec_ok = bool((vec_err <= 1e-3 + 1e-3 * np.abs(gold["loss_vec"])).all())
     gn_rel = max(abs(float(k_grads[n].norm()) / float(gold[f"gradnorm/{n}"])
                      - 1) for n in k_grads)
     st_err = max(float(np.abs(k_sd[k[6:]].cpu().numpy() - gold[k]).max())
-                 for k in gold.files if k.startswith("stats/"))
+                 for k in gold if k.startswith("stats/"))
     golden = dict(loss=float(gold["loss"]), grad_norm=float(gold["grad_norm"]),
                   loss_rel_err=abs(k_loss / float(gold["loss"]) - 1),
                   loss_vec_max_abs_err=float(vec_err.max()),
@@ -712,27 +824,29 @@ def phase_train_parity(g):
     golden_ok = (golden["loss_rel_err"] <= 1e-4 and vec_ok
                  and golden["grad_norm_rel_err"] <= 2e-3 and gn_rel <= 2e-3
                  and st_err <= 1e-4)
-    emit("train_parity", kernels_vs_plain=res, ok=ok, vs_jax_golden=golden,
-         golden_ok=golden_ok)
-    require(ok, f"f32 train step: kernels differ from the plain versions: "
-                f"{res}")
-    require(golden_ok, f"f32 train step differs from the JAX golden: "
+    emit("train_parity", model=name, kernels_vs_plain=res, ok=ok,
+         vs_jax_golden=golden, golden_ok=golden_ok)
+    require(ok, f"{name} f32 train step: kernels differ from the plain "
+                f"versions: {res}")
+    require(golden_ok, f"{name} f32 train step differs from the JAX golden: "
                        f"{golden}")
 
 
-def phase_train(g, card: str):
-    """Phase 8, the training path counted: fonts-hard bf16, dropout 0.2,
-    B = 128, bucket 256, fine-tuned on the 64 golden lines. Each step is
-    ``produce_batch`` (the host canvas to device frames) plus ``fit``'s own
-    train step, synchronized and timed; the launch counts are set to 0 just
-    before the timed steps and read just after."""
+def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
+                want: dict = TRAIN_KERNELS):
+    """Phases 8 and 13, a training path counted: ``name`` in bf16, dropout
+    0.2, B = 128, bucket 256, fine-tuned on the 64 golden ``key`` lines.
+    Each step is ``produce_batch`` (the host canvas to device frames) plus
+    ``fit``'s own train step, synchronized and timed; the launch counts are
+    set to 0 just before the timed steps and read just after, and must be
+    ``want``'s per step."""
     import torch
     from crnn_ocr_torch.data.pipeline import produce_batch
     from crnn_ocr_torch.train import loop as loop_lib
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
 
-    cfg, codec, state, host, _ = train_setup(g, "bfloat16", 0.2)
+    cfg, codec, state, host, _ = train_setup(g, "bfloat16", 0.2, name, key)
     train_step = step_lib.make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     losses = []
@@ -753,12 +867,9 @@ def phase_train(g, card: str):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
-    emit("launches", train_steps=TRAIN_STEPS, **counts)
-    want = {"bigru_train": 2 * TRAIN_STEPS, "ctc_alpha": TRAIN_STEPS,
-            "ctc_beta": TRAIN_STEPS, "fused_stem": 0, "bigru": 0}
-    require(all(counts[k] == v for k, v in want.items()),
-            f"train steps launched {counts}; expected {want} (2 K3, 1 K6, "
-            "1 K7, 0 K1 and 0 K2 per step)")
+    emit("launches", model=name, train_steps=TRAIN_STEPS, **counts)
+    require_launches(counts, {k: v * TRAIN_STEPS for k, v in want.items()},
+                     f"{name}: {TRAIN_STEPS} train steps")
     loss_curve = [float(x) for x in losses]
     first, last5 = loss_curve[0], statistics.mean(loss_curve[-5:])
     require(all(map(lambda v: v == v, loss_curve)), "a train loss is NaN")
@@ -766,8 +877,12 @@ def phase_train(g, card: str):
                            f"the last 5 {last5}")
 
     # per-stage breakdown through the same functions, synchronized per stage
-    stages = {k: [] for k in ("preprocess", "forward", "loss", "backward",
-                              "optimizer")}
+    # ("forward" is the model's forward after an STN's two stages)
+    m = state.model
+    keys = ["preprocess", "forward", "loss", "backward", "optimizer"]
+    if m.stn is not None:
+        keys[1:1] = ["stn_localize", "sampler"]
+    stages = {k: [] for k in keys}
 
     def clock(key, t0):
         torch.cuda.synchronize()
@@ -781,7 +896,10 @@ def phase_train(g, card: str):
         batch = produce_batch(dict(host), "cuda", cfg)
         t = clock("preprocess", t)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = state.model(batch["x"], gen)
+        x = batch["x"]
+        if m.stn is not None:
+            x, t = stn_stages(m, x, clock, t)
+        logits = m.head(m.backbone(m.stem(x), gen))
         t = clock("forward", t)
         loss_vec = step_lib.ctc_loss_vec(
             logits, batch["the_labels"], batch["input_length"],
@@ -795,14 +913,14 @@ def phase_train(g, card: str):
     stage_ms = {k: statistics.median(v[2:]) for k, v in stages.items()}
     p50 = statistics.median(step_ms)
     # all the lines of the timed steps over all their time, stalls included
-    emit("train", model="fonts-hard", dtype="bfloat16", batch=TRAIN_BATCH,
+    emit("train", model=name, dtype="bfloat16", batch=TRAIN_BATCH,
          bucket=BUCKET, dropout=0.2, learning_rate=TRAIN_LR,
          steps=TRAIN_WARMUP + TRAIN_STEPS,
          lines_per_s=TRAIN_BATCH * TRAIN_STEPS / (sum(step_ms) / 1e3),
          p50_step_ms=p50, min_step_ms=min(step_ms), max_step_ms=max(step_ms),
          stage_ms=stage_ms, first_loss=first, last5_mean_loss=last5,
          loss_curve=loss_curve, card=card)
-    emit("train_trace", **trace_train(step))
+    emit("train_trace", model=name, **trace_train(step))
 
     # fit and evaluate themselves, outside the counted window
     batches = [produce_batch(dict(host), "cuda", cfg) for _ in range(4)]
@@ -820,17 +938,11 @@ def phase_train(g, card: str):
 def trace_train(step, n: int = 3) -> dict:
     """torch.profiler over ``n`` train steps: the device's idle share, the
     top device and host ops, and the plain BiGRU backward loop's share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
         for _ in range(n):
             step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+
+    prof, wall_us = profiled(run)
     out = _trace_summary(prof, wall_us, n, skip=RANGES)
     for key in RANGES:
         # a range has a host row and a device-timeline row of one name; the
@@ -873,11 +985,203 @@ def _trace_summary(prof, wall_us: float, n: int, skip=()) -> dict:
         return [(r.key[:60], round(getattr(r, attr) / n / 1e3, 4))
                 for r in rows]
 
+    # K11 and K12 (their CUDA names hold sample_fwd / sample_bwd)
+    sampler = sum(r.self_device_time_total for r in avg
+                  if "sample_fwd" in r.key or "sample_bwd" in r.key)
+    # the host's waits on the card (a copy between host memory and the card
+    # waits for the stream; the window's closing synchronize counts once)
+    syncs = [r for r in avg if "Synchronize" in r.key]
     return dict(iterations=n, wall_ms_per_iteration=wall_us / n / 1e3,
                 device_busy_ms_per_iteration=busy / n / 1e3,
                 device_idle_share=1.0 - busy / wall_us,
+                sampler_device_ms_per_iteration=sampler / n / 1e3,
+                syncs_per_iteration=sum(r.count for r in syncs) / n,
+                sync_host_ms_per_iteration=sum(
+                    r.self_cpu_time_total for r in syncs) / n / 1e3,
                 top_device_ms=top("self_device_time_total"),
                 top_host_ms=top("self_cpu_time_total"))
+
+
+# ---- slice 3: the STN front end, fonts-warp-stn (and fonts-stn) ----
+
+STN_NAME, STN_KEY = "fonts-warp-stn", "warp"
+STN_SERVE_KERNELS = {"grid_sample": 1, "fused_stem": 1, "bigru": 2}
+
+
+def check_sampler(img, theta, dtype_name: str, path: str):
+    """K11 and K12 on an STN's input frames ``img`` (B, H, W) in the compute
+    dtype and its ``theta`` (B, 6), against their plain versions; the
+    upstream gradient is drawn from a seed. ``d_img`` is also checked
+    through the autograd Function with an image that requires a gradient.
+    ``F.grid_sample`` (border, align_corners) and its backward are the
+    yardsticks."""
+    import torch
+    import torch.nn.functional as F
+    from crnn_ocr_torch.kernels import grid_sample as gs
+    from crnn_ocr_torch.ops.grid_sample import affine_grid
+
+    B, H, W = img.shape
+    coords = affine_grid(theta, H, W)
+    x, y = gs.pixel_coords(coords, H, W)
+    g = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(7), device="cuda")
+    out = gs.sample_pix(img, x, y)
+    dimg, dx, dy = gs.sample_pix_bwd(img, x, y, g)
+    want = gs.sample_pix_plain(img, x, y)
+    p_dimg, p_dx, p_dy = gs.sample_pix_bwd_plain(img, x, y, g)
+    # d_img through the path's autograd Function, image and coordinates
+    # requiring gradients: kernels against plain versions
+    grads = []
+    for plain in (False, True):
+        im = img.detach().clone().requires_grad_(True)
+        co = coords.detach().clone().requires_grad_(True)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            o = gs.bilinear_sample(im[..., None], co)
+            o.backward(g.reshape(o.shape).to(o.dtype))
+        grads.append((im.grad, co.grad))
+    torch.cuda.synchronize()
+    # the same f32 operations in the same order, each rounded on its own:
+    # 1e-6 + 1e-6 * |plain|; d_img's shared-memory atomics add a pixel's
+    # terms in no fixed order: 1e-5 + 1e-5 * |plain|, and through autograd
+    # with a bf16 image, which gets a bf16 d_img, one bf16 ulp more (at
+    # most 2^-7 of the value)
+    ulp = 2.0 ** -7 if img.dtype == torch.bfloat16 else 0.0
+    errs = {}
+    ok = True
+    for key, a, b, atol, rtol in (
+            ("out", out, want, 1e-6, 1e-6), ("dx", dx, p_dx, 1e-6, 1e-6),
+            ("dy", dy, p_dy, 1e-6, 1e-6), ("d_img", dimg, p_dimg, 1e-5, 1e-5),
+            ("d_img_autograd", grads[0][0], grads[1][0], 1e-5, 1e-5 + ulp),
+            ("d_coords_autograd", grads[0][1], grads[1][1], 1e-5, 1e-5)):
+        errs[key], good = _close(a, b, atol, rtol)
+        ok = ok and good
+    N = x.shape[1]
+    fwd_bytes = nbytes(img, x, y, out)
+    bwd_bytes = nbytes(img, x, y, g, dimg, dx, dy)
+    # ~20 f32 operations a sample forward (corner math, 4 loads, 6 products
+    # and sums), ~40 backward
+    f_ms, f_by = bound_ms(fwd_bytes, 20 * B * N, "float32")
+    b_ms, b_by = bound_ms(bwd_bytes, 40 * B * N, "float32")
+    # yardsticks only: the port never calls F.grid_sample
+    img4 = img.float()[:, None].contiguous()
+    lib_in = img4.clone().requires_grad_(True)
+    lib_grid = coords.detach().clone().requires_grad_(True)
+
+    def lib_fwd(a=img4, grid=coords):
+        return F.grid_sample(a, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    lib_out = lib_fwd(lib_in, lib_grid)
+    g4 = g.reshape(B, 1, H, W)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (lib_in, lib_grid), g4,
+                                   retain_graph=True)
+
+    lib_vs_plain = float((lib_out.detach()[:, 0].reshape(B, N)
+                          - want).abs().max())
+    common = dict(dtype=dtype_name, path=path, B=B, H=H, W=W, N=N, ok=ok)
+    fwd = dict(kernel="grid_sample", **common, max_abs_err=errs["out"],
+               tolerance="1e-6 + 1e-6 * |plain|",
+               kernel_ms=time_ms(lambda: gs.sample_pix(img, x, y)),
+               kernel_device_ms=device_ms(lambda: gs.sample_pix(img, x, y)),
+               plain_ms=time_ms(lambda: gs.sample_pix_plain(img, x, y)),
+               library_ms=time_ms(lib_fwd),
+               library_device_ms=device_ms(lib_fwd),
+               library="F.grid_sample bilinear, border, align_corners "
+                       "(f32 image)",
+               library_vs_plain_max_abs=lib_vs_plain,
+               bound_ms=f_ms, bound_by=f_by, bytes=fwd_bytes, ops=20 * B * N)
+    bwd = dict(kernel="grid_sample_bwd", **common,
+               max_abs_err=max(errs["dx"], errs["dy"], errs["d_img"]),
+               errors=errs,
+               tolerance="dx, dy 1e-6 + 1e-6 * |plain|; d_img 1e-5 + 1e-5 "
+                         "* |plain| (through autograd with a bf16 image, "
+                         "+ 2^-7 * |plain|)",
+               kernel_ms=time_ms(lambda: gs.sample_pix_bwd(img, x, y, g)),
+               kernel_device_ms=device_ms(
+                   lambda: gs.sample_pix_bwd(img, x, y, g)),
+               plain_ms=time_ms(
+                   lambda: gs.sample_pix_bwd_plain(img, x, y, g), reps=5),
+               library_ms=time_ms(lib_bwd),
+               library_device_ms=device_ms(lib_bwd),
+               library="F.grid_sample backward alone (autograd.grad to the "
+                       "image and the grid)",
+               bound_ms=b_ms, bound_by=b_by, bytes=bwd_bytes, ops=40 * B * N)
+    for res in (fwd, bwd):
+        emit("kernel_check", **res)
+        require(res["ok"], f"{res['kernel']} {dtype_name} ({path}): errors "
+                           f"{errs} beyond the tolerances")
+    return [fwd, bwd]
+
+
+def phase_stn_kernels(sg):
+    """Phase 9: K11 and K12 on the STN path's own frames and theta, at the
+    serving shape (B 256, the predictor's preprocessed frames) and the
+    training shape (B 128, the train batch), bf16 and f32, TF32 off."""
+    import torch
+    from crnn_ocr_torch import load_pretrained
+
+    lines = golden_lines(sg, STN_KEY)
+    lines = (lines * (BATCH // len(lines) + 1))[:BATCH]
+    checks = []
+    for dtype_name in ("bfloat16", "float32"):
+        pred = load_pretrained(STN_NAME, device="cuda", dtype=dtype_name)
+        with torch.no_grad():
+            x, _ = pred.preprocess(lines, BUCKET)
+            x = x.to(pred.model.dtype)
+            theta = pred.model.stn.localize(x)
+        checks += check_sampler(x, theta, dtype_name, "serve")
+        _, _, state, _, batch = train_setup(sg, dtype_name, 0.0, STN_NAME,
+                                            STN_KEY)
+        m = state.model
+        with torch.no_grad():
+            x = batch["x"].to(m.dtype)
+            theta = m.stn.localize(x)
+        checks += check_sampler(x, theta, dtype_name, "train")
+    return checks
+
+
+def phase_serve_turns(card: str, hard_lines, stn_lines, rounds: int = 6,
+                      calls: int = 10) -> dict:
+    """Phase 14: ``fonts-hard`` and ``fonts-warp-stn`` served in turns in
+    one call, ``rounds`` rounds of ``calls`` timed ``predict`` calls (B 256,
+    bucket 256, bf16) per run, so that the host's drift over the call
+    reaches every run alike. The runs: fonts-hard on its own lines, on the
+    STN task's lines, and fonts-warp-stn on its lines. The STN's cost is the
+    third run's p50 less the second's; the lines' cost (their sizes change
+    the host's packing and the resize) the second's less the first's."""
+    import torch
+    from crnn_ocr_torch import load_pretrained
+
+    hard = load_pretrained("fonts-hard", device="cuda")
+    stn = load_pretrained(STN_NAME, device="cuda")
+    runs = {"fonts-hard": (hard, hard_lines),
+            "fonts-hard on the STN lines": (hard, stn_lines),
+            STN_NAME: (stn, stn_lines)}
+    for pred, lines in runs.values():
+        for _ in range(3):
+            pred.predict(lines, bucket=BUCKET)
+    times = {k: [] for k in runs}
+    for _ in range(rounds):
+        for key, (pred, lines) in runs.items():
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                pred.predict(lines, bucket=BUCKET)
+                times[key].append((time.perf_counter() - t0) * 1e3)
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    res = dict(
+        rounds=rounds, calls_per_round=calls, batch=BATCH, bucket=BUCKET,
+        p50_batch_ms=p50,
+        lines_per_s={k: BATCH / (v / 1e3) for k, v in p50.items()},
+        round_p50_ms={k: [statistics.median(v[i * calls:(i + 1) * calls])
+                          for i in range(rounds)] for k, v in times.items()},
+        stn_cost_ms=p50[STN_NAME] - p50["fonts-hard on the STN lines"],
+        lines_cost_ms=p50["fonts-hard on the STN lines"] - p50["fonts-hard"],
+        card=card)
+    emit("serve_turns", **res)
+    return res
 
 
 def main() -> int:
@@ -925,14 +1229,33 @@ def main() -> int:
             checks.append(check_stem(m, x, dtype_name))
             checks.append(check_bigru(m, feat, dtype_name))
 
-    phase_goldens(g)
-    counts = phase_throughput(g, card)
+    phase_goldens(g, (("fonts-hard", "hard"), ("fonts-small", "small")),
+                  ("fonts-hard", "hard"))
+    counts = phase_throughput(card, "fonts-hard", lines,
+                              {"fused_stem": 1, "bigru": 2})
 
     # slice 2: training
     checks += phase_train_kernels(g)
     phase_train_parity(g)
     counts.update({k: v for k, v in phase_train(g, card).items()
                    if k in ("bigru_train", "ctc_alpha", "ctc_beta")})
+
+    # slice 3: the STN front end
+    sg = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                              "stn_goldens.npz"))
+    checks += phase_stn_kernels(sg)
+    phase_goldens(sg, (("fonts-stn", "stn"), (STN_NAME, STN_KEY)),
+                  (STN_NAME, STN_KEY))
+    stn_lines = golden_lines(sg, STN_KEY)
+    stn_lines = (stn_lines * (BATCH // len(stn_lines) + 1))[:BATCH]
+    counts["grid_sample"] = phase_throughput(
+        card, STN_NAME, stn_lines, STN_SERVE_KERNELS)["grid_sample"]
+    phase_train_parity(sg, STN_NAME, STN_KEY,
+                       {k[6:]: sg[k] for k in sg.files
+                        if k.startswith("train/")}, STN_TRAIN_KERNELS)
+    counts["grid_sample_bwd"] = phase_train(
+        sg, card, STN_NAME, STN_KEY, STN_TRAIN_KERNELS)["grid_sample_bwd"]
+    phase_serve_turns(card, lines, stn_lines)
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
@@ -945,18 +1268,29 @@ def main() -> int:
                       "crnn_ocr_tpu/kernels/ctc_loss.py:195"),
         "ctc_beta": ("crnn_ocr_torch/kernels/csrc/ctc_loss.cu",
                      "crnn_ocr_tpu/kernels/ctc_loss.py:217"),
+        "grid_sample": ("crnn_ocr_torch/kernels/csrc/grid_sample.cu",
+                        "crnn_ocr_tpu/kernels/grid_sample.py:131"),
+        "grid_sample_bwd": ("crnn_ocr_torch/kernels/csrc/grid_sample.cu",
+                            "crnn_ocr_tpu/kernels/grid_sample.py:160"),
     }
+    # the sampler is checked on both STN paths; each kernel's line keeps
+    # the path that counts its launches
+    main_path = {"grid_sample": "serve", "grid_sample_bwd": "train"}
+    checks = [c for c in checks
+              if c.get("path") == main_path.get(c["kernel"])]
     kernels = []
     for c in checks:
-        if c["dtype"] != "bfloat16":  # both paths run bf16
+        if c["dtype"] != "bfloat16":  # every path runs bf16
             continue
         name = c["kernel"]
         kernels.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1], launches=counts[name],
-            max_abs_err=c["max_abs_err"], ms=c["kernel_ms"],
-            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"],
+            max_abs_err=c["max_abs_err"], ms=c["kernel_device_ms"],
+            event_ms=c["kernel_ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"],
+            library_device_ms=c["library_device_ms"],
             f32_max_abs_err=next(
                 o["max_abs_err"] for o in checks
                 if o["kernel"] == name and o["dtype"] == "float32"),

@@ -3,8 +3,8 @@ kernels written for the H100 (``kernels/csrc``).
 
 A port of ``crnn_ocr_tpu`` (JAX on a TPU), which stays in the repo as the
 reference. This package imports neither JAX nor anything of
-``crnn_ocr_tpu``; it reads only data files (model configs, class maps) from
-``crnn_ocr_tpu/pretrained/``. Entry points run on CUDA unless the caller
+``crnn_ocr_tpu``; it reads only data files (model configs, class maps and
+Keras ``.h5`` weights) from ``crnn_ocr_tpu/pretrained/``. Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 """
 

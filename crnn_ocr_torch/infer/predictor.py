@@ -54,7 +54,10 @@ class Predictor:
         self.codec = codec
         self.normalize = normalize
         self.device = resolve_device(device)
-        self.buckets = tuple(buckets)
+        # an STN model's localization Dense is bound to the width it was
+        # trained at: it serves at that width only (JAX predictor.py:76-81)
+        self.buckets = ((model_cfg.width,) if model_cfg.use_stn
+                        else tuple(buckets))
         self.model = CRNN(model_cfg)
         self.model.load_state_dict(state_dict)
         self.model.eval().requires_grad_(False).to(self.device)

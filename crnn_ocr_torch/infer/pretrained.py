@@ -1,8 +1,8 @@
 """Bundled pretrained models (``crnn_ocr_tpu/infer/pretrained.py``).
 
-The config and the class map are read from the JAX package's
-``crnn_ocr_tpu/pretrained/<dir>/``; the weights from the port's
-``crnn_ocr_torch/pretrained/<dir>.npz`` (see ``infer/weights.py``).
+The config, the class map and the Keras ``.h5`` weights are read from the
+JAX package's ``crnn_ocr_tpu/pretrained/<dir>/`` (the weights through the
+port's own HDF5 reader, ``infer/hdf5.py``).
 
     from crnn_ocr_torch import load_pretrained
     predictor = load_pretrained("fonts-small")          # on the card
@@ -20,17 +20,17 @@ from crnn_ocr_torch.data.codec import LabelCodec
 from crnn_ocr_torch.infer.predictor import Predictor
 from crnn_ocr_torch.infer.weights import (
     JAX_PRETRAINED,
-    NPZ_DIR,
-    load_npz,
+    import_keras_h5,
     params_from_jax,
 )
 
 REGISTRY = {
     "fonts-small": "fonts_small",
     "fonts-hard": "fonts_hard",
+    # STN models: fixed width (their localization Dense), bucket 256 only
+    "fonts-stn": "fonts_stn",
+    "fonts-warp-stn": "fonts_warp_stn",
 }
-# Bundled with the JAX package, but their STN front end is not ported yet.
-NOT_PORTED = ("fonts-stn", "fonts-warp-stn")
 
 
 def load_pretrained(
@@ -45,16 +45,13 @@ def load_pretrained(
     if name not in REGISTRY:
         raise NotImplementedError(
             f"pretrained model {name!r} is not available in the port "
-            f"(have {sorted(REGISTRY)}"
-            + ("; its STN front end is not ported yet)"
-               if name in NOT_PORTED else ")")
-        )
+            f"(have {sorted(REGISTRY)})")
     d = REGISTRY[name]
     src = os.path.join(JAX_PRETRAINED, d)
     cfg = load_model_config(os.path.join(src, "model_config.json"))
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     codec = LabelCodec.load(os.path.join(src, "classes.json"))
-    params, stats = load_npz(os.path.join(NPZ_DIR, f"{d}.npz"))
+    params, stats = import_keras_h5(os.path.join(src, "weights.h5"), cfg)
     return Predictor(cfg, params_from_jax(params, stats), codec,
                      device=device, **kw)

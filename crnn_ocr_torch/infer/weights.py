@@ -1,11 +1,13 @@
-"""Weights: the JAX package's parameter trees -> the port's ``state_dict``.
+"""Weights: Keras ``.h5`` files -> the JAX package's parameter trees -> the
+port's ``state_dict``.
 
-The bundled models ship as Keras ``.h5`` files, and the machine with the
-card has no ``h5py``. So the weights reach the port as ``.npz`` files,
-``crnn_ocr_torch/pretrained/<dir>.npz``, that hold the JAX package's trees
-(``params`` and ``batch_stats``, as ``infer/h5_import.py::import_keras_h5``
-returns them) flattened to ``"params/block0/depthwise/kernel"``-style keys.
-``load_npz`` reads them back; ``params_from_jax`` maps the trees onto
+``import_keras_h5`` reads a Keras ``.h5`` with the canonical layer names
+into the trees that ``crnn_ocr_tpu/infer/h5_import.py::import_keras_h5``
+returns (``params`` and ``batch_stats``, nested dicts of f32 numpy arrays),
+through the port's own HDF5 reader (``infer/hdf5.py``: the machine with the
+card has no ``h5py``). The bundled models are read straight from the JAX
+package's ``crnn_ocr_tpu/pretrained/<dir>/weights.h5``, so no second copy
+of their weights is kept. ``params_from_jax`` maps the trees onto
 ``models.crnn.CRNN``:
 
   conv kernel (kh, kw, in, out)            -> weight (out, in, kh, kw)
@@ -13,27 +15,23 @@ returns them) flattened to ``"params/block0/depthwise/kernel"``-style keys.
   Dense kernel (in, out)                   -> weight (out, in)
   BiGRU kernel/recurrent_kernel/bias       -> unchanged (the kernel's layout)
   BatchNorm scale/bias + mean/var          -> weight/bias + running_mean/var
-
-Write the ``.npz`` files (where ``h5py`` is installed) with
-
-    python -m crnn_ocr_torch.infer.weights --convert
+  stn/Conv_i, Dense_0, Dense_1             -> stn.convs.i, stn.dense,
+                                              stn.theta (STN models)
 """
 
 from __future__ import annotations
 
-import argparse
 import os
-import sys
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from crnn_ocr_torch.infer.hdf5 import H5File
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 JAX_PRETRAINED = os.path.join(REPO, "crnn_ocr_tpu", "pretrained")
-NPZ_DIR = os.path.join(REPO, "crnn_ocr_torch", "pretrained")
-CONVERTED = ("fonts_small", "fonts_hard")
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
@@ -52,11 +50,20 @@ def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     dicts of numpy arrays."""
     params = _tree_np(params)
     stats = _tree_np(batch_stats)
-    if "stn" in params:
-        raise NotImplementedError("STN weights: the STN is not ported yet")
     sd: Dict[str, np.ndarray] = {
         "stem_conv.weight": _conv(params["stem_conv"]["kernel"]),
     }
+    if "stn" in params:
+        stn = params["stn"]
+        i = 0
+        while f"Conv_{i}" in stn:
+            sd[f"stn.convs.{i}.weight"] = _conv(stn[f"Conv_{i}"]["kernel"])
+            sd[f"stn.convs.{i}.bias"] = stn[f"Conv_{i}"]["bias"]
+            i += 1
+        # Dense_0's rows are in flax's NHWC flatten order, which STN keeps
+        for key, name in (("Dense_0", "dense"), ("Dense_1", "theta")):
+            sd[f"stn.{name}.weight"] = stn[key]["kernel"].T
+            sd[f"stn.{name}.bias"] = stn[key]["bias"]
     _bn(sd, "stem_bn", params["stem_bn"], stats["stem_bn"])
     i = 0
     while f"block{i}" in params:
@@ -84,67 +91,22 @@ def _tree_np(tree):
     return np.asarray(tree)
 
 
-def _flatten(tree: dict, prefix: str, out: Dict[str, np.ndarray]) -> None:
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            _flatten(v, f"{prefix}/{k}", out)
-        else:
-            out[f"{prefix}/{k}"] = np.asarray(v, np.float32)
-
-
-def save_npz(path: str, params: dict, batch_stats: dict) -> None:
-    flat: Dict[str, np.ndarray] = {}
-    _flatten(params, "params", flat)
-    _flatten(batch_stats, "batch_stats", flat)
-    np.savez_compressed(path, **flat)
-
-
-def load_npz(path: str) -> Tuple[dict, dict]:
-    """(params, batch_stats) nested dicts of numpy arrays from ``path``."""
-    trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
-    with np.load(path) as data:
-        for key in data.files:
-            parts = key.split("/")
-            node = trees[parts[0]]
-            for p in parts[1:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = data[key]
-    return trees["params"], trees["batch_stats"]
-
-
-# ---- Keras .h5 reading (converter only; needs h5py) ----
-
-
 def _read_h5_layers(path: str) -> Dict[str, List[np.ndarray]]:
     """{layer_name: [weights in saved order]} from a Keras .h5."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise RuntimeError(
-            "reading .h5 weights needs h5py, which is not installed; the "
-            "port loads the converted .npz files instead"
-        ) from e
+    f = H5File(path)
+    g = "model_weights" if f.has("model_weights") else "/"
     out: Dict[str, List[np.ndarray]] = {}
-    with h5py.File(path, "r") as f:
-        g = f["model_weights"] if "model_weights" in f else f
-        for lname in g.attrs["layer_names"]:
-            lname = lname.decode() if isinstance(lname, bytes) else lname
-            lg = g[lname]
-            wnames = [
-                n.decode() if isinstance(n, bytes) else n
-                for n in lg.attrs.get("weight_names", [])
-            ]
-            if wnames:
-                out[lname] = [np.asarray(lg[w]) for w in wnames]
+    for lname in f.attrs(g)["layer_names"]:
+        wnames = f.attrs(f"{g}/{lname}").get("weight_names", [])
+        if wnames:
+            out[lname] = [f.dataset(f"{g}/{lname}/{w}") for w in wnames]
     return out
 
 
 def import_keras_h5(path: str, cfg) -> Tuple[dict, dict]:
     """(params, batch_stats) numpy trees from a Keras .h5 with the canonical
     layer names, as ``crnn_ocr_tpu/infer/h5_import.py::import_keras_h5``
-    builds them (GRU models without an STN)."""
-    if cfg.use_stn:
-        raise NotImplementedError("STN weights: the STN is not ported yet")
+    builds them (GRU models, with or without an STN)."""
     layers = _read_h5_layers(path)
 
     def get(layer: str) -> List[np.ndarray]:
@@ -160,6 +122,17 @@ def import_keras_h5(path: str, cfg) -> Tuple[dict, dict]:
         dst_p[key] = {"scale": gamma, "bias": beta}
         dst_s[key] = {"mean": mean, "var": var}
 
+    if cfg.use_stn:  # the sampler has no weights (h5_import.py:83-99)
+        stn: dict = {}
+        i = 0
+        while f"stn_conv{i}" in layers:
+            k, b = get(f"stn_conv{i}")
+            stn[f"Conv_{i}"] = {"kernel": k, "bias": b}
+            i += 1
+        for key, layer in (("Dense_0", "stn_dense"), ("Dense_1", "stn_theta")):
+            k, b = get(layer)
+            stn[key] = {"kernel": k, "bias": b}
+        params["stn"] = stn
     params["stem_conv"] = {"kernel": get("stem_conv")[0]}
     bn(params, stats, "stem_bn", "stem_bn")
     for i in range(len(cfg.block_filters)):
@@ -196,33 +169,3 @@ def _tree_map(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree_map(v, fn) for k, v in tree.items()}
     return fn(tree)
-
-
-def convert() -> None:
-    """Write ``pretrained/<dir>.npz`` for every converted bundled model."""
-    from crnn_ocr_torch.config import load_model_config
-
-    os.makedirs(NPZ_DIR, exist_ok=True)
-    for d in CONVERTED:
-        src = os.path.join(JAX_PRETRAINED, d)
-        cfg = load_model_config(os.path.join(src, "model_config.json"))
-        params, stats = import_keras_h5(os.path.join(src, "weights.h5"), cfg)
-        out = os.path.join(NPZ_DIR, f"{d}.npz")
-        save_npz(out, params, stats)
-        print(f"wrote {out} ({os.path.getsize(out)} bytes)")
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--convert", action="store_true",
-                    help="write the .npz weights of the bundled models")
-    args = ap.parse_args(argv)
-    if not args.convert:
-        ap.print_help()
-        return 2
-    convert()
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

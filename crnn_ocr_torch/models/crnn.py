@@ -25,8 +25,15 @@ K8-K10 (``kernels/fused_stem_train.py``) take over in the next slice.
 
 Under ``dtype="bfloat16"`` weights and activations are cast as flax's
 ``dtype=bf16`` modules cast them: convolutions and dense layers take bf16
-operands, BatchNorm computes in f32 and casts its result back. The STN
-front end is not ported yet.
+operands, BatchNorm computes in f32 and casts its result back.
+
+With ``cfg.use_stn`` the image, cast to the compute dtype, first goes
+through the ``STN`` (``models/stn.py``; ``crnn.py:272-276``), in both
+modes: serving then runs K1 on the warped image, and training keeps the
+plain stem, whose convolution passes the gradient on to the warped image
+and through K12 to ``theta`` (the JAX package gates its fused train stem
+off for STN models, ``crnn.py:231-232``, because K10 returns no image
+gradient).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch import nn
 from crnn_ocr_torch.config import ModelConfig
 from crnn_ocr_torch.kernels.fused_stem import fold_bn, fused_stem_serve
 from crnn_ocr_torch.models.rnn import BiRNN
+from crnn_ocr_torch.models.stn import STN
 
 BN_EPS = 1e-3  # Keras BatchNormalization default
 BN_MOMENTUM = 0.99  # Keras BatchNormalization default
@@ -135,13 +143,11 @@ class CRNN(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.use_stn:
-            raise NotImplementedError(
-                "use_stn: the STN front end is not ported yet"
-            )
         self.cfg = cfg
         self.dtype = {"float32": torch.float32,
                       "bfloat16": torch.bfloat16}[cfg.dtype]
+        self.stn = (STN(cfg.height, cfg.width, self.dtype) if cfg.use_stn
+                    else None)
         self.stem_conv = nn.Conv2d(1, cfg.stem_filters, 3, padding=1,
                                    bias=False)
         # NCHW for the training stem; serving folds it into K1's affine
@@ -209,4 +215,6 @@ class CRNN(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the dropout stream, needed in training mode when
         ``cfg.dropout_rate > 0``."""
+        if self.stn is not None:
+            x = self.stn(x.to(self.dtype))
         return self.head(self.backbone(self.stem(x), generator))

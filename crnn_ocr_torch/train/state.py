@@ -14,8 +14,9 @@ update count.
 ``create_train_state`` starts from given weights (fine-tuning) or from a
 seeded init with flax's initializer families (lecun-normal convolutions
 and dense layers, glorot-uniform input and orthogonal recurrent GRU
-kernels, zero biases, unit BatchNorm scales): the same distributions as the
-JAX package's ``model.init``, not the same numbers.
+kernels, zero biases, unit BatchNorm scales; the STN's theta layer with a
+zero kernel and the identity bias): the same distributions as the JAX
+package's ``model.init``, not the same numbers.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from crnn_ocr_torch.config import ModelConfig
 from crnn_ocr_torch.infer.predictor import resolve_device
 from crnn_ocr_torch.models.crnn import CRNN
+from crnn_ocr_torch.models.stn import IDENTITY
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -159,6 +161,8 @@ def init_weights(model: CRNN, seed: int = 0) -> None:
             # HWIO fan_in = kh * kw * in / groups
             fan_in = mod.weight[0].numel()
             _lecun_normal_(mod.weight, fan_in, gen)
+            if mod.bias is not None:  # the STN's convolutions
+                mod.bias.zero_()
         elif isinstance(mod, torch.nn.Linear):
             _lecun_normal_(mod.weight, mod.in_features, gen)
             mod.bias.zero_()
@@ -176,6 +180,9 @@ def init_weights(model: CRNN, seed: int = 0) -> None:
             mod.bias.zero_()
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
+    if model.stn is not None:  # theta starts at the identity transform
+        model.stn.theta.weight.zero_()
+        model.stn.theta.bias.copy_(torch.tensor(IDENTITY))
 
 
 def create_train_state(

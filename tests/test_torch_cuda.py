@@ -13,7 +13,11 @@ gates) in f32 to 1e-5 over 6 steps and in bf16 to 2^-7, two ulps of outputs
 in (-1, 1); the CTC recursions (K6, K7) to 1e-4 + 1e-5 * |value| where a
 path exists (f32 log-sum-exps with CUDA's expf/logf, over up to 61
 dependent frames) and exactly NEG where none does; the CTC gradient to
-rtol 1e-4 / atol 1e-5, as the CPU tests hold it to JAX. TF32 is off.
+rtol 1e-4 / atol 1e-5, as the CPU tests hold it to JAX; the bilinear
+sampler (K11) and its dx, dy (K12) to 1e-6 + 1e-6 * |value| (the same f32
+operations in the same order, each rounded on its own), and K12's d_img to
+1e-5 + 1e-5 * |value| (shared-memory atomics add a pixel's terms in no fixed
+order). TF32 is off.
 """
 
 import os
@@ -25,6 +29,7 @@ import torch
 from crnn_ocr_torch.kernels import bigru as tbg
 from crnn_ocr_torch.kernels import ctc_loss as tcl
 from crnn_ocr_torch.kernels import fused_stem as tfs
+from crnn_ocr_torch.kernels import grid_sample as tgs
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GOLDENS = os.path.join(os.path.dirname(os.path.dirname(
@@ -231,3 +236,66 @@ def test_train_step_on_card_matches_plain_and_jax_golden(card):
     import chip_smoke
 
     chip_smoke.phase_train_parity(np.load(GOLDENS))
+
+
+def _sampler_case(seed, B, H, W, N, dtype):
+    """An image, pixel coordinates that overshoot every border (the clamp)
+    and an upstream gradient."""
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.normal(size=(B, H, W)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-3, W + 2, (B, N)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-3, H + 2, (B, N)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(B, N)).astype(np.float32))
+    return img.to(DTYPES[dtype]), x, y, g
+
+
+def _assert_near(got, want, tol):
+    got, want = got.float().cpu(), want.float()
+    err = (got - want).abs()
+    assert bool((err <= tol + tol * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,H,W,N", [(256, 32, 256, 8192), (3, 16, 24, 384),
+                                     (2, 5, 7, 1000), (1, 1, 1, 3)])
+def test_grid_sample_kernels_match_plain(card, dtype, B, H, W, N):
+    """K11's samples and K12's d_img, dx and dy against the plain versions,
+    on the image's own dtype (bf16 is read as f32 by both)."""
+    img, x, y, g = _sampler_case(10, B, H, W, N, dtype)
+    n11, n12 = tgs.launches, tgs.bwd_launches
+    got = tgs.sample_pix(img.to(card), x.to(card), y.to(card))
+    got_b = tgs.sample_pix_bwd(img.to(card), x.to(card), y.to(card),
+                               g.to(card))
+    torch.cuda.synchronize()
+    assert (tgs.launches, tgs.bwd_launches) == (n11 + 1, n12 + 1)
+    _assert_near(got, tgs.sample_pix_plain(img, x, y), 1e-6)
+    want_b = tgs.sample_pix_bwd_plain(img, x, y, g)
+    _assert_near(got_b[0], want_b[0], 1e-5)
+    for a, b in zip(got_b[1:], want_b[1:]):
+        _assert_near(a, b, 1e-6)
+
+
+@pytest.mark.cuda
+def test_grid_sample_autograd_on_card_matches_cpu(card):
+    """The warp of an STN, on the card (K11 forward, K12 backward) against
+    the CPU (plain versions): samples and the gradients with respect to the
+    image and to theta."""
+    from crnn_ocr_torch.ops.grid_sample import grid_sample_affine
+
+    rng = np.random.default_rng(12)
+    img = torch.from_numpy(rng.normal(size=(4, 32, 256, 1)).astype(np.float32))
+    theta = torch.from_numpy((rng.normal(size=(4, 6)) * 0.1
+                              + [1, 0, 0, 0, 1, 0]).astype(np.float32))
+    outs, grads = [], []
+    for dev in ("cpu", card):
+        i = img.clone().to(dev).requires_grad_(True)
+        t = theta.clone().to(dev).requires_grad_(True)
+        out = grid_sample_affine(i, t)
+        torch.sin(out * 3.0).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append((i.grad.cpu(), t.grad.cpu()))
+    _assert_near(outs[1], outs[0], 1e-6)
+    _assert_near(grads[1][0], grads[0][0], 1e-5)
+    np.testing.assert_allclose(grads[1][1].numpy(), grads[0][1].numpy(),
+                               rtol=1e-4, atol=1e-4)

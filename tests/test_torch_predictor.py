@@ -93,9 +93,8 @@ def test_entry_points_refuse_what_is_not_ported():
     pred = load_pretrained("fonts-small", device="cpu")
     with pytest.raises(NotImplementedError, match="beam"):
         pred.predict([np.full((32, 40), 255, np.uint8)], greedy=False)
-    for name in ("fonts-stn", "fonts-warp-stn", "nope"):
-        with pytest.raises(NotImplementedError, match="not available"):
-            load_pretrained(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="not available"):
+        load_pretrained("nope", device="cpu")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

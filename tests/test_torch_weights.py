@@ -1,8 +1,9 @@
 """Port weights and import hygiene.
 
-* The committed ``crnn_ocr_torch/pretrained/*.npz`` hold exactly what the
-  JAX package's ``import_keras_h5`` returns for the bundled ``.h5`` files,
-  and the port's own ``.h5`` reader returns the same arrays.
+* The port's ``import_keras_h5`` (through its own HDF5 reader,
+  ``infer/hdf5.py``) returns exactly what the JAX package's returns for the
+  bundled ``.h5`` files, and the reader equals ``h5py`` on every Keras
+  ``.h5`` in the repo.
 * ``params_from_jax`` carries a JAX parameter tree over so that the port's
   forward pass reproduces JAX's (rtol 1e-4 / atol 2e-5 on softmax outputs,
   as ``tests/test_keras_parity.py``).
@@ -16,6 +17,7 @@ import pathlib
 import subprocess
 import sys
 
+import h5py
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ import torch
 from crnn_ocr_torch.config import ModelConfig as TorchConfig
 from crnn_ocr_torch.config import load_model_config
 from crnn_ocr_torch.infer import weights as tw
+from crnn_ocr_torch.infer.hdf5 import H5File
 from crnn_ocr_torch.models import CRNN as TorchCRNN
 from crnn_ocr_tpu.infer.h5_import import import_keras_h5
 from crnn_ocr_tpu.infer.pretrained import pretrained_dir
@@ -43,29 +46,85 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("name", ["fonts-small", "fonts-hard"])
+BUNDLED = ["fonts-small", "fonts-hard", "fonts-stn", "fonts-warp-stn"]
+
+
+@pytest.mark.parametrize("name", BUNDLED)
 def test_npz_equals_import_keras_h5(name):
+    """The weights the port loads (its own reader of the bundled ``.h5``)
+    equal the JAX package's ``import_keras_h5``, array for array."""
     d = pretrained_dir(name)
     jcfg_d = load_model_config(os.path.join(d, "model_config.json"))
     jcfg = ModelConfig(**{k: getattr(jcfg_d, k) for k in (
         "num_classes", "block_filters", "block_pools", "rnn_layers",
         "use_stn")})
     want_p, want_s = import_keras_h5(os.path.join(d, "weights.h5"), jcfg)
-    got_p, got_s = tw.load_npz(os.path.join(
-        tw.NPZ_DIR, f"{os.path.basename(d)}.npz"))
+    got_p, got_s = tw.import_keras_h5(os.path.join(d, "weights.h5"), jcfg_d)
+    assert ("stn" in got_p) == jcfg.use_stn
     for got, want in ((got_p, want_p), (got_s, want_s)):
         got, want = _flat(got), _flat(want)
         assert sorted(got) == sorted(want)
         for k in want:
             assert got[k].dtype == np.float32
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    # the port's own .h5 reader (the converter's) agrees array for array
-    own_p, own_s = tw.import_keras_h5(os.path.join(d, "weights.h5"), jcfg_d)
-    assert _flat(own_p).keys() == _flat(want_p).keys()
-    for k, v in _flat(own_p).items():
-        np.testing.assert_array_equal(v, _flat(want_p)[k], err_msg=k)
-    for k, v in _flat(own_s).items():
-        np.testing.assert_array_equal(v, _flat(want_s)[k], err_msg=k)
+    # and they load into the port's CRNN
+    TorchCRNN(jcfg_d).load_state_dict(tw.params_from_jax(got_p, got_s))
+
+
+def _h5_files():
+    return sorted(str(p.relative_to(REPO)) for p in
+                  list((REPO / "crnn_ocr_tpu" / "pretrained").rglob("*.h5"))
+                  + list((REPO / "tests" / "goldens").rglob("*.h5")))
+
+
+@pytest.mark.parametrize("rel", _h5_files())
+def test_hdf5_reader_equals_h5py(rel):
+    """Every Keras ``.h5`` in the repo: the layer and weight names and
+    every array, bit for bit, against ``h5py``."""
+    path = str(REPO / rel)
+    f = H5File(path)
+    with h5py.File(path, "r") as h:
+        g = "model_weights" if "model_weights" in h else "/"
+
+        def names(attrs, key):
+            return [n.decode() if isinstance(n, bytes) else n
+                    for n in attrs.get(key, [])]
+
+        layers = names(h[g].attrs, "layer_names")
+        assert f.attrs(g)["layer_names"] == layers
+        assert sorted(f.keys(g)) == sorted(h[g].keys())
+        n = 0
+        for lname in layers:
+            wnames = names(h[g][lname].attrs, "weight_names")
+            assert f.attrs(f"{g}/{lname}").get("weight_names", []) == wnames
+            for w in wnames:
+                got = f.dataset(f"{g}/{lname}/{w}")
+                want = np.asarray(h[g][lname][w])
+                assert got.dtype == want.dtype and got.shape == want.shape
+                np.testing.assert_array_equal(got, want, err_msg=w)
+                n += 1
+    assert n > 0
+
+
+def test_hdf5_reader_refuses_what_it_cannot_read(tmp_path):
+    path = str(tmp_path / "chunked.h5")
+    with h5py.File(path, "w") as h:
+        h.create_dataset("x", data=np.arange(64, dtype=np.float32),
+                         chunks=(16,), compression="gzip")
+        h.create_dataset("y", data=np.arange(6, dtype=">f8").reshape(2, 3))
+        h.attrs["s"] = "one"
+        h.attrs["fixed"] = np.array([b"ab", b"cde"])
+    f = H5File(path)
+    with pytest.raises(NotImplementedError, match="chunked"):
+        f.dataset("x")
+    np.testing.assert_array_equal(f.dataset("y"),
+                                  np.arange(6.0).reshape(2, 3))
+    assert f.attrs("/") == {"s": "one", "fixed": ["ab", "cde"]}
+    with pytest.raises(KeyError):
+        f.dataset("z")
+    (tmp_path / "no.h5").write_bytes(b"not hdf5")
+    with pytest.raises(ValueError, match="not an HDF5 file"):
+        H5File(str(tmp_path / "no.h5"))
 
 
 def test_params_from_jax_reproduces_jax_forward():
@@ -90,18 +149,6 @@ def test_params_from_jax_reproduces_jax_forward():
     with torch.inference_mode():
         got = torch.softmax(model.eval()(torch.from_numpy(x[..., 0])), -1)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
-
-
-def test_npz_round_trip(tmp_path):
-    p, s = tw.load_npz(os.path.join(tw.NPZ_DIR, "fonts_small.npz"))
-    path = str(tmp_path / "w.npz")
-    tw.save_npz(path, p, s)
-    p2, s2 = tw.load_npz(path)
-    for a, b in ((p, p2), (s, s2)):
-        fa, fb = _flat(a), _flat(b)
-        assert fa.keys() == fb.keys()
-        for k in fa:
-            np.testing.assert_array_equal(fa[k], fb[k])
 
 
 def _port_sources():
@@ -130,7 +177,11 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/train/step.py", "crnn_ocr_torch/train/state.py",
             "crnn_ocr_torch/data/pipeline.py",
             "crnn_ocr_torch/data/synthetic.py",
-            "crnn_ocr_torch/utils/metrics.py"} <= names
+            "crnn_ocr_torch/utils/metrics.py",
+            "crnn_ocr_torch/kernels/grid_sample.py",
+            "crnn_ocr_torch/ops/grid_sample.py",
+            "crnn_ocr_torch/models/stn.py",
+            "crnn_ocr_torch/infer/hdf5.py"} <= names
     assert not bad, bad
 
 
@@ -141,8 +192,11 @@ def test_importing_the_port_loads_no_jax():
         "crnn_ocr_torch.kernels._build, crnn_ocr_torch.kernels.ctc_loss, "
         "crnn_ocr_torch.train.loop, crnn_ocr_torch.train.state, "
         "crnn_ocr_torch.train.step, crnn_ocr_torch.data.pipeline, "
-        "crnn_ocr_torch.data.synthetic, crnn_ocr_torch.utils.metrics\n"
+        "crnn_ocr_torch.data.synthetic, crnn_ocr_torch.utils.metrics, "
+        "crnn_ocr_torch.kernels.grid_sample, crnn_ocr_torch.ops.grid_sample, "
+        "crnn_ocr_torch.models.stn, crnn_ocr_torch.infer.hdf5\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-small', device='cpu')\n"
+        "p = crnn_ocr_torch.load_pretrained('fonts-warp-stn', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

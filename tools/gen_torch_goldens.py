@@ -30,9 +30,26 @@ recurrence, which its tests hold equal to the Pallas kernels) on the 64
   ``state_dict`` names;
 * ``stats/<name>``: every BatchNorm's running statistics after the step.
 
+``--stn`` writes ``crnn_ocr_torch/testdata/stn_goldens.npz`` for the two
+STN models, 64 lines each from its own task, width-filtered to 256:
+
+* prefix ``warp_`` (``fonts-warp-stn``: the render-time warped task that
+  ``benchmarks/stn_ab_eval.json`` records) and ``stn_`` (``fonts-stn``: the
+  default ``FontConfig``, the task of ``tests/test_pretrained.py``), each
+  with ``canvas``/``heights``/``widths``/``truth`` and the JAX f32
+  ``texts_f32``/``scores_f32`` as above;
+* ``warp_texts_bf16``/``warp_scores_bf16``: ``fonts-warp-stn`` as shipped
+  (bf16), its sampler through ``bilinear_sample_pallas`` (K11) and the
+  serve stem and recurrence through their Pallas kernels, all in interpret
+  mode;
+* ``train/...``: one f32 ``fonts-warp-stn`` train step as ``--train``
+  writes it (dropout 0, the 64 ``warp`` lines repeated to 128, bucket 256,
+  labels padded to 32; the sampler is the JAX package's XLA path under
+  ``jax.grad``), STN leaves included.
+
 Run from the repo root (several minutes on the CPU):
 
-    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py [--train]
+    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py [--train | --stn]
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ sys.path.insert(0, REPO)
 OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata", "greedy_goldens.npz")
 TRAIN_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                          "train_goldens.npz")
+STN_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata", "stn_goldens.npz")
 TRAIN_BATCH, TRAIN_BUCKET, TRAIN_MAX_LABEL = 128, 256, 32
 
 N_LINES = 64
@@ -65,6 +83,15 @@ TASKS = {
         model="fonts-small", bucket=128, seed=20262,
         font=dict(noise=0.06, min_words=1, max_words=2),
     ),
+}
+STN_TASKS = {
+    "warp": dict(
+        model="fonts-warp-stn", bucket=256, seed=20263,
+        font=dict(min_words=1, max_words=2, noise=0.06, min_size=16,
+                  max_size=24, warp_shear=0.9, warp_rotate=4.0,
+                  warp_perspective=0.25),
+    ),
+    "stn": dict(model="fonts-stn", bucket=256, seed=20264, font=dict()),
 }
 
 
@@ -85,9 +112,12 @@ def render(font_kw: dict, bucket: int, seed: int):
 
 
 def jax_predict(name: str, images, dtype: str, pallas: bool):
+    import contextlib
+
     from crnn_ocr_tpu.infer import load_pretrained
     from crnn_ocr_tpu.infer.predictor import Predictor
     from crnn_ocr_tpu.models import CRNN
+    from crnn_ocr_tpu.models import stn as stn_mod
 
     base = load_pretrained(name)
     cfg = dataclasses.replace(
@@ -95,27 +125,51 @@ def jax_predict(name: str, images, dtype: str, pallas: bool):
     )
     pred = Predictor(cfg, base._vars["params"], base._vars["batch_stats"],
                      base.codec)
+    route = contextlib.nullcontext()
     if pallas:
         # the forward closure reads pred._model when it traces
         pred._model = CRNN(cfg=cfg, pallas_interpret=True)
-    out = pred.predict(images)
+        if cfg.use_stn:  # the sampler too, as tests/test_kernels.py routes it
+            route = _pallas_sampler(stn_mod)
+    with route:
+        out = pred.predict(images)
     return [p.text for p in out], np.array([p.score for p in out], np.float32)
 
 
-def train_batch(g, codec):
-    """The train golden's batch from the committed greedy goldens: canvas,
-    heights, widths (numpy, the 64 ``hard`` lines repeated to 128), dense
+def _pallas_sampler(stn_mod):
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = stn_mod.grid_sample_affine
+        stn_mod.grid_sample_affine = (
+            lambda img, theta, mesh=None, interpret=False, **kw: orig(
+                img, theta, use_pallas=True, interpret=True))
+        try:
+            yield
+        finally:
+            stn_mod.grid_sample_affine = orig
+
+    return ctx()
+
+
+def train_batch(g, codec, key="hard"):
+    """The train golden's batch from the committed goldens: canvas,
+    heights, widths (numpy, the 64 ``key`` lines repeated to 128), dense
     labels and label lengths."""
-    reps = TRAIN_BATCH // len(g["hard_heights"])
-    canvas = np.concatenate([g["hard_canvas"]] * reps)
-    hs = np.concatenate([g["hard_heights"]] * reps)
-    ws = np.concatenate([g["hard_widths"]] * reps)
-    truth = [str(t) for t in g["hard_truth"]] * reps
+    reps = TRAIN_BATCH // len(g[f"{key}_heights"])
+    canvas = np.concatenate([g[f"{key}_canvas"]] * reps)
+    hs = np.concatenate([g[f"{key}_heights"]] * reps)
+    ws = np.concatenate([g[f"{key}_widths"]] * reps)
+    truth = [str(t) for t in g[f"{key}_truth"]] * reps
     labels, lab_len = codec.encode_batch(truth, TRAIN_MAX_LABEL)
     return canvas, hs, ws, labels, lab_len
 
 
-def write_train_golden() -> None:
+def train_step_golden(model_name: str, g, key: str) -> dict:
+    """One f32 train step of ``model_name`` (dropout 0, XLA paths) on the
+    ``key`` lines of ``g``: loss_vec, loss, grad_norm, gradnorm/<name>,
+    stats/<name>."""
     import jax
     import jax.numpy as jnp
 
@@ -125,13 +179,12 @@ def write_train_golden() -> None:
     from crnn_ocr_tpu.ops.preprocess import preprocess_batch
     from crnn_ocr_tpu.train.step import ctc_loss_vec, optax_global_norm
 
-    base = load_pretrained("fonts-hard")
+    base = load_pretrained(model_name)
     cfg = dataclasses.replace(base.cfg, dtype="float32", dropout_rate=0.0,
                               use_pallas_rnn=False, use_fused_stem=False)
     model = CRNN(cfg=cfg)
     params, stats = base._vars["params"], base._vars["batch_stats"]
-    g = np.load(OUT)
-    canvas, hs, ws, labels, lab_len = train_batch(g, base.codec)
+    canvas, hs, ws, labels, lab_len = train_batch(g, base.codec, key)
     x, w_new = preprocess_batch(canvas, hs, ws, out_h=cfg.height,
                                 out_w=TRAIN_BUCKET)
     T = TRAIN_BUCKET // cfg.width_downsample
@@ -160,23 +213,22 @@ def write_train_golden() -> None:
             arrays[f"stats/{k}"] = stat_sd[k].numpy()
         else:
             arrays[f"gradnorm/{k}"] = np.float32(np.linalg.norm(v.numpy()))
+    print(f"{model_name} train golden: loss {float(loss):.6f} grad_norm "
+          f"{float(arrays['grad_norm']):.6f}")
+    return arrays
+
+
+def write_train_golden() -> None:
+    arrays = train_step_golden("fonts-hard", np.load(OUT), "hard")
     np.savez_compressed(TRAIN_OUT, **arrays)
-    print(f"train golden: loss {float(loss):.6f} grad_norm "
-          f"{float(arrays['grad_norm']):.6f}; wrote {TRAIN_OUT} "
-          f"({os.path.getsize(TRAIN_OUT)} bytes)")
+    print(f"wrote {TRAIN_OUT} ({os.path.getsize(TRAIN_OUT)} bytes)")
 
 
-def main() -> int:
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    if "--train" in sys.argv[1:]:
-        write_train_golden()
-        return 0
+def golden_lines(arrays: dict, tasks: dict) -> dict:
+    """Render each task's lines and run the JAX predictor in f32 on them."""
     from crnn_ocr_tpu.ops.preprocess import pack_canvas
 
-    arrays = {}
-    for key, task in TASKS.items():
+    for key, task in tasks.items():
         images, truth = render(task["font"], task["bucket"], task["seed"])
         canvas, hs, ws = pack_canvas(images)
         arrays[f"{key}_canvas"] = canvas
@@ -188,15 +240,42 @@ def main() -> int:
         arrays[f"{key}_scores_f32"] = scores
         acc = np.mean([a == b for a, b in zip(texts, truth)])
         print(f"{task['model']} f32: line accuracy vs truth {acc:.3f}")
-    texts, scores = jax_predict("fonts-hard", [
-        arrays["hard_canvas"][i, :h, :w]
+    return arrays
+
+
+def bf16_golden(arrays: dict, key: str, model: str) -> None:
+    texts, scores = jax_predict(model, [
+        arrays[f"{key}_canvas"][i, :h, :w]
         for i, (h, w) in enumerate(
-            zip(arrays["hard_heights"], arrays["hard_widths"]))
+            zip(arrays[f"{key}_heights"], arrays[f"{key}_widths"]))
     ], "bfloat16", True)
-    arrays["hard_texts_bf16"] = np.array(texts)
-    arrays["hard_scores_bf16"] = scores
-    diff = sum(a != b for a, b in zip(texts, arrays["hard_texts_f32"]))
-    print(f"fonts-hard bf16 (Pallas interpret) vs f32: {diff} lines differ")
+    arrays[f"{key}_texts_bf16"] = np.array(texts)
+    arrays[f"{key}_scores_bf16"] = scores
+    diff = sum(a != b for a, b in zip(texts, arrays[f"{key}_texts_f32"]))
+    print(f"{model} bf16 (Pallas interpret) vs f32: {diff} lines differ")
+
+
+def write_stn_goldens() -> None:
+    arrays = golden_lines({}, STN_TASKS)
+    bf16_golden(arrays, "warp", "fonts-warp-stn")
+    for k, v in train_step_golden("fonts-warp-stn", arrays, "warp").items():
+        arrays[f"train/{k}"] = v
+    np.savez_compressed(STN_OUT, **arrays)
+    print(f"wrote {STN_OUT} ({os.path.getsize(STN_OUT)} bytes)")
+
+
+def main() -> int:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    if "--train" in sys.argv[1:]:
+        write_train_golden()
+        return 0
+    if "--stn" in sys.argv[1:]:
+        write_stn_goldens()
+        return 0
+    arrays = golden_lines({}, TASKS)
+    bf16_golden(arrays, "hard", "fonts-hard")
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **arrays)
     print(f"wrote {OUT} ({os.path.getsize(OUT)} bytes)")
