@@ -35,15 +35,18 @@ lines repeated, labels padded to 32):
    stash's cost) and ``nn.GRU`` / ``F.ctc_loss`` as yardsticks.
 7. One f32 train step (dropout 0) through the kernels against the same
    step through the plain versions on the card (loss, grad_norm, every
-   parameter's gradient and every updated parameter), and against the JAX package's step
+   parameter's gradient and every updated parameter; the backbone's
+   convolutions off cuDNN in both), and against the JAX package's step
    (``crnn_ocr_torch/testdata/train_goldens.npz``).
 8. The training path, counted: 30 timed steps of ``produce_batch`` plus
    ``fit``'s train step (dropout 0.2, learning rate 1e-4) with the launch
    counts set to 0 just before and read just after: each step must launch
-   K3 twice, K6 and K7 once, K1 and K2 never; the mean loss of the last 5
-   steps must be below the first step's. Then lines/s over the timed
-   steps' whole time, the p50 step, a
-   per-stage breakdown, a profiler trace, and ``fit`` with an evaluation.
+   K3 twice, K6 and K7 once, the training stem's K8, K1, K9 and K10 once,
+   K2 never; the mean loss of the last 5 steps must be below the first
+   step's. Then lines/s over the timed steps' whole time, the p50 step, a
+   per-stage breakdown (the stem's forward a stage of its own, its
+   backward a trace range), a profiler trace, and ``fit`` with an
+   evaluation.
 
 Slice 3, the STN front end (``fonts-warp-stn``: n_units 256, bf16, fixed
 bucket 256; and ``fonts-stn``), on the 64 lines of each model's own task in
@@ -65,21 +68,42 @@ bucket 256; and ``fonts-stn``), on the 64 lines of each model's own task in
 12. One f32 ``fonts-warp-stn`` train step: kernels against plain versions,
     and against the JAX step (``stn_goldens.npz``, ``train/``).
 13. Fine-tuning ``fonts-warp-stn`` counted, as phase 8 (bf16, B 128): each
-    step must launch K11 and K12 once, K3 twice, K6 and K7 once, K1 and K2
-    never; the loss must fall.
+    step must launch K11 and K12 once, K3 twice, K6 and K7 once, K1, K2
+    and K8-K10 never (an STN model trains through the plain stem); the
+    loss must fall.
 14. Serving in turns: ``fonts-hard`` on its lines and on the STN task's,
     and ``fonts-warp-stn`` on its own, alternated within the call, so that
     the STN's cost and the lines' cost read apart from the host's drift.
 
+Slice 4, the training stem (``fonts-small``: n_units 128, time_dense 64,
+B 128, bucket 128, on its 64 golden lines repeated):
+
+15. K8 (batch statistics), K9 and K10 (the stem backward's partial sums and
+    weight gradient) against their plain versions on the training path's
+    own image, weights and pooled gradient, at ``fonts-small``'s shape and
+    at ``fonts-hard``'s (bucket 256), bf16 and f32, TF32 off; K1's time in
+    the training forward; cuDNN's conv + ``torch.var_mean`` (K8) and the
+    plain stem's autograd backward (K9 + K10 as a pair) as yardsticks.
+16. One f32 ``fonts-small`` train step: kernels against plain versions,
+    and against the JAX step (``train_goldens.npz``, ``small/``), which ran
+    the JAX package's fused train stem.
+17. Fine-tuning ``fonts-small`` counted, as phase 8 (bf16, dropout 0.2):
+    each step must launch K8, K9, K10 and K1 once, K3 twice, K6 and K7
+    once, K2 never; the loss must fall.
+
 The last lines are the card's ``name, power.limit``, the kernels' JSON
 line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's, K11
-with phase 11's and K12 with phase 13's) and
+with phase 11's, K12 with phase 13's and K8-K10 with phase 17's) and
 ``{"ok": true, "device": {...}}``. In the kernels' line ``ms`` is the
 kernel's device time per call (``device_ms``: torch.profiler's kernel
 durations) and ``event_ms`` the CUDA-event time of one call, which also
 counts the card waiting on the host's launch; ``plain_ms`` and
 ``library_ms`` are CUDA-event times, ``library_device_ms`` the yardstick's
-device time.
+device time. K8-K10 compute sums over the batch: their rows add
+``max_err_over_scale``, the error over the sum of the terms' magnitudes,
+and K9's and K10's ``library_ms`` is null (no single PyTorch call computes
+either), their ``pair_library_ms`` the plain stem's autograd backward,
+which computes both.
 """
 
 from __future__ import annotations
@@ -96,6 +120,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 MMA, f32 FMA
 BATCH, BUCKET = 256, 256
+TRAIN_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                             "train_goldens.npz")
 
 
 def emit(phase: str, **kw) -> None:
@@ -182,13 +208,14 @@ def nbytes(*ts) -> int:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run every kernel call site (K1, K2, K3, K6, K7, K11, K12) through its
-    plain version, on the card, for the comparison runs of phases 3, 7, 10
-    and 12: the autograd Functions, the BiGRU backward and the CTC gradient
+    """Run every kernel call site (K1-K3, K6-K12) through its plain
+    version, on the card, for the comparison runs of phases 3, 7, 10, 12
+    and 16: the autograd Functions, the BiGRU backward and the CTC gradient
     assembly stay as they are."""
     import torch
     import crnn_ocr_torch.models.crnn as crnn_mod
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import fused_stem_train as fst
     from crnn_ocr_torch.kernels import grid_sample as gs
 
     def gru_train(xw, u, rec_bias, u_kernel=None):
@@ -202,7 +229,11 @@ def plain_kernels():
              (ctc_loss, "ctc_alphas", ctc_loss.ctc_alphas_plain),
              (ctc_loss, "ctc_betas", ctc_loss.ctc_betas_plain),
              (gs, "sample_pix", gs.sample_pix_plain),
-             (gs, "sample_pix_bwd", gs.sample_pix_bwd_plain)]
+             (gs, "sample_pix_bwd", gs.sample_pix_bwd_plain),
+             (fst, "fused_stem_serve", fused_stem.fused_stem_plain),
+             (fst, "stem_stats", fst.stem_stats_plain),
+             (fst, "stem_bwd_partials", fst.stem_bwd_partials_plain),
+             (fst, "stem_bwd_final", fst.stem_bwd_final_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for mod, name, fn in sites:
         setattr(mod, name, fn)
@@ -215,22 +246,28 @@ def plain_kernels():
 
 def reset_launches() -> None:
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import fused_stem_train as fst
     from crnn_ocr_torch.kernels import grid_sample as gs
 
     fused_stem.launches = bigru.launches = bigru.train_launches = 0
     ctc_loss.alpha_launches = ctc_loss.beta_launches = 0
     gs.launches = gs.bwd_launches = 0
+    fst.stats_launches = fst.partials_launches = fst.final_launches = 0
 
 
 def read_launches() -> dict:
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import fused_stem_train as fst
     from crnn_ocr_torch.kernels import grid_sample as gs
 
     return {"fused_stem": fused_stem.launches, "bigru": bigru.launches,
             "bigru_train": bigru.train_launches,
             "ctc_alpha": ctc_loss.alpha_launches,
             "ctc_beta": ctc_loss.beta_launches,
-            "grid_sample": gs.launches, "grid_sample_bwd": gs.bwd_launches}
+            "grid_sample": gs.launches, "grid_sample_bwd": gs.bwd_launches,
+            "stem_stats": fst.stats_launches,
+            "stem_bwd_partials": fst.partials_launches,
+            "stem_bwd_final": fst.final_launches}
 
 
 def require_launches(counts: dict, want: dict, what: str) -> None:
@@ -540,11 +577,11 @@ TRAIN_STEPS, TRAIN_WARMUP = 30, 3
 
 
 def train_setup(g, dtype: str, dropout: float, name: str = "fonts-hard",
-                key: str = "hard"):
+                key: str = "hard", bucket: int = BUCKET):
     """A train state of bundled model ``name`` on the card (its shipped
     weights, ``dtype`` and ``dropout``), its raw host batch (the 64 golden
-    ``key`` lines repeated to 128, labels padded to 32) and the device
-    batch produced from it."""
+    ``key`` lines repeated to 128, labels padded to 32, at ``bucket``) and
+    the device batch produced from it."""
     import dataclasses
 
     import numpy as np
@@ -568,7 +605,7 @@ def train_setup(g, dtype: str, dropout: float, name: str = "fonts-hard",
             "heights": np.concatenate([g[f"{key}_heights"]] * reps),
             "widths": np.concatenate([g[f"{key}_widths"]] * reps),
             "the_labels": labels, "label_length": lab_len,
-            "bucket": BUCKET, "texts": truth}
+            "bucket": bucket, "texts": truth}
     sd = params_from_jax(*import_keras_h5(
         os.path.join(src, "weights.h5"), cfg))
     state = create_train_state(cfg, sd, device="cuda",
@@ -720,23 +757,32 @@ def phase_train_kernels(g):
     return checks
 
 
-TRAIN_KERNELS = {"bigru_train": 2, "ctc_alpha": 1, "ctc_beta": 1}
-STN_TRAIN_KERNELS = dict(TRAIN_KERNELS, grid_sample=1, grid_sample_bwd=1)
+# launches per train step: the head's and the loss's, then the stem's (an
+# STN model trains through the plain stem)
+HEAD_TRAIN_KERNELS = {"bigru_train": 2, "ctc_alpha": 1, "ctc_beta": 1}
+TRAIN_KERNELS = dict(HEAD_TRAIN_KERNELS, fused_stem=1, stem_stats=1,
+                     stem_bwd_partials=1, stem_bwd_final=1)
+STN_TRAIN_KERNELS = dict(HEAD_TRAIN_KERNELS, grid_sample=1,
+                         grid_sample_bwd=1)
 
 
 def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
-                       gold=None, want: dict = TRAIN_KERNELS):
-    """Phases 7 and 12: one f32 train step of ``name`` (dropout 0) through
-    the kernels against the same step through the plain versions on the
-    card, and against the JAX package's step ``gold`` (by default
-    ``testdata/train_goldens.npz``); ``want``: the kernel step's launches."""
+                       gold=None, want: dict = TRAIN_KERNELS,
+                       bucket: int = BUCKET, norm_rtol: float = 2e-3):
+    """Phases 7, 12 and 16: one f32 train step of ``name`` (dropout 0) at
+    ``bucket`` through the kernels against the same step through the plain
+    versions on the card, and against the JAX package's step ``gold`` (by
+    default ``testdata/train_goldens.npz``'s fonts-hard keys); ``want``: the
+    kernel step's launches; ``norm_rtol``: the per-parameter gradient
+    norms' tolerance against the golden."""
     import numpy as np
     import torch
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
 
     def one_step(plain: bool):
-        cfg, _, state, _, batch = train_setup(g, "float32", 0.0, name, key)
+        cfg, _, state, _, batch = train_setup(g, "float32", 0.0, name, key,
+                                              bucket)
         ctx = plain_kernels() if plain else contextlib.nullcontext()
         with ctx:
             state.optimizer.zero_grad(set_to_none=True)
@@ -750,10 +796,21 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
                 {k: v.detach().clone()
                  for k, v in state.model.state_dict().items()})
 
-    reset_launches()
-    k_loss, k_vec, k_norm, k_grads, k_sd = one_step(False)
-    kernel_counts = read_launches()
-    p_loss, p_vec, p_norm, p_grads, p_sd = one_step(True)
+    # the backbone's convolutions off cuDNN in both steps (PyTorch's own CUDA
+    # convolutions instead): cuDNN's outputs at two positions with equal
+    # inputs can differ in the last bit, so the stem kernels' ulp-level
+    # differences from the plain stem flip max-pool near-ties behind them;
+    # fonts-small, which reads its lines almost surely (small gradients),
+    # showed that as 1.1e-3 of block3's largest gradient
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        reset_launches()
+        k_loss, k_vec, k_norm, k_grads, k_sd = one_step(False)
+        kernel_counts = read_launches()
+        p_loss, p_vec, p_norm, p_grads, p_sd = one_step(True)
+    finally:
+        torch.backends.cudnn.enabled = cudnn
     require_launches(kernel_counts, want, f"{name}: the f32 kernel step")
     # kernels against plain versions: loss and norm rtol 2e-5; every
     # parameter's gradient rtol 1e-4 / atol 1e-4 of the leaf's largest (f32
@@ -804,11 +861,11 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
           and not grads_off and not bad)
     # against the JAX package's step: the port preprocesses the lines itself
     # (standardized frames within 1e-4 of JAX's), so loss rtol 1e-4, each
-    # line's loss 1e-3 + 1e-3 relative, the global and per-parameter
-    # gradient norms rtol 2e-3, the BatchNorm statistics atol 1e-4
+    # line's loss 1e-3 + 1e-3 relative, the global gradient norm rtol 2e-3
+    # and the per-parameter ones ``norm_rtol``, the BatchNorm statistics
+    # atol 1e-4
     if gold is None:
-        gold = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
-                                    "train_goldens.npz"))
+        gold = np.load(TRAIN_GOLDENS)
     vec_err = np.abs(k_vec.cpu().numpy() - gold["loss_vec"])
     vec_ok = bool((vec_err <= 1e-3 + 1e-3 * np.abs(gold["loss_vec"])).all())
     gn_rel = max(abs(float(k_grads[n].norm()) / float(gold[f"gradnorm/{n}"])
@@ -822,8 +879,8 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
                   param_grad_norm_max_rel_err=gn_rel,
                   bn_stats_max_abs_err=st_err)
     golden_ok = (golden["loss_rel_err"] <= 1e-4 and vec_ok
-                 and golden["grad_norm_rel_err"] <= 2e-3 and gn_rel <= 2e-3
-                 and st_err <= 1e-4)
+                 and golden["grad_norm_rel_err"] <= 2e-3
+                 and gn_rel <= norm_rtol and st_err <= 1e-4)
     emit("train_parity", model=name, kernels_vs_plain=res, ok=ok,
          vs_jax_golden=golden, golden_ok=golden_ok)
     require(ok, f"{name} f32 train step: kernels differ from the plain "
@@ -833,9 +890,10 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
 
 
 def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
-                want: dict = TRAIN_KERNELS):
-    """Phases 8 and 13, a training path counted: ``name`` in bf16, dropout
-    0.2, B = 128, bucket 256, fine-tuned on the 64 golden ``key`` lines.
+                want: dict = TRAIN_KERNELS, bucket: int = BUCKET):
+    """Phases 8, 13 and 17, a training path counted: ``name`` in bf16,
+    dropout 0.2, B = 128, at ``bucket``, fine-tuned on the 64 golden ``key``
+    lines.
     Each step is ``produce_batch`` (the host canvas to device frames) plus
     ``fit``'s own train step, synchronized and timed; the launch counts are
     set to 0 just before the timed steps and read just after, and must be
@@ -846,7 +904,8 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
 
-    cfg, codec, state, host, _ = train_setup(g, "bfloat16", 0.2, name, key)
+    cfg, codec, state, host, _ = train_setup(g, "bfloat16", 0.2, name, key,
+                                             bucket)
     train_step = step_lib.make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     losses = []
@@ -877,9 +936,10 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
                            f"the last 5 {last5}")
 
     # per-stage breakdown through the same functions, synchronized per stage
-    # ("forward" is the model's forward after an STN's two stages)
+    # ("forward" is the model's forward after an STN's two stages and the
+    # stem)
     m = state.model
-    keys = ["preprocess", "forward", "loss", "backward", "optimizer"]
+    keys = ["preprocess", "stem", "forward", "loss", "backward", "optimizer"]
     if m.stn is not None:
         keys[1:1] = ["stn_localize", "sampler"]
     stages = {k: [] for k in keys}
@@ -899,7 +959,9 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
         x = batch["x"]
         if m.stn is not None:
             x, t = stn_stages(m, x, clock, t)
-        logits = m.head(m.backbone(m.stem(x), gen))
+        x = m.stem(x)
+        t = clock("stem", t)
+        logits = m.head(m.backbone(x, gen))
         t = clock("forward", t)
         loss_vec = step_lib.ctc_loss_vec(
             logits, batch["the_labels"], batch["input_length"],
@@ -914,13 +976,16 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     p50 = statistics.median(step_ms)
     # all the lines of the timed steps over all their time, stalls included
     emit("train", model=name, dtype="bfloat16", batch=TRAIN_BATCH,
-         bucket=BUCKET, dropout=0.2, learning_rate=TRAIN_LR,
+         bucket=bucket, dropout=0.2, learning_rate=TRAIN_LR,
          steps=TRAIN_WARMUP + TRAIN_STEPS,
          lines_per_s=TRAIN_BATCH * TRAIN_STEPS / (sum(step_ms) / 1e3),
          p50_step_ms=p50, min_step_ms=min(step_ms), max_step_ms=max(step_ms),
          stage_ms=stage_ms, first_loss=first, last5_mean_loss=last5,
          loss_curve=loss_curve, card=card)
-    emit("train_trace", model=name, **trace_train(step))
+    # an STN model's stem is plain: no stem_backward range
+    ranges = tuple(r for r in RANGES
+                   if m.stn is None or r != "stem_backward")
+    emit("train_trace", model=name, **trace_train(step, ranges))
 
     # fit and evaluate themselves, outside the counted window
     batches = [produce_batch(dict(host), "cuda", cfg) for _ in range(4)]
@@ -935,16 +1000,18 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     return counts
 
 
-def trace_train(step, n: int = 3) -> dict:
+def trace_train(step, ranges, n: int = 3) -> dict:
     """torch.profiler over ``n`` train steps: the device's idle share, the
-    top device and host ops, and the plain BiGRU backward loop's share."""
+    top device and host ops, and each of the ``ranges``' host time, device
+    span and share of the wall (the plain BiGRU backward loop's, the CTC
+    backward's, the training stem's backward)."""
     def run():
         for _ in range(n):
             step()
 
     prof, wall_us = profiled(run)
     out = _trace_summary(prof, wall_us, n, skip=RANGES)
-    for key in RANGES:
+    for key in ranges:
         # a range has a host row and a device-timeline row of one name; the
         # latter spans its first kernel's start to its last kernel's end,
         # gaps included
@@ -959,7 +1026,7 @@ def trace_train(step, n: int = 3) -> dict:
 
 
 # record_function ranges the port's training path opens
-RANGES = ("bigru_backward", "ctc_loss_backward")
+RANGES = ("bigru_backward", "ctc_loss_backward", "stem_backward")
 
 
 def _trace_summary(prof, wall_us: float, n: int, skip=()) -> dict:
@@ -1184,6 +1251,182 @@ def phase_serve_turns(card: str, hard_lines, stn_lines, rounds: int = 6,
     return res
 
 
+# ---- slice 4: the training stem, fonts-small (B 128, bucket 128) ----
+
+SMALL_NAME, SMALL_KEY, SMALL_BUCKET = "fonts-small", "small", 128
+# the training stem's kernels on both non-STN training paths; the kernels
+# line keeps fonts-small's, whose phase 17 counts their launches
+STEM_TRAIN_PATHS = ((SMALL_NAME, SMALL_KEY, SMALL_BUCKET),
+                    ("fonts-hard", "hard", BUCKET))
+
+
+def stem_train_operands(state, batch):
+    """The training stem's operands on a train batch, as the autograd
+    Function hands them to K8-K10: the image (B, H, W, 1) in the compute
+    dtype, the HWIO weights, the pooled gradient of the step's loss (in the
+    compute dtype), the batch variance, and the per-channel f32 vectors of
+    K9 (mean, inv, scale, bias) and K10 (those, then c1, c2, c3)."""
+    import torch
+    from crnn_ocr_torch.kernels import fused_stem_train as fst
+    from crnn_ocr_torch.train import step as step_lib
+
+    m = state.model
+    bn = m.stem_bn
+    s = m.stem(batch["x"])
+    s.retain_grad()
+    logits = m.head(m.backbone(s))
+    loss_vec = step_lib.ctc_loss_vec(logits, batch["the_labels"],
+                                     batch["input_length"],
+                                     batch["label_length"])
+    torch.clamp(loss_vec, max=step_lib.LOSS_CLIP).mean().backward()
+    with torch.no_grad():
+        img = batch["x"].to(m.dtype)[..., None].contiguous()
+        w = m.stem_conv.weight.permute(2, 3, 1, 0).contiguous()
+        g = s.grad.permute(0, 2, 3, 1).contiguous()
+        n = float(img.numel())
+        st = fst.stem_stats_plain(img, w)
+        mean = st[0] / n
+        var = st[1] / n - mean * mean
+        vecs9 = (mean, *fst.bwd_affine(bn.weight, bn.bias, mean, var))
+        p = fst.stem_bwd_partials_plain(img, w, g, *vecs9)
+        vecs10 = vecs9 + (vecs9[2], p[0] / n, p[1] / n)
+    return img, w, g, var, vecs9, vecs10
+
+
+def stem_train_scales(img, w, g, mean, inv, scale, bias, c1, c2, c3):
+    """Each K8-K10 output's sum of absolute terms (the same sums with every
+    term's magnitude): the scale that f32 summation order errors follow."""
+    import torch
+    import torch.nn.functional as F
+    from crnn_ocr_torch.kernels import fused_stem_train as fst
+
+    z = fst._conv(img, w)
+    B, C, H, W = z.shape
+    d = fst._routed(z, g, scale, bias)
+    ch = lambda v: v[:, None, None]  # noqa: E731
+    xh = (z - ch(mean)) * ch(inv)
+    dc = ch(c1) * ((d - ch(c2)) - xh * ch(c3))
+    taps = F.unfold(img.float().permute(0, 3, 1, 2), 3, padding=1).abs()
+    dims = (0, 2, 3)
+    return (torch.stack([z.abs().sum(dims), (z * z).sum(dims)]),
+            torch.stack([d.abs().sum(dims), (d * xh).abs().sum(dims)]),
+            torch.einsum("bkl,bcl->kc", taps, dc.abs().reshape(B, C, H * W))
+            .reshape(3, 3, 1, C))
+
+
+def check_stem_train(state, batch, dtype_name: str, path: str):
+    """K8, K9 and K10 against their plain versions on a training path's own
+    operands (``stem_train_operands``); K1's time in the training forward;
+    the yardsticks: cuDNN's conv with ``torch.var_mean`` for K8, the plain
+    stem's autograd backward (conv, BatchNorm, ReLU, max-pool) for K9 and
+    K10 as a pair."""
+    import torch
+    import torch.nn.functional as F
+    from crnn_ocr_torch.kernels import fused_stem as fs
+    from crnn_ocr_torch.kernels import fused_stem_train as fst
+
+    img, w, g, var, vecs9, vecs10 = stem_train_operands(state, batch)
+    B, H, W, _ = img.shape
+    C = w.shape[-1]
+    runs = (
+        ("stem_stats", lambda: fst.stem_stats(img, w),
+         lambda: fst.stem_stats_plain(img, w)),
+        ("stem_bwd_partials",
+         lambda: fst.stem_bwd_partials(img, w, g, *vecs9),
+         lambda: fst.stem_bwd_partials_plain(img, w, g, *vecs9)),
+        ("stem_bwd_final", lambda: fst.stem_bwd_final(img, w, g, *vecs10),
+         lambda: fst.stem_bwd_final_plain(img, w, g, *vecs10)))
+    scales = stem_train_scales(img, w, g, *vecs10)
+    elems = B * H * W * C
+    # bytes: each input once, each output once; operations: the 9-term conv
+    # (2 * 9 per output) plus the per-position work (K8: z, z^2 and two
+    # sums; K9: affine, ReLU, max, routing, xhat, two sums; K10: those, the
+    # BatchNorm backward and the 9 weight-gradient products and sums)
+    sizes = {"stem_stats": (nbytes(img) + 11 * C * 4, 21 * elems),
+             "stem_bwd_partials": (nbytes(img, g) + 15 * C * 4, 30 * elems),
+             "stem_bwd_final": (nbytes(img, g) + 25 * C * 4, 50 * elems)}
+    dt = img.dtype
+    x_nchw = img.permute(0, 3, 1, 2)
+    w_lib = w.to(dt).permute(3, 2, 0, 1).contiguous().requires_grad_(True)
+    gamma, beta = (t.detach().clone().requires_grad_(True)
+                   for t in (state.model.stem_bn.weight,
+                             state.model.stem_bn.bias))
+
+    def lib_stats():
+        z = F.conv2d(x_nchw, w_lib.detach(), padding=1)
+        return torch.var_mean(z, dim=(0, 2, 3), unbiased=False)
+
+    lib_out = F.max_pool2d(torch.relu(F.batch_norm(
+        F.conv2d(x_nchw, w_lib, padding=1), None, None, gamma, beta,
+        training=True, eps=1e-3)), 2)
+    g_nchw = g.permute(0, 3, 1, 2)
+
+    def lib_pair():
+        return torch.autograd.grad(lib_out, (w_lib, gamma, beta), g_nchw,
+                                   retain_graph=True)
+
+    pair = dict(pair_library_ms=time_ms(lib_pair),
+                pair_library_device_ms=device_ms(lib_pair),
+                pair_library="the plain stem's backward through autograd "
+                             "(cuDNN conv, BatchNorm, ReLU, max-pool) to "
+                             "the weights, gamma and beta")
+    out = []
+    for (name, kern, plain), scale in zip(runs, scales):
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        # f32 sums of up to B * H * W terms in other orders: 1e-5 of the
+        # sum of the terms' magnitudes, plus 1e-6
+        err = (got - want).abs()
+        ok = bool((err <= 1e-5 * scale + 1e-6).all())
+        b_ms, b_by = bound_ms(*sizes[name], dtype_name)
+        res = dict(kernel=name, dtype=dtype_name, path=path, B=B, H=H, W=W,
+                   C=C, max_abs_err=float(err.max()),
+                   max_err_over_scale=float((err / scale.clamp(min=1e-30))
+                                            .max()),
+                   tolerance="1e-5 * sum of |terms| + 1e-6", ok=ok,
+                   kernel_ms=time_ms(kern), kernel_device_ms=device_ms(kern),
+                   plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                   bytes=sizes[name][0], ops=sizes[name][1],
+                   library_ms=None, library_device_ms=None)
+        if name == "stem_stats":
+            res.update(library_ms=time_ms(lib_stats),
+                       library_device_ms=device_ms(lib_stats),
+                       library="cuDNN conv2d + torch.var_mean over (N, H, W)")
+        else:
+            res.update(pair, library="none computes it alone; pair_library "
+                                     "is K9 + K10's yardstick")
+        out.append(res)
+        emit("kernel_check", **res)
+        require(ok, f"{name} {dtype_name} ({path}): max error "
+                    f"{res['max_abs_err']} beyond {res['tolerance']}")
+    # K1 in the training forward, fed the batch statistics
+    scale, bias = fs.fold_bn(state.model.stem_bn.weight.detach(),
+                             state.model.stem_bn.bias.detach(), vecs9[0], var)
+    pooled = fs.fused_stem_serve(img, w, scale, bias)
+    k1_ms, k1_by = bound_ms(nbytes(img, pooled) + 11 * C * 4, 21 * elems,
+                            dtype_name)
+    emit("k1_train_forward", dtype=dtype_name, path=path,
+         kernel_ms=time_ms(lambda: fs.fused_stem_serve(img, w, scale, bias)),
+         kernel_device_ms=device_ms(
+             lambda: fs.fused_stem_serve(img, w, scale, bias)),
+         bound_ms=k1_ms, bound_by=k1_by)
+    return out
+
+
+def phase_stem_train_kernels(g):
+    """Phase 15: K8, K9 and K10 on the training stem's own operands, at
+    fonts-small's and fonts-hard's training shapes, bf16 and f32, TF32
+    off."""
+    checks = []
+    for name, key, bucket in STEM_TRAIN_PATHS:
+        for dtype_name in ("bfloat16", "float32"):
+            _, _, state, _, batch = train_setup(g, dtype_name, 0.0, name, key,
+                                                bucket)
+            checks += check_stem_train(state, batch, dtype_name, key)
+    return checks
+
+
 def main() -> int:
     try:
         import torch
@@ -1257,6 +1500,23 @@ def main() -> int:
         sg, card, STN_NAME, STN_KEY, STN_TRAIN_KERNELS)["grid_sample_bwd"]
     phase_serve_turns(card, lines, stn_lines)
 
+    # slice 4: the training stem
+    checks += phase_stem_train_kernels(g)
+    gold = np.load(TRAIN_GOLDENS)
+    # fonts-small reads these lines almost surely (loss 0.037), so its
+    # gradients are small and f32 noise weighs more in them: the JAX
+    # package's own XLA and fused stems give per-parameter gradient norms
+    # 1.7e-3 apart on this batch (tools/gen_torch_goldens.py, both stems),
+    # the port's CPU step is 3.1e-3 from the golden; so 5e-3 here
+    phase_train_parity(g, SMALL_NAME, SMALL_KEY,
+                       {k[6:]: gold[k] for k in gold.files
+                        if k.startswith("small/")},
+                       TRAIN_KERNELS, SMALL_BUCKET, norm_rtol=5e-3)
+    small = phase_train(g, card, SMALL_NAME, SMALL_KEY, TRAIN_KERNELS,
+                        SMALL_BUCKET)
+    for k in ("stem_stats", "stem_bwd_partials", "stem_bwd_final"):
+        counts[k] = small[k]
+
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
                        "crnn_ocr_tpu/kernels/fused_stem.py:134"),
@@ -1272,10 +1532,18 @@ def main() -> int:
                         "crnn_ocr_tpu/kernels/grid_sample.py:131"),
         "grid_sample_bwd": ("crnn_ocr_torch/kernels/csrc/grid_sample.cu",
                             "crnn_ocr_tpu/kernels/grid_sample.py:160"),
+        "stem_stats": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
+                       "crnn_ocr_tpu/kernels/fused_stem_train.py:290"),
+        "stem_bwd_partials": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
+                              "crnn_ocr_tpu/kernels/fused_stem_train.py:309"),
+        "stem_bwd_final": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
+                           "crnn_ocr_tpu/kernels/fused_stem_train.py:333"),
     }
-    # the sampler is checked on both STN paths; each kernel's line keeps
-    # the path that counts its launches
-    main_path = {"grid_sample": "serve", "grid_sample_bwd": "train"}
+    # the sampler and the training stem are checked on two paths each; each
+    # kernel's line keeps the path that counts its launches
+    main_path = {"grid_sample": "serve", "grid_sample_bwd": "train",
+                 "stem_stats": SMALL_KEY, "stem_bwd_partials": SMALL_KEY,
+                 "stem_bwd_final": SMALL_KEY}
     checks = [c for c in checks
               if c.get("path") == main_path.get(c["kernel"])]
     kernels = []
@@ -1294,6 +1562,8 @@ def main() -> int:
             f32_max_abs_err=next(
                 o["max_abs_err"] for o in checks
                 if o["kernel"] == name and o["dtype"] == "float32"),
+            **{k: c[k] for k in ("max_err_over_scale", "pair_library_ms",
+                                 "pair_library_device_ms") if k in c},
         ))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,8 +2,9 @@
 
 A copy of ``crnn_ocr_tpu/models/crnn.py::ModelConfig`` without the JAX
 runtime knobs ``use_pallas_rnn`` and ``use_fused_stem``: on the card the
-port's stem and recurrence always run through their CUDA kernels, and no
-knob turns them off. The loader ignores those two keys where a bundled
+port's stem (serving, and training without an STN) and recurrence always
+run through their CUDA kernels, at every shape, and no knob turns them
+off. The loader ignores those two keys where a bundled
 ``model_config.json`` carries them.
 """
 

@@ -16,12 +16,13 @@ running statistics, every BatchNorm uses its running statistics, and the
 recurrence runs K2. ``train()`` is flax's ``train=True``: every BatchNorm
 normalizes with the batch's statistics and updates its running ones, and
 dropout at ``cfg.dropout_rate`` follows each block's pool, drawn from the
-``torch.Generator`` the caller passes. The training stem is plain PyTorch
-(cuDNN conv, BatchNorm, ReLU, max-pool), as the JAX package's XLA branch
-(``models/crnn.py:336-340``): the JAX package gates its fused train stem
-off for buckets wider than 128 (``crnn.py:241-243``), so at the training
-path's bucket 256 no TPU kernel runs there either. The train-stem kernels
-K8-K10 (``kernels/fused_stem_train.py``) take over in the next slice.
+``torch.Generator`` the caller passes. The training stem runs
+``kernels.fused_stem_train`` (``crnn.py:297-316``): K8's batch statistics
+feed K1, and K9 and K10 give its backward; ``stem_bn``'s running
+statistics move toward K8's mean and unclamped variance, as
+``_StemBNState`` moves them (``crnn.py:166-196``). The JAX package gates
+that path on at B >= 128 and W <= 128 (``crnn.py:241-243``), a gate timed
+on the TPU; the port has no shape gate, as its serving stem has none.
 
 Under ``dtype="bfloat16"`` weights and activations are cast as flax's
 ``dtype=bf16`` modules cast them: convolutions and dense layers take bf16
@@ -29,11 +30,11 @@ operands, BatchNorm computes in f32 and casts its result back.
 
 With ``cfg.use_stn`` the image, cast to the compute dtype, first goes
 through the ``STN`` (``models/stn.py``; ``crnn.py:272-276``), in both
-modes: serving then runs K1 on the warped image, and training keeps the
-plain stem, whose convolution passes the gradient on to the warped image
-and through K12 to ``theta`` (the JAX package gates its fused train stem
-off for STN models, ``crnn.py:231-232``, because K10 returns no image
-gradient).
+modes: serving then runs K1 on the warped image, and training runs the
+plain stem (cuDNN conv, BatchNorm, ReLU, max-pool), whose convolution
+passes the gradient on to the warped image and through K12 to ``theta``
+(the JAX package gates its fused train stem off for STN models,
+``crnn.py:231-232``, because K10 returns no image gradient).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from torch import nn
 
 from crnn_ocr_torch.config import ModelConfig
 from crnn_ocr_torch.kernels.fused_stem import fold_bn, fused_stem_serve
+from crnn_ocr_torch.kernels.fused_stem_train import fused_stem_train
 from crnn_ocr_torch.models.rnn import BiRNN
 from crnn_ocr_torch.models.stn import STN
 
@@ -83,16 +85,21 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=axes)
             var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
                               min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(BN_MOMENTUM).add_(
-                    (1.0 - BN_MOMENTUM) * mean.detach())
-                self.running_var.mul_(BN_MOMENTUM).add_(
-                    (1.0 - BN_MOMENTUM) * var.detach())
+            self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``running = 0.99 * running + 0.01 * batch``, as flax moves
+        them."""
+        self.running_mean.mul_(BN_MOMENTUM).add_(
+            (1.0 - BN_MOMENTUM) * mean.detach())
+        self.running_var.mul_(BN_MOMENTUM).add_(
+            (1.0 - BN_MOMENTUM) * var.detach())
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -150,7 +157,8 @@ class CRNN(nn.Module):
                     else None)
         self.stem_conv = nn.Conv2d(1, cfg.stem_filters, 3, padding=1,
                                    bias=False)
-        # NCHW for the training stem; serving folds it into K1's affine
+        # NCHW for an STN model's training stem; otherwise its statistics
+        # feed K1 (running, folded) or come from K8 (training)
         self.stem_bn = BatchNorm(cfg.stem_filters, dim=1)
         ch = cfg.stem_filters
         for i, (filters, pool) in enumerate(
@@ -172,19 +180,24 @@ class CRNN(nn.Module):
         self.logits = nn.Linear(feat, cfg.logits_dim)
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W) -> (B, C, H/2, W/2): in eval mode the NCHW view of K1's
-        NHWC output, in training mode plain PyTorch with batch statistics."""
-        if self.training:
+        """(B, H, W) -> (B, C, H/2, W/2), the NCHW view of the NHWC output
+        of K1 (eval) or of ``fused_stem_train`` (training); an STN model's
+        training stem is plain PyTorch with batch statistics."""
+        bn = self.stem_bn
+        if self.training and self.stn is not None:
             x = F.conv2d(x.to(self.dtype)[:, None],
                          self.stem_conv.weight.to(self.dtype), padding=1)
-            x = torch.relu(self.stem_bn(x))
+            x = torch.relu(bn(x))
             return F.max_pool2d(x, 2)
         x = x.to(self.dtype)[..., None]
-        bn = self.stem_bn
-        scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
-                              bn.running_var, BN_EPS)
         w = self.stem_conv.weight.permute(2, 3, 1, 0)  # (3, 3, 1, C)
-        x = fused_stem_serve(x, w, scale, bias)
+        if self.training:
+            x, mean, var = fused_stem_train(x, w, bn.weight, bn.bias, BN_EPS)
+            bn.update_running(mean, var)
+        else:
+            scale, bias = fold_bn(bn.weight, bn.bias, bn.running_mean,
+                                  bn.running_var, BN_EPS)
+            x = fused_stem_serve(x, w, scale, bias)
         return x.permute(0, 3, 1, 2)
 
     def backbone(self, x: torch.Tensor,

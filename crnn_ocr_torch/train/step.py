@@ -5,8 +5,9 @@ One train step: the model in training mode (batch-statistics BatchNorm,
 dropout from the caller's generator) -> logits -> per-sample CTC loss after
 the first ``ctc_time_slice`` frames -> each loss clipped at 1e4 -> their
 plain mean -> backward -> Adam with the global-norm clip. On the card the
-loss runs K6 forward and K7 backward, and each BiGRU layer runs K3 forward;
-the stem and the BiGRU backward are plain PyTorch.
+loss runs K6 forward and K7 backward, each BiGRU layer runs K3 forward, and
+a non-STN model's stem runs K8 and K1 forward, K9 and K10 backward; the
+BiGRU backward is plain PyTorch.
 
 Loss modes, as in the JAX package:
 

@@ -17,7 +17,10 @@ rtol 1e-4 / atol 1e-5, as the CPU tests hold it to JAX; the bilinear
 sampler (K11) and its dx, dy (K12) to 1e-6 + 1e-6 * |value| (the same f32
 operations in the same order, each rounded on its own), and K12's d_img to
 1e-5 + 1e-5 * |value| (shared-memory atomics add a pixel's terms in no fixed
-order). TF32 is off.
+order); the training stem's sums (K8, K9, K10) to 1e-5 of the sum of their
+terms' magnitudes plus 1e-6 (f32 sums of up to B * H * W terms in other
+orders), and its autograd Function on the card against the CPU as
+``tests/test_torch_stem_train.py`` holds the CPU to JAX. TF32 is off.
 """
 
 import os
@@ -29,6 +32,7 @@ import torch
 from crnn_ocr_torch.kernels import bigru as tbg
 from crnn_ocr_torch.kernels import ctc_loss as tcl
 from crnn_ocr_torch.kernels import fused_stem as tfs
+from crnn_ocr_torch.kernels import fused_stem_train as tfst
 from crnn_ocr_torch.kernels import grid_sample as tgs
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -299,3 +303,105 @@ def test_grid_sample_autograd_on_card_matches_cpu(card):
     _assert_near(grads[1][0], grads[0][0], 1e-5)
     np.testing.assert_allclose(grads[1][1].numpy(), grads[0][1].numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+def _stem_train_case(seed, B, H, W, C, dtype):
+    """An image, weights and a pooled gradient in ``dtype``, and the
+    per-channel vectors of K9 and K10 as the autograd Function derives
+    them."""
+    rng = np.random.default_rng(seed)
+    dt = DTYPES[dtype]
+    img = torch.from_numpy(rng.normal(size=(B, H, W, 1)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(3, 3, 1, C)) * 0.5)
+                         .astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(B, H // 2, W // 2, C))
+                         .astype(np.float32))
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    beta = torch.from_numpy((rng.normal(size=C) * 0.3).astype(np.float32))
+    img, g = img.to(dt), g.to(dt)
+    n = float(B * H * W)
+    st = tfst.stem_stats_plain(img, w)
+    mean = st[0] / n
+    var = st[1] / n - mean * mean
+    vecs9 = (mean, *tfst.bwd_affine(gamma, beta, mean, var))
+    p = tfst.stem_bwd_partials_plain(img, w, g, *vecs9)
+    return img, w, g, vecs9, vecs9 + (vecs9[2], p[0] / n, p[1] / n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(128, 32, 128, 64), (4, 32, 48, 8),
+                                   (3, 6, 10, 12), (2, 32, 66, 64),
+                                   (1, 4, 4, 1000)])
+def test_stem_train_kernels_match_plain(card, dtype, shape):
+    """K8, K9 and K10 against their plain versions (fonts-small's training
+    shape, narrow and odd widths, one block of 1000 channels)."""
+    import chip_smoke
+
+    img, w, g, v9, v10 = _stem_train_case(13, *shape, dtype)
+
+    def on(*ts):
+        return [t.to(card) for t in ts]
+
+    before = (tfst.stats_launches, tfst.partials_launches,
+              tfst.final_launches)
+    got = [tfst.stem_stats(*on(img, w)),
+           tfst.stem_bwd_partials(*on(img, w, g, *v9)),
+           tfst.stem_bwd_final(*on(img, w, g, *v10))]
+    torch.cuda.synchronize()
+    assert (tfst.stats_launches, tfst.partials_launches,
+            tfst.final_launches) == tuple(n + 1 for n in before)
+    want = [tfst.stem_stats_plain(img, w),
+            tfst.stem_bwd_partials_plain(img, w, g, *v9),
+            tfst.stem_bwd_final_plain(img, w, g, *v10)]
+    again = [tfst.stem_stats(*on(img, w)),
+             tfst.stem_bwd_partials(*on(img, w, g, *v9)),
+             tfst.stem_bwd_final(*on(img, w, g, *v10))]
+    # no atomics: a second run gives the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    scales = chip_smoke.stem_train_scales(img, w, g, *v10)
+    for a, b, sc in zip(got, want, scales):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        err = (a.cpu() - b).abs()
+        assert bool((err <= 1e-5 * sc + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_stem_train_on_card_matches_cpu(card, dtype):
+    """The autograd Function (K8 + K1 forward, K9 + K10 backward) on the
+    card against the plain versions on the CPU: pooled output, batch
+    statistics and the gradients of the weights, gamma and beta."""
+    rng = np.random.default_rng(14)
+    dt = DTYPES[dtype]
+    img = torch.from_numpy(rng.normal(size=(8, 32, 64, 1))
+                           .astype(np.float32)).to(dt)
+    leaves = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(3, 3, 1, 16)) * 0.4, rng.uniform(0.5, 1.5, 16),
+        rng.normal(size=16) * 0.3)]
+    u = torch.from_numpy(rng.normal(size=(8, 16, 32, 16)).astype(np.float32))
+    outs, grads = [], []
+    for dev in ("cpu", card):
+        ps = [t.clone().to(dev).requires_grad_(True) for t in leaves]
+        n1, n8 = tfs.launches, tfst.stats_launches
+        n9, n10 = tfst.partials_launches, tfst.final_launches
+        p, m, v = tfst.fused_stem_train(img.to(dev), *ps)
+        (torch.sin(p.float() * 1.7) * u.to(dev)).sum().backward()
+        on_card = int(dev != "cpu")
+        assert (tfs.launches, tfst.stats_launches, tfst.partials_launches,
+                tfst.final_launches) == (n1 + on_card, n8 + on_card,
+                                         n9 + on_card, n10 + on_card)
+        outs.append([t.detach().float().cpu() for t in (p, m, v)])
+        grads.append([t.grad.cpu() for t in ps])
+    (p0, m0, v0), (p1, m1, v1) = outs
+    if dt == torch.bfloat16:
+        assert bool(((p1 - p0).abs() <= p0.abs() * 2.0 ** -7 + 1e-6).all())
+    else:
+        np.testing.assert_allclose(p1.numpy(), p0.numpy(), rtol=0, atol=1e-5)
+    for a, b in ((m1, m0), (v1, v0)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    for a, b in zip(grads[1], grads[0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
+                                   atol=tol * float(b.abs().max()))

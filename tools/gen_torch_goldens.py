@@ -30,6 +30,15 @@ recurrence, which its tests hold equal to the Pallas kernels) on the 64
   ``state_dict`` names;
 * ``stats/<name>``: every BatchNorm's running statistics after the step.
 
+Under the prefix ``small/`` the same keys hold one f32 ``fonts-small``
+train step on the 64 ``small`` lines repeated to 128, bucket 128, labels
+padded to 32, dropout 0. That is the shape at which the JAX package trains
+through its fused train stem (``kernels/fused_stem_train.py``: the batch
+statistics, the stem backward), and the golden takes that path, in Pallas
+interpret mode (``use_fused_stem=True``, ``pallas_interpret=True``; the
+recurrence and the CTC loss stay the scan versions). The ``--train`` run
+takes under a minute on the CPU.
+
 ``--stn`` writes ``crnn_ocr_torch/testdata/stn_goldens.npz`` for the two
 STN models, 64 lines each from its own task, width-filtered to 256:
 
@@ -166,10 +175,13 @@ def train_batch(g, codec, key="hard"):
     return canvas, hs, ws, labels, lab_len
 
 
-def train_step_golden(model_name: str, g, key: str) -> dict:
-    """One f32 train step of ``model_name`` (dropout 0, XLA paths) on the
-    ``key`` lines of ``g``: loss_vec, loss, grad_norm, gradnorm/<name>,
-    stats/<name>."""
+def train_step_golden(model_name: str, g, key: str,
+                      bucket: int = TRAIN_BUCKET,
+                      fused_stem: bool = False) -> dict:
+    """One f32 train step of ``model_name`` (dropout 0; XLA paths, or the
+    fused train stem in interpret mode with ``fused_stem``) on the ``key``
+    lines of ``g`` at ``bucket``: loss_vec, loss, grad_norm,
+    gradnorm/<name>, stats/<name>."""
     import jax
     import jax.numpy as jnp
 
@@ -181,13 +193,13 @@ def train_step_golden(model_name: str, g, key: str) -> dict:
 
     base = load_pretrained(model_name)
     cfg = dataclasses.replace(base.cfg, dtype="float32", dropout_rate=0.0,
-                              use_pallas_rnn=False, use_fused_stem=False)
-    model = CRNN(cfg=cfg)
+                              use_pallas_rnn=False, use_fused_stem=fused_stem)
+    model = CRNN(cfg=cfg, pallas_interpret=fused_stem)
     params, stats = base._vars["params"], base._vars["batch_stats"]
     canvas, hs, ws, labels, lab_len = train_batch(g, base.codec, key)
     x, w_new = preprocess_batch(canvas, hs, ws, out_h=cfg.height,
-                                out_w=TRAIN_BUCKET)
-    T = TRAIN_BUCKET // cfg.width_downsample
+                                out_w=bucket)
+    T = bucket // cfg.width_downsample
     il = jnp.maximum(jnp.minimum(w_new // cfg.width_downsample, T)
                      - cfg.ctc_time_slice, 1).astype(jnp.int32)
 
@@ -219,7 +231,11 @@ def train_step_golden(model_name: str, g, key: str) -> dict:
 
 
 def write_train_golden() -> None:
-    arrays = train_step_golden("fonts-hard", np.load(OUT), "hard")
+    g = np.load(OUT)
+    arrays = train_step_golden("fonts-hard", g, "hard")
+    for k, v in train_step_golden("fonts-small", g, "small", bucket=128,
+                                  fused_stem=True).items():
+        arrays[f"small/{k}"] = v
     np.savez_compressed(TRAIN_OUT, **arrays)
     print(f"wrote {TRAIN_OUT} ({os.path.getsize(TRAIN_OUT)} bytes)")
 
