@@ -22,6 +22,7 @@ from crnn_ocr_torch.infer.weights import (
     JAX_PRETRAINED,
     import_keras_h5,
     params_from_jax,
+    seeded_rnn_params,
 )
 
 REGISTRY = {
@@ -31,6 +32,37 @@ REGISTRY = {
     "fonts-stn": "fonts_stn",
     "fonts-warp-stn": "fonts_warp_stn",
 }
+# Configurations with no weights of their own: a bundled model's trunk and
+# head with its BiGRU layers replaced by seeded BiLSTM ones
+# (``weights.seeded_rnn_params``): name -> (bundled model, seed). Their
+# BiLSTM layers are random, so they read no text; they run the LSTM's path
+# at the bundled model's full width and depth. fonts-hard-lstm is what
+# ``crnn-ocr-train --rnn lstm`` builds with its defaults (n_units 256,
+# time_dense 128, 2 layers) on fonts-hard's task and architecture.
+VARIANTS = {"fonts-hard-lstm": ("fonts-hard", 0)}
+
+
+def model_weights(name: str, dtype: Optional[str] = None):
+    """``(cfg, params, batch_stats, codec)`` of a bundled model or a variant:
+    its config (``dtype`` replacing the shipped compute dtype), its weights
+    as the JAX package's numpy trees (``params_from_jax`` maps them onto the
+    port's CRNN) and its class map."""
+    base, seed = VARIANTS.get(name, (name, None))
+    if base not in REGISTRY:
+        raise NotImplementedError(
+            f"pretrained model {name!r} is not available in the port "
+            f"(have {sorted(REGISTRY) + sorted(VARIANTS)})")
+    src = os.path.join(JAX_PRETRAINED, REGISTRY[base])
+    cfg = load_model_config(os.path.join(src, "model_config.json"))
+    if seed is not None:
+        cfg = dataclasses.replace(cfg, rnn_cell="lstm")
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    codec = LabelCodec.load(os.path.join(src, "classes.json"))
+    params, stats = import_keras_h5(os.path.join(src, "weights.h5"), cfg)
+    if seed is not None:
+        params.update(seeded_rnn_params(cfg, seed))
+    return cfg, params, stats, codec
 
 
 def load_pretrained(
@@ -39,19 +71,9 @@ def load_pretrained(
     dtype: Optional[str] = None,
     **kw,
 ) -> Predictor:
-    """A ``Predictor`` for a bundled model. ``dtype`` ("float32" or
-    "bfloat16") replaces the shipped compute dtype; other keywords go to
-    ``Predictor``."""
-    if name not in REGISTRY:
-        raise NotImplementedError(
-            f"pretrained model {name!r} is not available in the port "
-            f"(have {sorted(REGISTRY)})")
-    d = REGISTRY[name]
-    src = os.path.join(JAX_PRETRAINED, d)
-    cfg = load_model_config(os.path.join(src, "model_config.json"))
-    if dtype is not None:
-        cfg = dataclasses.replace(cfg, dtype=dtype)
-    codec = LabelCodec.load(os.path.join(src, "classes.json"))
-    params, stats = import_keras_h5(os.path.join(src, "weights.h5"), cfg)
+    """A ``Predictor`` for a bundled model or a variant. ``dtype``
+    ("float32" or "bfloat16") replaces the shipped compute dtype; other
+    keywords go to ``Predictor``."""
+    cfg, params, stats, codec = model_weights(name, dtype)
     return Predictor(cfg, params_from_jax(params, stats), codec,
                      device=device, **kw)

@@ -13,14 +13,20 @@ of their weights is kept. ``params_from_jax`` maps the trees onto
   conv kernel (kh, kw, in, out)            -> weight (out, in, kh, kw)
   depthwise kernel (3, 3, 1, C) (grouped)  -> weight (C, 1, 3, 3)
   Dense kernel (in, out)                   -> weight (out, in)
-  BiGRU kernel/recurrent_kernel/bias       -> unchanged (the kernel's layout)
+  BiGRU, BiLSTM kernel/recurrent_kernel/bias -> unchanged (the kernels'
+                                              layout)
   BatchNorm scale/bias + mean/var          -> weight/bias + running_mean/var
   stn/Conv_i, Dense_0, Dense_1             -> stn.convs.i, stn.dense,
                                               stn.theta (STN models)
+
+``seeded_rnn_params`` makes BiLSTM layers from a seed, in the same JAX
+layout, for a configuration that has no weights of its own
+(``infer/pretrained.py``'s variants).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Dict, List, Tuple
 
@@ -106,7 +112,8 @@ def _read_h5_layers(path: str) -> Dict[str, List[np.ndarray]]:
 def import_keras_h5(path: str, cfg) -> Tuple[dict, dict]:
     """(params, batch_stats) numpy trees from a Keras .h5 with the canonical
     layer names, as ``crnn_ocr_tpu/infer/h5_import.py::import_keras_h5``
-    builds them (GRU models, with or without an STN)."""
+    builds them (GRU and LSTM models, with or without an STN; a
+    direction's LSTM bias (4H,) stacks to (2, 4H), ``h5_import.py:15``)."""
     layers = _read_h5_layers(path)
 
     def get(layer: str) -> List[np.ndarray]:
@@ -169,3 +176,46 @@ def _tree_map(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree_map(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+def seeded_rnn_params(cfg, seed: int = 0) -> dict:
+    """BiLSTM layers for ``cfg`` (an LSTM config) from ``seed``, as the JAX
+    package's parameter tree holds them: ``{"birnn<i>": {"kernel",
+    "recurrent_kernel", "bias"}}``, f32 numpy. ``kernel`` (2, F, 4H) is
+    glorot-uniform with flax's fans (the leading 2 counted as a receptive
+    field), ``recurrent_kernel`` (2, H, 4H) uniform on [-1, 1) over
+    sqrt(H), ``bias`` (2, 4H) Keras's unit forget bias (1.0 on [H, 2H), 0
+    elsewhere, ``crnn_ocr_tpu/models/rnn.py:90-97``).
+
+    Only elementwise uniform draws of ``np.random.default_rng(seed)`` and
+    correctly rounded arithmetic go in (no QR or other LAPACK call, no
+    libm function), so every machine builds the same bits."""
+    if cfg.rnn_cell != "lstm":
+        raise ValueError(f"seeded layers are BiLSTM ones; rnn_cell is "
+                         f"{cfg.rnn_cell!r}")
+    rng = np.random.default_rng(seed)
+    H = cfg.n_units
+    feat = cfg.time_dense_size
+    out = {}
+    for i in range(cfg.rnn_layers):
+        limit = np.sqrt(6.0 / (2 * feat + 2 * 4 * H))
+        kernel = rng.uniform(-limit, limit, (2, feat, 4 * H))
+        rec = rng.uniform(-1.0, 1.0, (2, H, 4 * H)) / np.sqrt(H)
+        bias = np.zeros((2, 4 * H))
+        bias[:, H:2 * H] = 1.0
+        out[f"birnn{i}"] = {"kernel": kernel.astype(np.float32),
+                            "recurrent_kernel": rec.astype(np.float32),
+                            "bias": bias.astype(np.float32)}
+        feat = 2 * H
+    return out
+
+
+def rnn_params_digest(params: dict) -> str:
+    """sha256 of a parameter tree's recurrent layers (``birnn<i>``, leaves
+    in key order): tells whether two machines built the same seeded
+    weights."""
+    h = hashlib.sha256()
+    for layer in sorted(k for k in params if k.startswith("birnn")):
+        for leaf in sorted(params[layer]):
+            h.update(np.ascontiguousarray(params[layer][leaf]).tobytes())
+    return h.hexdigest()

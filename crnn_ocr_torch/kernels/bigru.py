@@ -1,30 +1,37 @@
-"""BiGRU recurrence for both directions (Keras GRU, ``reset_after``).
+"""BiGRU and BiLSTM recurrences for both directions (Keras GRU with
+``reset_after``; Keras LSTM).
 
-Replaces ``crnn_ocr_tpu/kernels/bigru.py::bigru_pallas_raw`` (K2) and, for
-training, ``bigru_pallas_train`` (K3) with the analytic backward of
-``bigru_fused`` (``bigru.py:203-268``). The input
-projections for every step come in precomputed as ``xw`` (T, 2, B, 3H) in
-the compute dtype, direction 1 time-reversed; what is left is, per step and
-direction, ``rec = round(h) . U[d] + b_rec[d]`` and the gate math, with the
-hidden state ``h`` carried in f32 whatever the compute dtype (as the Pallas
-kernel carries it, ``kernels/bigru.py:63-73``). The CUDA kernels are in
-``csrc/bigru.cu``: bf16 on the tensor cores (``mma.sync``), f32 on the CUDA
-cores (its header has the designs and the H100 bound, 20 us per layer at
-the main path, bytes-bound, plus 64 dependent steps); ``bigru_plain`` is
-the same function as a Python loop over T.
+Replaces the four Pallas kernels of ``crnn_ocr_tpu/kernels/bigru.py``: the
+GRU's ``bigru_pallas_raw`` (K2) and, for training, ``bigru_pallas_train``
+(K3) with the analytic backward of ``bigru_fused`` (``bigru.py:203-268``);
+the LSTM's ``bilstm_pallas_raw`` (K4) and ``bilstm_pallas_train`` (K5) with
+the analytic backward of ``bilstm_fused`` (``bigru.py:439-501``). The input
+projections for every step come in precomputed as ``xw`` (T, 2, B, nH) in
+the compute dtype, direction 1 time-reversed: n = 3 gates z|r|h for the
+GRU, n = 4 gates i|f|c|o for the LSTM, whose single bias is already folded
+into ``xw``. What is left is, per step and direction, ``rec = round(h) .
+U[d]`` (plus the GRU's recurrent bias ``b_rec[d]``) and the gate math, with
+the state carried in f32 whatever the compute dtype: h, and for the LSTM
+also c, as the Pallas kernels carry them (``bigru.py:63-73, 343-345``).
+The CUDA kernels are in ``csrc/bigru.cu``, the cell a template parameter
+of each: bf16 on the tensor cores (``mma.sync``), f32 on the CUDA cores
+(its header has the designs and the H100 bounds, bytes-bound plus 64
+dependent steps); ``bigru_plain`` and ``bilstm_plain`` are the same
+functions as Python loops over T.
 
-``bigru`` dispatches on the device of ``xw`` and on nothing else: a CPU
-tensor goes through ``bigru_plain``, a CUDA tensor through the kernel, or
-the call raises. When a gradient is needed (grad mode on and an input that
-requires it) it runs the training forward instead, as JAX's ``custom_vjp``
-does: K3 (``bigru_train``; the same kernels with a gate-stash template flag)
-writes ``hs`` and the gates (T, 2, B, 4H) f32 = [z | r | hh | rh], and the
-backward is plain PyTorch on either device, as the JAX package's is a
-``lax.scan``: a reverse loop over T carrying only ``dh`` with one batched
-product per step, then ``dU`` as one einsum and ``db`` as a sum. Its
-rounding points are the JAX backward's: ``h_prev`` is the stored ``hs`` (the
-compute dtype) widened to f32, U is widened to f32, ``dxw`` is cast to
-``hs``'s dtype and ``dU`` to U's, and ``db`` stays f32.
+``bigru`` and ``bilstm`` dispatch on the device of ``xw`` and on nothing
+else: a CPU tensor goes through the plain version, a CUDA tensor through
+the kernel, or the call raises. When a gradient is needed (grad mode on
+and an input that requires it) they run the training forward instead, as
+JAX's ``custom_vjp`` does: K3 (``bigru_train``) writes ``hs`` and the gates
+(T, 2, B, 4H) f32 = [z | r | hh | rh], K5 (``bilstm_train``) ``hs`` and
+(T, 2, B, 5H) f32 = [i | f | g | o | c], each the same kernels with a
+stash template flag. The backwards are plain PyTorch on either device, as
+the JAX package's are ``lax.scan``s: a reverse loop over T with one batched
+product per step, then ``dU`` as one einsum (and the GRU's ``db`` as a
+sum). Their rounding points are the JAX backwards': ``h_prev`` is the
+stored ``hs`` (the compute dtype) widened to f32, U is widened to f32,
+``dxw`` is cast to ``hs``'s dtype and ``dU`` to U's, and ``db`` stays f32.
 """
 
 from __future__ import annotations
@@ -34,12 +41,17 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-# Kernel launches: K2 (bigru, inference) and K3 (bigru_train, the forward
-# with the gate stash). The plain versions are not counted.
+# Kernel launches: K2 (bigru, inference), K3 (bigru_train, the forward with
+# the gate stash), K4 (bilstm) and K5 (bilstm_train). The plain versions
+# are not counted.
 launches = 0
 train_launches = 0
+lstm_launches = 0
+lstm_train_launches = 0
 
 MAX_UNITS = 1024  # one thread per hidden unit in a block
+GATES = {"gru": 3, "lstm": 4}
+STASH = {"gru": 4, "lstm": 5}  # the training stash's width, in units of H
 
 
 def _recurrence(xw, u, rec_bias, stash: bool):
@@ -77,14 +89,54 @@ def bigru_train_plain(xw, u, rec_bias):
     return _recurrence(xw, u, rec_bias, stash=True)
 
 
-def _check(xw, u, rec_bias):
-    if xw.dim() != 4 or xw.shape[1] != 2 or xw.shape[3] % 3:
-        raise ValueError(f"xw must be (T, 2, B, 3H), got {tuple(xw.shape)}")
+def _lstm_recurrence(xw, u, stash: bool):
+    T, D, B, G = xw.shape
+    H = G // 4
+    uf = u.float()
+    h = torch.zeros((D, B, H), dtype=torch.float32, device=xw.device)
+    c = torch.zeros_like(h)
+    out = torch.empty((T, D, B, H), dtype=xw.dtype, device=xw.device)
+    st = (torch.empty((T, D, B, 5 * H), dtype=torch.float32,
+                      device=xw.device) if stash else None)
+    for t in range(T):
+        gates = xw[t].float() + torch.bmm(h.to(u.dtype).float(), uf)
+        i = torch.sigmoid(gates[..., :H])
+        f = torch.sigmoid(gates[..., H:2 * H])
+        g = torch.tanh(gates[..., 2 * H:3 * H])
+        o = torch.sigmoid(gates[..., 3 * H:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        out[t] = h.to(xw.dtype)
+        if stash:
+            st[t] = torch.cat([i, f, g, o, c], dim=-1)
+    return out, st
+
+
+def bilstm_plain(xw, u):
+    """The LSTM recurrence as a loop over T (``_lstm_gate_math``,
+    ``bigru.py:284-294``): f32 products of h rounded to ``u``'s dtype, f32
+    gate math, h and c carried in f32, output in ``xw``'s dtype."""
+    return _lstm_recurrence(xw, u, stash=False)[0]
+
+
+def bilstm_train_plain(xw, u):
+    """:func:`bilstm_plain` that also returns the stash (T, 2, B, 5H) f32,
+    ``[i | f | g | o | c]`` per step, c the new cell state
+    (``bigru.py:351-378``)."""
+    return _lstm_recurrence(xw, u, stash=True)
+
+
+def _check(xw, u, rec_bias, cell: str):
+    """Shapes and dtypes of a recurrence's operands; ``rec_bias`` is the
+    GRU's (2, 3H) recurrent bias, None for the LSTM."""
+    n = GATES[cell]
+    if xw.dim() != 4 or xw.shape[1] != 2 or xw.shape[3] % n:
+        raise ValueError(f"xw must be (T, 2, B, {n}H), got {tuple(xw.shape)}")
     T, _, B, G = xw.shape
-    H = G // 3
+    H = G // n
     if tuple(u.shape) != (2, H, G):
         raise ValueError(f"u must be (2, {H}, {G}), got {tuple(u.shape)}")
-    if tuple(rec_bias.shape) != (2, G):
+    if cell == "gru" and tuple(rec_bias.shape) != (2, G):
         raise ValueError(f"rec_bias must be (2, {G}), got "
                          f"{tuple(rec_bias.shape)}")
     if xw.dtype not in (torch.float32, torch.bfloat16) or u.dtype != xw.dtype:
@@ -94,7 +146,7 @@ def _check(xw, u, rec_bias):
 
 
 def mma_operand(u):
-    """U (2, H, 3H) -> the bf16 kernel's B operand (2, 3H, H): transposed to
+    """U (2, H, nH) -> the bf16 kernel's B operand (2, nH, H): transposed to
     [d][n][k], with k permuted inside each 16-block to (0,1,8,9, 2,3,10,11,
     4,5,12,13, 6,7,14,15) so that one 8-byte load is one mma B fragment."""
     D, H, G = u.shape
@@ -104,24 +156,26 @@ def mma_operand(u):
 
 def _padded_units(H: int, dtype) -> int:
     """Hidden units per gate the kernel runs: the bf16 kernel's mma tiles
-    take a multiple of 16. A padded unit sees zero input, weights and bias,
-    so its state stays 0 (z = 1/2, hh = 0) and it adds nothing to the real
-    units' products."""
+    take a multiple of 16. A padded unit sees zero input and weights (and
+    bias), so its state stays 0: for the GRU z = 1/2 and hh = 0; for the
+    LSTM i = f = o = 1/2 and g = 0, so c stays 0 and h = tanh(0) / 2 = 0.
+    It adds nothing to the real units' products."""
     return -(-H // 16) * 16 if dtype == torch.bfloat16 else H
 
 
 def _pad_gates(x, H: int, hp: int):
-    """Zero-pad the last axis (3H, gates z|r|h) to 3 * hp."""
-    return F.pad(x.reshape(*x.shape[:-1], 3, H), (0, hp - H)).reshape(
-        *x.shape[:-1], 3 * hp)
+    """Zero-pad the last axis (n gates of H units) to n * hp."""
+    n = x.shape[-1] // H
+    return F.pad(x.reshape(*x.shape[:-1], n, H), (0, hp - H)).reshape(
+        *x.shape[:-1], n * hp)
 
 
 def kernel_weights(u):
-    """U (2, H, 3H) -> the operand the card's kernel reads: for bf16, the
+    """U (2, H, nH) -> the operand the card's kernel reads: for bf16, the
     units padded to a multiple of 16 and the layout of :func:`mma_operand`;
     for f32, U itself. It depends on the weights only, so a caller that
     runs them often builds it once (``BiRNN`` does when its weights are
-    loaded) and passes it to :func:`bigru`."""
+    loaded) and passes it to :func:`bigru` or :func:`bilstm`."""
     if u.dtype != torch.bfloat16:
         return u.contiguous()
     H = u.shape[1]
@@ -131,54 +185,59 @@ def kernel_weights(u):
     return mma_operand(u)
 
 
-def _launch(xw, u, rec_bias, u_kernel, stash: bool):
-    """Run K2 (``stash=False``) or K3 on the card: hs, and the gates for
-    K3. Checks every operand; raises for a device without a kernel."""
-    T, B, H = _check(xw, u, rec_bias)
+def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool):
+    """Run K2 or K3 (``cell="gru"``), K4 or K5 (``"lstm"``) on the card:
+    hs, and the stash for K3 and K5. Checks every operand; raises for a
+    device without a kernel."""
+    T, B, H = _check(xw, u, rec_bias, cell)
+    name = f"bi{cell}_train" if stash else f"bi{cell}"
     if xw.device.type != "cuda":
-        raise RuntimeError(f"bigru: no kernel for {xw.device}")
+        raise RuntimeError(f"{name}: no kernel for {xw.device}")
     if H > MAX_UNITS:
-        raise ValueError(f"bigru: at most {MAX_UNITS} units, got {H}")
+        raise ValueError(f"{name}: at most {MAX_UNITS} units, got {H}")
     dev = xw.device
-    if u.device != dev or rec_bias.device != dev:
-        raise RuntimeError("bigru: xw, u and rec_bias must be on one device")
+    if u.device != dev or (rec_bias is not None and rec_bias.device != dev):
+        raise RuntimeError(f"{name}: every operand must be on one device")
+    n, sw = GATES[cell], STASH[cell]
     bf16 = xw.dtype == torch.bfloat16
     hp = _padded_units(H, xw.dtype)
     if u_kernel is None:
         u_kernel = kernel_weights(u)
-    want = (2, 3 * hp, hp) if bf16 else (2, H, 3 * H)
+    want = (2, n * hp, hp) if bf16 else (2, H, n * H)
     if (tuple(u_kernel.shape) != want or u_kernel.dtype != xw.dtype
             or u_kernel.device != dev or not u_kernel.is_contiguous()):
-        raise ValueError(f"bigru: u_kernel must be kernel_weights(u), "
+        raise ValueError(f"{name}: u_kernel must be kernel_weights(u), "
                          f"{want} {xw.dtype} on {dev}; got "
                          f"{tuple(u_kernel.shape)} {u_kernel.dtype} on "
                          f"{u_kernel.device}")
     from crnn_ocr_torch.kernels import _build
 
-    rb = rec_bias.detach().float()
     xw = xw.detach()
     if hp != H:
-        xw, rb = _pad_gates(xw, H, hp), _pad_gates(rb, H, hp)
-    xw = xw.contiguous()
-    rb = rb.contiguous()
+        xw = _pad_gates(xw, H, hp)
+    operands = [xw.contiguous(), u_kernel]
+    if cell == "gru":
+        rb = rec_bias.detach().float()
+        operands.append((_pad_gates(rb, H, hp) if hp != H else rb)
+                        .contiguous())
     hs = torch.empty((T, 2, B, hp), dtype=xw.dtype, device=dev)
-    gates = (torch.empty((T, 2, B, 4 * hp), dtype=torch.float32, device=dev)
+    gates = (torch.empty((T, 2, B, sw * hp), dtype=torch.float32, device=dev)
              if stash else None)
     lib = _build.load("bigru")
-    fn = lib.crnn_bigru_bf16 if bf16 else lib.crnn_bigru_f32
+    fn = getattr(lib, f"crnn_bi{cell}_{'bf16' if bf16 else 'f32'}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (len(operands) + 2) + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
-        err = fn(xw.data_ptr(), u_kernel.data_ptr(), rb.data_ptr(),
-                 hs.data_ptr(), gates.data_ptr() if stash else None, T, B, hp,
+        err = fn(*(t.data_ptr() for t in operands), hs.data_ptr(),
+                 gates.data_ptr() if stash else None, T, B, hp,
                  torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "bigru_train" if stash else "bigru")
+    _build.check(lib, err, name)
     if hp != H:
         hs = hs[..., :H].contiguous()
         if stash:
-            gates = gates.reshape(T, 2, B, 4, hp)[..., :H].reshape(
-                T, 2, B, 4 * H)
+            gates = gates.reshape(T, 2, B, sw, hp)[..., :H].reshape(
+                T, 2, B, sw * H)
     return hs, gates
 
 
@@ -186,12 +245,12 @@ def bigru_train(xw, u, rec_bias, u_kernel=None):
     """K3: ``(hs, gates)`` as :func:`bigru_train_plain` computes them. A CPU
     tensor goes through the plain version, a CUDA tensor through the
     kernel; no gradient flows through this call (see :func:`bigru`)."""
-    _check(xw, u, rec_bias)
+    _check(xw, u, rec_bias, "gru")
     if xw.device.type == "cpu":
         with torch.no_grad():
             return bigru_train_plain(xw, u, rec_bias)
     global train_launches
-    out = _launch(xw, u, rec_bias, u_kernel, stash=True)
+    out = _launch("gru", xw, u, rec_bias, u_kernel, stash=True)
     train_launches += 1
     return out
 
@@ -259,11 +318,11 @@ def bigru_infer(xw, u, rec_bias, u_kernel=None):
     """K2: hs as :func:`bigru_plain` computes it, with no gradient. A CPU
     tensor goes through the plain version, a CUDA tensor through the
     kernel."""
-    _check(xw, u, rec_bias)
+    _check(xw, u, rec_bias, "gru")
     if xw.device.type == "cpu":
         return bigru_plain(xw, u, rec_bias)
     global launches
-    hs, _ = _launch(xw, u, rec_bias, u_kernel, stash=False)
+    hs, _ = _launch("gru", xw, u, rec_bias, u_kernel, stash=False)
     launches += 1
     return hs
 
@@ -278,3 +337,111 @@ def bigru(xw, u, rec_bias, u_kernel=None):
             t.requires_grad for t in (xw, u, rec_bias)):
         return _BiGRUTrain.apply(xw, u, rec_bias, u_kernel)
     return bigru_infer(xw, u, rec_bias, u_kernel)
+
+
+# ---- the LSTM ----
+
+
+def bilstm_infer(xw, u, u_kernel=None):
+    """K4: hs as :func:`bilstm_plain` computes it, with no gradient. A CPU
+    tensor goes through the plain version, a CUDA tensor through the
+    kernel."""
+    _check(xw, u, None, "lstm")
+    if xw.device.type == "cpu":
+        return bilstm_plain(xw, u)
+    global lstm_launches
+    hs, _ = _launch("lstm", xw, u, None, u_kernel, stash=False)
+    lstm_launches += 1
+    return hs
+
+
+def bilstm_train(xw, u, u_kernel=None):
+    """K5: ``(hs, stash)`` as :func:`bilstm_train_plain` computes them. A
+    CPU tensor goes through the plain version, a CUDA tensor through the
+    kernel; no gradient flows through this call (see :func:`bilstm`)."""
+    _check(xw, u, None, "lstm")
+    if xw.device.type == "cpu":
+        with torch.no_grad():
+            return bilstm_train_plain(xw, u)
+    global lstm_train_launches
+    out = _launch("lstm", xw, u, None, u_kernel, stash=True)
+    lstm_train_launches += 1
+    return out
+
+
+def bilstm_backward(g, u, hs, stash):
+    """The analytic LSTM backward (``bigru.py:450-498``), in plain PyTorch.
+
+    Per step, both directions at once, carrying ``(dh, dc)``::
+
+        dh    = dh_carry + g_t
+        da_o  = dh tanh(c) o (1 - o)
+        dc    = dc_carry + dh o (1 - tanh(c)^2)
+        da_i  = dc g i (1 - i)
+        da_f  = dc c_prev f (1 - f)           c_prev = 0 at step 0
+        da_g  = dc i (1 - g^2)
+        drec  = dxw_t = [da_i, da_f, da_g, da_o]   (gates = xw + h_prev U)
+        dh_prev = drec U^T,  dc_prev = dc f
+
+    The factors that do not depend on the carries are formed for all steps
+    at once, so the loop is two adds, three products and one batched
+    matmul per step. Returns ``(dxw, du)`` in the dtypes of ``hs`` and
+    ``u``: the LSTM's bias is folded into ``xw`` before the recurrence, so
+    its gradient flows through the projection's autograd, not from here.
+    """
+    T, D, B, H = hs.shape
+    with torch.profiler.record_function("bilstm_backward"):
+        i, f, gg, o, c = stash.reshape(T, D, B, 5, H).unbind(3)
+        c_prev = torch.cat([c.new_zeros((1, D, B, H)), c[:-1]])
+        h_prev = torch.cat([hs.new_zeros((1, D, B, H)), hs[:-1]]).float()
+        tc = torch.tanh(c)
+        f_o = tc * o * (1.0 - o)  # da_o = dh * f_o
+        f_c = o * (1.0 - tc * tc)  # dc += dh * f_c
+        # da_i, da_f, da_g = dc * f_dc
+        f_dc = torch.stack([gg * i * (1.0 - i), c_prev * f * (1.0 - f),
+                            i * (1.0 - gg * gg)], dim=3)
+        g = g.float()
+        ut = u.float().transpose(1, 2)  # (D, 4H, H)
+        drec = torch.empty((T, D, B, 4, H), dtype=torch.float32,
+                           device=hs.device)
+        dh = torch.zeros((D, B, H), dtype=torch.float32, device=hs.device)
+        dc = torch.zeros_like(dh)
+        for t in range(T - 1, -1, -1):
+            dh = dh + g[t]
+            dc = torch.addcmul(dc, dh, f_c[t])
+            torch.mul(dc[:, :, None], f_dc[t], out=drec[t, :, :, :3])
+            torch.mul(dh, f_o[t], out=drec[t, :, :, 3])
+            dh = torch.bmm(drec[t].reshape(D, B, 4 * H), ut)
+            dc = dc * f[t]
+        drec = drec.reshape(T, D, B, 4 * H)
+        du = torch.einsum("tdbh,tdbg->dhg", h_prev, drec)
+    return drec.to(hs.dtype), du.to(u.dtype)
+
+
+class _BiLSTMTrain(torch.autograd.Function):
+    """K5 forward, :func:`bilstm_backward` backward (JAX's ``bilstm_fused``
+    custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, xw, u, u_kernel):
+        hs, stash = bilstm_train(xw, u, u_kernel)
+        ctx.save_for_backward(u, hs, stash)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        u, hs, stash = ctx.saved_tensors
+        dxw, du = bilstm_backward(g, u, hs, stash)
+        return dxw, du, None
+
+
+def bilstm(xw, u, u_kernel=None):
+    """Run the LSTM recurrence: xw (T, 2, B, 4H) (the input projections plus
+    the bias), u (2, H, 4H) in the same dtype -> hs (T, 2, B, H) in xw's
+    dtype, direction 1 still time-reversed. ``u_kernel``:
+    ``kernel_weights(u)``, built here when not given. Differentiable in
+    ``xw`` and ``u``: with a gradient needed it runs K5 and the analytic
+    backward, else K4."""
+    if torch.is_grad_enabled() and (xw.requires_grad or u.requires_grad):
+        return _BiLSTMTrain.apply(xw, u, u_kernel)
+    return bilstm_infer(xw, u, u_kernel)

@@ -13,9 +13,9 @@ also run one by one (``chip_smoke.py`` times them so):
 ``eval()`` is the serving path: the stem runs through the CUDA kernel K1
 (``kernels.fused_stem``) with the BatchNorm folded to an affine of its
 running statistics, every BatchNorm uses its running statistics, and the
-recurrence runs K2. ``train()`` is flax's ``train=True``: every BatchNorm
-normalizes with the batch's statistics and updates its running ones, and
-dropout at ``cfg.dropout_rate`` follows each block's pool, drawn from the
+recurrence runs K2 (K4 for an LSTM). ``train()`` is flax's ``train=True``:
+every BatchNorm normalizes with the batch's statistics and updates its
+running ones, the recurrence runs K3 (K5 for an LSTM), and dropout at ``cfg.dropout_rate`` follows each block's pool, drawn from the
 ``torch.Generator`` the caller passes. The training stem runs
 ``kernels.fused_stem_train`` (``crnn.py:297-316``): K8's batch statistics
 feed K1, and K9 and K10 give its backward; ``stem_bn``'s running

@@ -1,21 +1,25 @@
-"""Bidirectional GRU (``crnn_ocr_tpu/models/rnn.py:41-190``).
+"""Bidirectional GRU or LSTM (``crnn_ocr_tpu/models/rnn.py:41-221``).
 
 The input projection of every step and both directions is one batched
-matmul with f32 products and sums, plus the input bias; the recurrence goes
-to ``kernels.bigru`` (the CUDA kernel on the card, its plain version on the
-CPU). Semantics follow the JAX package's Pallas branch (``rnn.py:119-167``):
-the projections are cast to the compute dtype before the recurrence, and
-the hidden state is carried in f32.
+matmul with f32 products and sums, plus the input bias (the LSTM's whole
+bias); the recurrence goes to ``kernels.bigru`` (the CUDA kernels on the
+card, their plain versions on the CPU): ``bigru`` (K2, or K3 in training)
+for the GRU, ``bilstm`` (K4, or K5 in training) for the LSTM. Semantics
+follow the JAX package's Pallas branch (``rnn.py:119-167``): the
+projections are cast to the compute dtype before the recurrence, and the
+state (h; and c for the LSTM) is carried in f32.
 
-Parameters keep the JAX layout, which the kernel consumes: ``kernel``
-(2, F, 3H), ``recurrent_kernel`` (2, H, 3H), ``bias`` (2, 2, 3H) with
+Parameters keep the JAX layout, which the kernels consume, with n = 3
+gates z|r|h (GRU) or 4 gates i|f|c|o (LSTM): ``kernel`` (2, F, nH),
+``recurrent_kernel`` (2, H, nH), and ``bias`` (2, 2, 3H) for the GRU, with
 ``bias[:, 0]`` the input bias and ``bias[:, 1]`` the recurrent one (Keras
-``reset_after``), gate order z|r|h. The kernel's own layout of the
-recurrent kernel (``kernels.bigru.kernel_weights``) is built from the
-current weights on every call in training mode, where an optimizer changes
-them between calls; in eval mode it is the cached buffer ``u_kernel``,
-rebuilt whenever a state dict is loaded and whenever the module enters eval
-mode. Gradients reach ``kernel``, ``recurrent_kernel`` and ``bias``.
+``reset_after``), or (2, 4H) for the LSTM, its single bias folded into the
+projections (``rnn.py:113-115``). The kernels' own layout of the recurrent
+kernel (``kernels.bigru.kernel_weights``) is built from the current
+weights on every call in training mode, where an optimizer changes them
+between calls; in eval mode it is the cached buffer ``u_kernel``, rebuilt
+whenever a state dict is loaded and whenever the module enters eval mode.
+Gradients reach ``kernel``, ``recurrent_kernel`` and ``bias``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from crnn_ocr_torch.kernels.bigru import bigru, kernel_weights
+from crnn_ocr_torch.kernels.bigru import GATES, bigru, bilstm, kernel_weights
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -62,23 +66,22 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class BiRNN(nn.Module):
-    """Bidirectional GRU, outputs of the two directions concatenated.
-    (B, T, F) -> (B, T, 2 * units)."""
+    """Bidirectional GRU or LSTM (``cell``), outputs of the two directions
+    concatenated. (B, T, F) -> (B, T, 2 * units)."""
 
     def __init__(self, in_features: int, units: int, cell: str = "gru",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cell != "gru":
-            raise NotImplementedError(
-                f"rnn_cell={cell!r}: the LSTM recurrence is not ported yet "
-                "(kernels/bigru.py::bilstm_pallas_raw is still to port)"
-            )
+        if cell not in GATES:
+            raise ValueError(f"rnn_cell must be 'gru' or 'lstm', got {cell!r}")
+        self.cell = cell
         self.units = units
         self.dtype = dtype
-        g = 3 * units
+        g = GATES[cell] * units
         self.kernel = nn.Parameter(torch.zeros(2, in_features, g))
         self.recurrent_kernel = nn.Parameter(torch.zeros(2, units, g))
-        self.bias = nn.Parameter(torch.zeros(2, 2, g))
+        self.bias = nn.Parameter(torch.zeros((2, 2, g) if cell == "gru"
+                                             else (2, g)))
         self._refresh_u_kernel()
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module._refresh_u_kernel())
@@ -104,20 +107,25 @@ class BiRNN(nn.Module):
         return self.u_kernel
 
     def project(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, F) -> the recurrence's input xw (T, 2, B, 3H) in the
-        compute dtype: the input projections plus the input bias, direction
-        1 time-reversed."""
+        """(B, T, F) -> the recurrence's input xw (T, 2, B, nH) in the
+        compute dtype: the input projections plus the input bias (the
+        LSTM's only bias), direction 1 time-reversed."""
         B, T, F = x.shape
         xt = x.to(self.dtype).transpose(0, 1)  # (T, B, F)
         # (2, T*B, F): direction 0 forward, direction 1 time-reversed
         x2 = torch.stack([xt, xt.flip(0)]).reshape(2, T * B, F)
         xw = matmul_f32(x2, self.kernel.to(self.dtype))
-        xw = xw + self.bias[:, 0, None, :]
+        bias = self.bias[:, 0] if self.cell == "gru" else self.bias
+        xw = xw + bias[:, None, :]
         return xw.reshape(2, T, B, -1).transpose(0, 1).to(self.dtype) \
             .contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hs = bigru(self.project(x), self.recurrent_kernel.to(self.dtype),
-                   self.bias[:, 1], self.kernel_operand())  # (T, 2, B, H)
+        xw = self.project(x)
+        u = self.recurrent_kernel.to(self.dtype)
+        if self.cell == "gru":
+            hs = bigru(xw, u, self.bias[:, 1], self.kernel_operand())
+        else:
+            hs = bilstm(xw, u, self.kernel_operand())  # (T, 2, B, H)
         out = torch.cat([hs[:, 0], hs[:, 1].flip(0)], dim=-1)  # (T, B, 2H)
         return out.transpose(0, 1)

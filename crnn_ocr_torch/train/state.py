@@ -13,9 +13,9 @@ update count.
 
 ``create_train_state`` starts from given weights (fine-tuning) or from a
 seeded init with flax's initializer families (lecun-normal convolutions
-and dense layers, glorot-uniform input and orthogonal recurrent GRU
-kernels, zero biases, unit BatchNorm scales; the STN's theta layer with a
-zero kernel and the identity bias): the same distributions as the JAX
+and dense layers, glorot-uniform input and orthogonal recurrent GRU and
+LSTM kernels, zero biases but the LSTM's unit forget bias, unit BatchNorm
+scales; the STN's theta layer with a zero kernel and the identity bias): the same distributions as the JAX
 package's ``model.init``, not the same numbers.
 """
 
@@ -30,6 +30,7 @@ import torch
 from crnn_ocr_torch.config import ModelConfig
 from crnn_ocr_torch.infer.predictor import resolve_device
 from crnn_ocr_torch.models.crnn import CRNN
+from crnn_ocr_torch.models.rnn import BiRNN
 from crnn_ocr_torch.models.stn import IDENTITY
 
 ADAM_BETAS = (0.9, 0.999)
@@ -166,14 +167,16 @@ def init_weights(model: CRNN, seed: int = 0) -> None:
         elif isinstance(mod, torch.nn.Linear):
             _lecun_normal_(mod.weight, mod.in_features, gen)
             mod.bias.zero_()
-    for name, p in model.named_parameters():
-        if name.endswith(".kernel"):  # BiRNN (2, F, 3H): flax fans count
-            _, f, g = p.shape  # the leading 2 as a receptive field
-            _glorot_uniform_(p, 2 * f, 2 * g, gen)
-        elif name.endswith(".recurrent_kernel"):
-            _orthogonal_(p, gen)
-        elif name.endswith(".bias") and p.dim() == 3:
-            p.zero_()
+    for mod in model.modules():
+        if isinstance(mod, BiRNN):
+            # kernel (2, F, nH): flax fans count the leading 2 as a
+            # receptive field
+            _, f, g = mod.kernel.shape
+            _glorot_uniform_(mod.kernel, 2 * f, 2 * g, gen)
+            _orthogonal_(mod.recurrent_kernel, gen)
+            mod.bias.zero_()
+            if mod.cell == "lstm":  # Keras unit_forget_bias (rnn.py:90-97)
+                mod.bias[..., mod.units:2 * mod.units] = 1.0
     for mod in model.modules():
         if hasattr(mod, "running_var"):
             mod.weight.fill_(1.0)

@@ -5,9 +5,9 @@ One train step: the model in training mode (batch-statistics BatchNorm,
 dropout from the caller's generator) -> logits -> per-sample CTC loss after
 the first ``ctc_time_slice`` frames -> each loss clipped at 1e4 -> their
 plain mean -> backward -> Adam with the global-norm clip. On the card the
-loss runs K6 forward and K7 backward, each BiGRU layer runs K3 forward, and
-a non-STN model's stem runs K8 and K1 forward, K9 and K10 backward; the
-BiGRU backward is plain PyTorch.
+loss runs K6 forward and K7 backward, each BiGRU layer runs K3 forward
+(each BiLSTM layer K5), and a non-STN model's stem runs K8 and K1 forward,
+K9 and K10 backward; the recurrences' backwards are plain PyTorch.
 
 Loss modes, as in the JAX package:
 
@@ -82,7 +82,7 @@ def make_train_step(cfg: ModelConfig, exact_keras: bool = False):
 
 def make_eval_step(cfg: ModelConfig):
     """``eval_step(state, batch) -> (loss_vec, decoded)``: the inference
-    forward (eval mode, so K1 and K2 on the card), the per-line loss and
+    forward (eval mode, so K1 and K2 or K4 on the card), the per-line loss and
     the greedy decode (B, T') padded with -1."""
 
     @torch.no_grad()

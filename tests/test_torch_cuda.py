@@ -9,8 +9,12 @@ JAX is not installed; there, skip ``tests/conftest.py`` (which imports JAX):
 Tolerances: the stem in f32 to atol 1e-5 (f32 sums of 9 products in another
 order) and in bf16 to one bf16 ulp of the output plus 1e-6 (values the
 sums' order puts on either side of the ReLU); the BiGRU (K2, and K3's hs and
-gates) in f32 to 1e-5 over 6 steps and in bf16 to 2^-7, two ulps of outputs
-in (-1, 1); the CTC recursions (K6, K7) to 1e-4 + 1e-5 * |value| where a
+gates) and the BiLSTM (K4, and K5's hs) in f32 to 1e-5 over 6 steps and in
+bf16 to 2^-7, two ulps of outputs in (-1, 1), and K5's stash to the same
+plus as much times its value in bf16 (c is not bounded by 1); the BiLSTM's
+autograd Function on the card against the CPU to rtol 1e-4 / atol 1e-5 of
+the largest gradient in f32 and 1e-2 in bf16 (h's bf16 roundings differ
+between the two and reach every gradient); the CTC recursions (K6, K7) to 1e-4 + 1e-5 * |value| where a
 path exists (f32 log-sum-exps with CUDA's expf/logf, over up to 61
 dependent frames) and exactly NEG where none does; the CTC gradient to
 rtol 1e-4 / atol 1e-5, as the CPU tests hold it to JAX; the bilinear
@@ -144,6 +148,138 @@ def test_bigru_train_kernel_matches_plain(card, dtype, B, H):
                                want_hs.float().numpy(), rtol=0, atol=atol)
     np.testing.assert_allclose(gates.cpu().numpy(), want_g.numpy(), rtol=0,
                                atol=atol)
+
+
+def _lstm_case(seed, B, H, dtype):
+    rng = np.random.default_rng(seed)
+    dt = DTYPES[dtype]
+    xw = torch.from_numpy(rng.normal(size=(6, 2, B, 4 * H))
+                          .astype(np.float32)).to(dt)
+    u = torch.from_numpy((rng.normal(size=(2, H, 4 * H)) / np.sqrt(H))
+                         .astype(np.float32)).to(dt)
+    return xw, u, (2.0 ** -7 if dt == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (256, 256), (3, 1024),
+                                 (4, 40)])  # bf16 pads 40 units to 48
+def test_bilstm_kernel_matches_plain(card, dtype, B, H):
+    """K4 against bilstm_plain (fonts-hard-lstm's serving batch among the
+    shapes)."""
+    xw, u, atol = _lstm_case(15, B, H, dtype)
+    n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
+    got = tbg.bilstm(xw.to(card), u.to(card))
+    torch.cuda.synchronize()
+    assert (tbg.lstm_launches, tbg.lstm_train_launches) == (n4 + 1, n5)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               tbg.bilstm_plain(xw, u).float().numpy(),
+                               rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (128, 256), (3, 1024),
+                                 (4, 40)])
+def test_bilstm_train_kernel_matches_plain(card, dtype, B, H):
+    """K5: hs and the stash [i | f | g | o | c], against
+    bilstm_train_plain."""
+    xw, u, atol = _lstm_case(16, B, H, dtype)
+    n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
+    hs, st = tbg.bilstm_train(xw.to(card), u.to(card))
+    torch.cuda.synchronize()
+    assert (tbg.lstm_launches, tbg.lstm_train_launches) == (n4, n5 + 1)
+    want_hs, want_st = tbg.bilstm_train_plain(xw, u)
+    assert st.shape == want_st.shape and st.dtype == torch.float32
+    np.testing.assert_allclose(hs.float().cpu().numpy(),
+                               want_hs.float().numpy(), rtol=0, atol=atol)
+    rtol = atol if dtype == "bfloat16" else 0.0
+    np.testing.assert_allclose(st.cpu().numpy(), want_st.numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_bilstm_autograd_on_card_matches_cpu(card, dtype):
+    """The BiLSTM's autograd Function (K5 forward, the plain analytic
+    backward) on the card against the CPU: hs and the gradients of xw and
+    u."""
+    xw, u, atol = _lstm_case(17, 16, 256, dtype)
+    g = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(6, 2, 16, 256)).astype(np.float32))
+    outs, grads = [], []
+    for dev in ("cpu", card):
+        ts = [t.clone().to(dev).requires_grad_(True) for t in (xw, u)]
+        hs = tbg.bilstm(*ts)
+        assert type(hs.grad_fn).__name__ == "_BiLSTMTrainBackward"
+        (hs.float() * g.to(dev)).sum().backward()
+        outs.append(hs.detach().float().cpu())
+        grads.append([t.grad.float().cpu() for t in ts])
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), rtol=0,
+                               atol=atol)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for a, b in zip(grads[1], grads[0]):
+        np.testing.assert_allclose(
+            a.numpy(), b.numpy(), rtol=tol,
+            atol=(1e-5 if dtype == "float32" else tol) * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_birnn_lstm_on_card_uses_current_weights_after_a_step(card, dtype):
+    """As the GRU's test: after optimizer.step() the card's K5 (training)
+    and K4 (eval) read the new recurrent weights, as the plain version
+    does."""
+    from crnn_ocr_torch.models.rnn import BiRNN
+
+    dt = DTYPES[dtype]
+    torch.manual_seed(1)
+    rnn = BiRNN(16, 48, cell="lstm", dtype=dt).to(card)
+    with torch.no_grad():
+        for p in rnn.parameters():
+            p.normal_(0.0, 0.2)
+    opt = torch.optim.Adam(rnn.parameters(), lr=0.05)
+    x = torch.randn(8, 7, 16, device=card)
+    rnn(x).float().pow(2).sum().backward()
+    opt.step()
+    ref = BiRNN(16, 48, cell="lstm", dtype=dt)  # the plain versions
+    ref.load_state_dict({k: v.cpu() for k, v in rnn.state_dict().items()})
+    atol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
+    n5, n4 = tbg.lstm_train_launches, tbg.lstm_launches
+    got = rnn(x)  # training mode, grad enabled: K5
+    assert tbg.lstm_train_launches == n5 + 1
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               ref(x.cpu()).detach().float().numpy(), rtol=0,
+                               atol=atol)
+    rnn.eval()
+    ref.eval()
+    with torch.no_grad():
+        got = rnn(x)  # K4 on the rebuilt cached operand
+        want = ref(x.cpu())
+    assert tbg.lstm_launches == n4 + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_lstm_predictor_on_card_matches_golden_probs(card):
+    """fonts-hard-lstm in f32 on the card: 1 K1 and 2 K4 launches, no K2,
+    and the JAX predictor's probabilities on lstm_goldens.npz's lines
+    (rtol 1e-4 / atol 2e-5)."""
+    from crnn_ocr_torch import load_pretrained
+
+    g = np.load(GOLDENS)
+    gold = np.load(os.path.join(os.path.dirname(GOLDENS), "lstm_goldens.npz"))
+    n = len(gold["lstm_probs_f32"])
+    c, hs, ws = g["hard_canvas"], g["hard_heights"], g["hard_widths"]
+    lines = [c[i, :h, :w] for i, (h, w) in enumerate(zip(hs[:n], ws[:n]))]
+    pred = load_pretrained("fonts-hard-lstm", device=card, dtype="float32")
+    counts = (tfs.launches, tbg.launches, tbg.lstm_launches)
+    probs, _ = pred.predict_probs(lines, bucket=256)
+    assert (tfs.launches, tbg.launches, tbg.lstm_launches) == (
+        counts[0] + 1, counts[1], counts[2] + 2)
+    np.testing.assert_allclose(probs.cpu().numpy(), gold["lstm_probs_f32"],
+                               rtol=1e-4, atol=2e-5)
 
 
 def _ctc_case(seed, B, T, C, L):

@@ -29,6 +29,8 @@ interpret mode. Tolerances:
   the learning rate. Such elements (counted: at most 0.1 % of a tensor)
   are held to ``2 * lr`` per step taken instead. At a rate of 1e-3 the
   drift they start moves the third step's loss by ~2e-5; at 1e-4 by 1e-6;
+* the narrow CRNN with BiLSTM layers: its first step's gradients, and the
+  one step, held as the GRU's above;
 * one bf16 step, loosely: loss and grad_norm within 0.5 %, and every
   parameter within two Adam updates (``2 * lr``, plus 1e-6 for the f32
   rounding of the parameter) of JAX's, as far apart as two updates of the
@@ -177,9 +179,9 @@ def test_dropout_keeps_and_scales_like_flax():
 # ---- one train step and three Adam steps against JAX ----
 
 
-def _jax_cfg(dtype="float32"):
-    return JaxConfig(**NARROW, dtype=dtype, use_pallas_rnn=True,
-                     use_fused_stem=False)
+def _jax_cfg(dtype="float32", cell="gru"):
+    return JaxConfig(**NARROW, dtype=dtype, rnn_cell=cell,
+                     use_pallas_rnn=True, use_fused_stem=False)
 
 
 def _host_batches(n, B=64):
@@ -193,8 +195,8 @@ def _host_batches(n, B=64):
     return out
 
 
-def _run_jax(dtype, batches):
-    cfg = _jax_cfg(dtype)
+def _run_jax(dtype, batches, cell="gru"):
+    cfg = _jax_cfg(dtype, cell)
     state = jstate.create_train_state(cfg, jax.random.key(3),
                                       learning_rate=LR, pallas_interpret=True)
     init = (jax.tree_util.tree_map(np.asarray, state.params),
@@ -213,8 +215,8 @@ def _run_jax(dtype, batches):
     return init, metrics, snaps
 
 
-def _run_torch(dtype, init, batches):
-    cfg = TorchConfig(**NARROW, dtype=dtype)
+def _run_torch(dtype, init, batches, cell="gru"):
+    cfg = TorchConfig(**NARROW, dtype=dtype, rnn_cell=cell)
     state = tstate.create_train_state(cfg, params_from_jax(*init),
                                       device="cpu", learning_rate=LR)
     step = tstep.make_train_step(cfg)
@@ -249,14 +251,14 @@ def _assert_params_close(got, want, grads, max_step):
         assert np.all(np.abs(g - w)[off] <= max_step * len(grads)), name
 
 
-def _jax_step1_grads(init, batch):
+def _jax_step1_grads(init, batch, cell="gru"):
     """JAX's gradients of the train step's loss (``_train_step_fn``'s
     ``loss_fn``, dropout 0) at the initial weights, as a torch state dict's
     parameters."""
     from crnn_ocr_tpu.models import CRNN as JaxCRNN
     from crnn_ocr_tpu.train.step import ctc_loss_vec
 
-    cfg = _jax_cfg()
+    cfg = _jax_cfg(cell=cell)
     params, stats = jax.tree_util.tree_map(jnp.asarray, init)
     b = {k: jnp.asarray(v) for k, v in batch.items()}
 
@@ -275,10 +277,10 @@ def _jax_step1_grads(init, batch):
         init[1])
 
 
-def _torch_step1_grads(init, batch):
+def _torch_step1_grads(init, batch, cell="gru"):
     """The port's gradients of the same loss at the same weights (before
     the step clips them)."""
-    cfg = TorchConfig(**NARROW)
+    cfg = TorchConfig(**NARROW, rnn_cell=cell)
     state = tstate.create_train_state(cfg, params_from_jax(*init),
                                       device="cpu", learning_rate=LR)
     state.model.train()
@@ -322,6 +324,40 @@ def test_train_steps_match_jax_f32(f32_runs, k):
                                    err_msg=key)
     assert sorted(ts[k]) == sorted(js[k])
     _assert_params_close(ts[k], js[k], tg[:k + 1], 2 * LR)
+
+
+@pytest.fixture(scope="module")
+def lstm_runs():
+    """One f32 step of the narrow CRNN with BiLSTM layers (H = 128, K5 and
+    the analytic LSTM backward on the card) on both sides."""
+    batches = _host_batches(1)
+    init, jm, js = _run_jax("float32", batches, "lstm")
+    tm, ts, tg = _run_torch("float32", init, batches, "lstm")
+    grads = (_torch_step1_grads(init, batches[0], "lstm"),
+             _jax_step1_grads(init, batches[0], "lstm"))
+    return jm, js, tm, ts, tg, grads
+
+
+def test_lstm_train_step_gradients_match_jax_f32(lstm_runs):
+    """As ``test_train_step_gradients_match_jax_f32``, for the LSTM: every
+    parameter's gradient, the LSTM's (2, 4H) biases included, leaf by
+    leaf against ``jax.grad``."""
+    got, want = lstm_runs[-1]
+    assert got["birnn0.bias"].shape == (2, 4 * NARROW["n_units"])
+    assert sorted(got) == sorted(k for k in want if k in got)
+    for name, g in got.items():
+        w = want[name].numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+
+def test_lstm_train_step_matches_jax_f32(lstm_runs):
+    jm, js, tm, ts, tg, _ = lstm_runs
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(tm[0][key], jm[0][key], rtol=2e-5,
+                                   err_msg=key)
+    assert sorted(ts[0]) == sorted(js[0])
+    _assert_params_close(ts[0], js[0], tg[:1], 2 * LR)
 
 
 def test_train_step_bf16_tracks_jax():

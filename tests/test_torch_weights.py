@@ -182,7 +182,9 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/ops/grid_sample.py",
             "crnn_ocr_torch/models/stn.py",
             "crnn_ocr_torch/infer/hdf5.py",
-            "crnn_ocr_torch/kernels/fused_stem_train.py"} <= names
+            "crnn_ocr_torch/kernels/fused_stem_train.py",
+            "crnn_ocr_torch/kernels/bigru.py",
+            "crnn_ocr_torch/infer/pretrained.py"} <= names
     assert not bad, bad
 
 
@@ -198,6 +200,7 @@ def test_importing_the_port_loads_no_jax():
         "crnn_ocr_torch.models.stn, crnn_ocr_torch.infer.hdf5\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-small', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-warp-stn', device='cpu')\n"
+        "p = crnn_ocr_torch.load_pretrained('fonts-hard-lstm', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

@@ -56,9 +56,31 @@ STN models, 64 lines each from its own task, width-filtered to 256:
   labels padded to 32; the sampler is the JAX package's XLA path under
   ``jax.grad``), STN leaves included.
 
+``--lstm`` writes ``crnn_ocr_torch/testdata/lstm_goldens.npz`` for
+``fonts-hard-lstm``: ``fonts-hard`` with its two BiGRU layers replaced by
+the port's seeded BiLSTM layers (``crnn_ocr_torch/infer/weights.py::
+seeded_rnn_params``, seed 0; ``infer/pretrained.py::VARIANTS``), on the 64
+``hard`` lines of the committed greedy goldens:
+
+* ``lstm_texts_f32``/``lstm_scores_f32``: the JAX predictor in f32 (the
+  XLA stem and the ``lax.scan`` LSTM, which carries h and c in f32 as the
+  Pallas kernel does);
+* ``lstm_texts_bf16``/``lstm_scores_bf16``: in bf16 through the serve stem
+  and ``bilstm_pallas_raw`` in interpret mode (``lax.scan`` would carry h
+  and c in bf16, which the Pallas kernel and the port do not);
+* ``lstm_probs_f32``/``lstm_probs_bf16``: the two runs' probabilities
+  (8, 62, 63) on the first 8 lines. The seeded BiLSTM's outputs, normalized
+  by ``fonts-hard``'s ``rnn_bn`` statistics (fit to its GRU's outputs),
+  leave the trained logits layer on blank in every frame, so every text is
+  empty: the probabilities are what holds the forward pass to JAX's;
+* ``lstm_weights_sha256``: the digest of the seeded layers' bytes, so that
+  a reader can tell that it rebuilt the weights the golden saw;
+* ``train/...``: one f32 train step as ``--train`` writes it (dropout 0,
+  the lines repeated to 128, bucket 256, labels padded to 32).
+
 Run from the repo root (several minutes on the CPU):
 
-    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py [--train | --stn]
+    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py [--train | --stn | --lstm]
 """
 
 from __future__ import annotations
@@ -75,6 +97,10 @@ OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata", "greedy_goldens.npz")
 TRAIN_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                          "train_goldens.npz")
 STN_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata", "stn_goldens.npz")
+LSTM_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                        "lstm_goldens.npz")
+LSTM_NAME = "fonts-hard-lstm"
+LSTM_PROBS = 8  # lines whose probabilities lstm_goldens.npz keeps
 TRAIN_BATCH, TRAIN_BUCKET, TRAIN_MAX_LABEL = 128, 256, 32
 
 N_LINES = 64
@@ -120,26 +146,49 @@ def render(font_kw: dict, bucket: int, seed: int):
     return images, texts
 
 
-def jax_predict(name: str, images, dtype: str, pallas: bool):
+def jax_model(name: str):
+    """The JAX package's ``(cfg, params, batch_stats, codec)`` of a bundled
+    model, or of one of the port's variants (the bundled model with the
+    port's seeded BiLSTM layers, ``infer/pretrained.py::VARIANTS``)."""
+    from crnn_ocr_torch.infer.pretrained import VARIANTS
+    from crnn_ocr_torch.infer.weights import seeded_rnn_params
+    from crnn_ocr_tpu.infer import load_pretrained
+
+    base, seed = VARIANTS.get(name, (name, None))
+    p = load_pretrained(base)
+    cfg, params = p.cfg, p._vars["params"]
+    if seed is not None:
+        cfg = dataclasses.replace(cfg, rnn_cell="lstm")
+        params = {**params, **seeded_rnn_params(cfg, seed)}
+    return cfg, params, p._vars["batch_stats"], p.codec
+
+
+def jax_predictor(name: str, dtype: str, pallas: bool):
+    """The JAX predictor of ``name`` in ``dtype``, on the XLA paths or with
+    every Pallas kernel in interpret mode, and the context to predict in
+    (it routes an STN's sampler to its kernel)."""
     import contextlib
 
-    from crnn_ocr_tpu.infer import load_pretrained
     from crnn_ocr_tpu.infer.predictor import Predictor
     from crnn_ocr_tpu.models import CRNN
     from crnn_ocr_tpu.models import stn as stn_mod
 
-    base = load_pretrained(name)
+    cfg, params, stats, codec = jax_model(name)
     cfg = dataclasses.replace(
-        base.cfg, dtype=dtype, use_pallas_rnn=pallas, use_fused_stem=pallas
+        cfg, dtype=dtype, use_pallas_rnn=pallas, use_fused_stem=pallas
     )
-    pred = Predictor(cfg, base._vars["params"], base._vars["batch_stats"],
-                     base.codec)
+    pred = Predictor(cfg, params, stats, codec)
     route = contextlib.nullcontext()
     if pallas:
         # the forward closure reads pred._model when it traces
         pred._model = CRNN(cfg=cfg, pallas_interpret=True)
         if cfg.use_stn:  # the sampler too, as tests/test_kernels.py routes it
             route = _pallas_sampler(stn_mod)
+    return pred, route
+
+
+def jax_predict(name: str, images, dtype: str, pallas: bool):
+    pred, route = jax_predictor(name, dtype, pallas)
     with route:
         out = pred.predict(images)
     return [p.text for p in out], np.array([p.score for p in out], np.float32)
@@ -186,17 +235,15 @@ def train_step_golden(model_name: str, g, key: str,
     import jax.numpy as jnp
 
     from crnn_ocr_torch.infer.weights import params_from_jax
-    from crnn_ocr_tpu.infer import load_pretrained
     from crnn_ocr_tpu.models import CRNN
     from crnn_ocr_tpu.ops.preprocess import preprocess_batch
     from crnn_ocr_tpu.train.step import ctc_loss_vec, optax_global_norm
 
-    base = load_pretrained(model_name)
-    cfg = dataclasses.replace(base.cfg, dtype="float32", dropout_rate=0.0,
+    cfg, params, stats, codec = jax_model(model_name)
+    cfg = dataclasses.replace(cfg, dtype="float32", dropout_rate=0.0,
                               use_pallas_rnn=False, use_fused_stem=fused_stem)
     model = CRNN(cfg=cfg, pallas_interpret=fused_stem)
-    params, stats = base._vars["params"], base._vars["batch_stats"]
-    canvas, hs, ws, labels, lab_len = train_batch(g, base.codec, key)
+    canvas, hs, ws, labels, lab_len = train_batch(g, codec, key)
     x, w_new = preprocess_batch(canvas, hs, ws, out_h=cfg.height,
                                 out_w=bucket)
     T = bucket // cfg.width_downsample
@@ -280,6 +327,44 @@ def write_stn_goldens() -> None:
     print(f"wrote {STN_OUT} ({os.path.getsize(STN_OUT)} bytes)")
 
 
+def write_lstm_goldens() -> None:
+    g = np.load(OUT)
+    images = [g["hard_canvas"][i, :h, :w] for i, (h, w) in
+              enumerate(zip(g["hard_heights"], g["hard_widths"]))]
+    arrays = {}
+    for dtype, pallas in (("float32", False), ("bfloat16", True)):
+        pred, _ = jax_predictor(LSTM_NAME, dtype, pallas)
+        out = pred.predict(images, bucket=TRAIN_BUCKET)
+        tag = "f32" if dtype == "float32" else "bf16"
+        arrays[f"lstm_texts_{tag}"] = np.array([p.text for p in out])
+        arrays[f"lstm_scores_{tag}"] = np.array([p.score for p in out],
+                                                np.float32)
+        probs, in_len = pred.predict_probs(images, bucket=TRAIN_BUCKET)
+        probs = np.asarray(probs, np.float32)
+        arrays[f"lstm_probs_{tag}"] = probs[:LSTM_PROBS]
+        # each frame's top class over its runner-up, in log-probability:
+        # how far a rounding difference must move the logits to flip a text
+        top2 = np.log(np.sort(probs, axis=-1)[..., -2:])
+        live = np.arange(probs.shape[1])[None] < np.asarray(in_len)[:, None]
+        margin = (top2[..., 1] - top2[..., 0])[live]
+        blank = probs.argmax(-1)[live] == probs.shape[-1] - 1
+        print(f"{LSTM_NAME} {dtype}: {sum(map(bool, arrays[f'lstm_texts_{tag}']))}"
+              f" non-empty texts of {len(out)}, blank on {blank.mean():.4f} of "
+              f"the frames; smallest top-1 over top-2 margin {margin.min():.4f}"
+              " (log-probability)")
+    diff = sum(a != b for a, b in zip(arrays["lstm_texts_bf16"],
+                                      arrays["lstm_texts_f32"]))
+    print(f"{LSTM_NAME} bf16 (Pallas interpret) vs f32: {diff} lines differ")
+    from crnn_ocr_torch.infer.weights import rnn_params_digest
+
+    arrays["lstm_weights_sha256"] = np.array(
+        rnn_params_digest(jax_model(LSTM_NAME)[1]))
+    for k, v in train_step_golden(LSTM_NAME, g, "hard").items():
+        arrays[f"train/{k}"] = v
+    np.savez_compressed(LSTM_OUT, **arrays)
+    print(f"wrote {LSTM_OUT} ({os.path.getsize(LSTM_OUT)} bytes)")
+
+
 def main() -> int:
     import jax
 
@@ -289,6 +374,9 @@ def main() -> int:
         return 0
     if "--stn" in sys.argv[1:]:
         write_stn_goldens()
+        return 0
+    if "--lstm" in sys.argv[1:]:
+        write_lstm_goldens()
         return 0
     arrays = golden_lines({}, TASKS)
     bf16_golden(arrays, "hard", "fonts-hard")
