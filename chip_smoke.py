@@ -8,20 +8,26 @@ exits non-zero. It needs one CUDA card and refuses to run without one.
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    then the nvcc build of every kernel (``crnn_ocr_torch/kernels/csrc``),
-   timed, with ptxas's register and spill report.
+   timed, with ptxas's register and spill report (per instance of the
+   recurrences' resident design, ``resident_ptxas``).
 2. Each kernel against its plain PyTorch version on the card, at the
    main-path shapes and on the main path's own tensors (``fonts-hard``,
    256 lines, bucket 256), with TF32 off: max error against the stated
    tolerance, and the median times of the kernel, the plain version and a
-   PyTorch yardstick the port never calls, beside the kernel's bound.
+   PyTorch yardstick the port never calls, beside the kernel's bound. K2
+   reports its design (``kernels/bigru.py::design_for``: cluster size and
+   rows) and, on the same inputs, the streamed design's time (K3's and
+   K4's, a yardstick held to the plain version), with the instance's
+   shared memory, registers and the clusters the card holds at once.
 3. Golden texts: ``load_pretrained`` on the card against the JAX
    predictor's texts and scores in ``crnn_ocr_torch/testdata/
    greedy_goldens.npz`` (written by ``tools/gen_torch_goldens.py``).
 4. The main path, counted: ``fonts-hard`` serving at full width, B = 256,
    bucket 256, bf16, from uint8 images to texts through
-   ``Predictor.predict``. The kernels' launch counts are set to 0 just
-   before its timed calls and read just after: each call must launch K1
-   once and K2 twice (one per BiGRU layer). Throughput, then a per-stage
+   ``Predictor.predict``. The kernels' launch counts, and the recurrences'
+   launches per design, are set to 0 just before its timed calls and read
+   just after: each call must launch K1 once and K2 twice (one per BiGRU
+   layer), every K2 on the resident design. Throughput, then a per-stage
    breakdown through the Predictor's own steps and a profiler trace.
 5. Per kernel: its launches in phase 4's timed calls, error, times and
    bound.
@@ -41,8 +47,9 @@ lines repeated, labels padded to 32):
 8. The training path, counted: 30 timed steps of ``produce_batch`` plus
    ``fit``'s train step (dropout 0.2, learning rate 1e-4) with the launch
    counts set to 0 just before and read just after: each step must launch
-   K3 twice, K6 and K7 once, the training stem's K8, K1, K9 and K10 once,
-   K2 never; the mean loss of the last 5 steps must be below the first
+   K3 twice (on the streamed design), K6 and K7 once, the training stem's
+   K8, K1, K9 and K10 once, K2 never; the mean loss of the last 5 steps
+   must be below the first
    step's. Then lines/s over the timed steps' whole time, the p50 step, a
    per-stage breakdown (the stem's forward a stage of its own, its
    backward a trace range), a profiler trace, and ``fit`` with an
@@ -100,7 +107,8 @@ golden lines:
     against their plain versions on layer 0's own input projections, bf16
     and f32, TF32 off; K4 also timed on K5's inputs (the stash's cost);
     ``nn.LSTM`` (bidirectional, the weights carried over, the input
-    projection included) as the yardstick.
+    projection included) as the yardstick; K5 with its design and the
+    same yardsticks as K2 in phase 2.
 19. Golden texts (``crnn_ocr_torch/testdata/lstm_goldens.npz``, written by
     ``tools/gen_torch_goldens.py --lstm``): the seeded layers' digest; f32
     texts equal to the JAX predictor's, scores within rtol 1e-4; bf16 texts
@@ -109,7 +117,7 @@ golden lines:
     of 8 lines against JAX's (the texts are all empty: the seeded BiLSTM
     leaves ``fonts-hard``'s trained head on blank).
 20. Serving ``fonts-hard-lstm`` counted, as phase 4: each ``predict`` must
-    launch K1 once and K4 twice, K2 never.
+    launch K1 once and K4 twice (on the streamed design), K2 never.
 21. One f32 ``fonts-hard-lstm`` train step: kernels against plain versions
     (the stem's kernels kept in both steps: they are held to their plain
     versions in phases 15-17, and their ulp differences flip block1's
@@ -117,8 +125,12 @@ golden lines:
     against the all-plain one is reported beside it), and against the JAX
     step (``lstm_goldens.npz``, ``train/``).
 22. Fine-tuning ``fonts-hard-lstm`` counted, as phase 8: each step must
-    launch K5 twice, K6 and K7 once, K8, K1, K9 and K10 once, K3 and K4
-    never; the loss must fall.
+    launch K5 twice (on the resident design), K6 and K7 once, K8, K1, K9
+    and K10 once, K3 and K4 never; the loss must fall.
+
+Every counted run (phases 4, 8, 11, 13, 17, 20, 22) requires each
+recurrence launch to have run on the design ``PATH_DESIGN`` names for its
+kernel, one design (cluster and rows) for all of them.
 
 The last lines are the card's ``name, power.limit``, the kernels' JSON
 line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's, K11
@@ -133,11 +145,16 @@ device time. K8-K10 compute sums over the batch: their rows add
 ``max_err_over_scale``, the error over the sum of the terms' magnitudes,
 and K9's and K10's ``library_ms`` is null (no single PyTorch call computes
 either), their ``pair_library_ms`` the plain stem's autograd backward,
-which computes both.
+which computes both. The recurrences' rows add ``design``, ``cluster`` and
+``rows`` as the counted run launched them, ``design_launches`` (that run's
+launches on that design) and ``ms_per_step`` (``ms`` over the T steps);
+K2's and K5's also ``streamed_ms`` (the streamed design's device time on
+the same inputs) and ``resources``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -188,31 +205,71 @@ def device_ms(fn, reps: int = 20) -> float:
     it puts on the card (kernels, copies), from torch.profiler over ``reps``
     calls after a warm-up call. A CUDA-event timing of one call
     (``time_ms``) also counts the card waiting for the host to launch it,
-    which for a kernel of tens of microseconds is most of the reading."""
+    which for a kernel of tens of microseconds is most of the reading.
+
+    The profiler has handed back windows that under-read the work (on the
+    H100, 20 launches of a kernel read at 0.42 and at 0.57 of their time,
+    once each in two calls), and, from phase 9 of a run on, windows that
+    lack one or two of their records (K11 19 of 20, K4 18 of 20, in every
+    window). So each window runs ``EDGE`` marker kernels
+    (``torch.cuda._sleep``) before and after the ``reps`` calls, to take
+    such losses at its edges, and it counts only when each other name's
+    records are a multiple of ``reps`` (a library may run a call's kernels
+    on several streams, in no fixed order). The reading is the median of 3
+    such windows; a window that does not count is run again, at most 3
+    more times, and with none the phase fails. Fewer than 3 windows, or
+    windows more than 10 % apart, are reported as a ``profiler_windows``
+    line."""
     import torch
 
     fn()
 
     def run():
+        for _ in range(EDGE):
+            torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
+        for _ in range(EDGE):
+            torch.cuda._sleep(1000)
 
-    prof, _ = profiled(run)
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    return us / reps / 1e3
+    readings, partial, counts = [], 0, {}
+    for _ in range(6):
+        prof, _ = profiled(run)
+        recs = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        counts = collections.Counter(e.name for e in recs)
+        work = [e for e in recs if "spin_kernel" not in e.name]
+        if not work or any(n % reps for k, n in counts.items()
+                           if "spin_kernel" not in k):
+            partial += 1
+            continue
+        readings.append(sum(e.time_range.end - e.time_range.start
+                            for e in work) / reps / 1e3)
+        if len(readings) == 3:
+            break
+    if len(readings) < 3 or max(readings) > 1.1 * min(readings):
+        emit("profiler_windows", ms=readings, partial_windows=partial)
+    require(bool(readings), f"the profiler gave {partial} windows and none "
+                            f"counted (last: {dict(counts)})")
+    return statistics.median(readings)
+
+
+EDGE = 4  # marker kernels on each side of device_ms's measured calls
 
 
 def profiled(run):
     """torch.profiler (host and card) over ``run()``, synchronized at both
     ends: (the profile, the window's wall time in µs). The profiler at times
     hands back a window with no device records at all (once in ~20 windows
-    of one call on the H100); such a window is run again, at most twice."""
+    of one call on the H100; three in a row once, in phase 9 of another);
+    such a window is run again after a pause, at most 7 times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for attempt in range(8):
+        if attempt:
+            time.sleep(0.2)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -224,7 +281,7 @@ def profiled(run):
                and not getattr(e, "is_user_annotation", False)
                for e in prof.events()):
             return prof, wall_us
-    raise RuntimeError("the profiler saw no work on the device in 3 windows")
+    raise RuntimeError("the profiler saw no work on the device in 8 windows")
 
 
 def bound_ms(bytes_moved: float, ops: float, dtype: str):
@@ -293,6 +350,7 @@ def reset_launches() -> None:
 
     fused_stem.launches = bigru.launches = bigru.train_launches = 0
     bigru.lstm_launches = bigru.lstm_train_launches = 0
+    bigru.design_launches.clear()
     ctc_loss.alpha_launches = ctc_loss.beta_launches = 0
     gs.launches = gs.bwd_launches = 0
     fst.stats_launches = fst.partials_launches = fst.final_launches = 0
@@ -321,9 +379,71 @@ def require_launches(counts: dict, want: dict, what: str) -> None:
     require(not bad, f"{what} launched {counts}; expected {want}")
 
 
+# the design each recurrence kernel runs on the counted paths (bf16, 256
+# units, or 128 for fonts-small's K3)
+PATH_DESIGN = {"bigru": "resident", "bilstm_train": "resident",
+               "bigru_train": "streamed", "bilstm": "streamed"}
+
+
+def read_design(counts: dict, what: str):
+    """The counted run's recurrence launches per design (``bigru.
+    design_launches``, set to 0 by ``reset_launches``): all of them on one
+    design, the one ``PATH_DESIGN`` names for the run's recurrence kernel.
+    Returns ``(design, launches)``."""
+    from crnn_ocr_torch.kernels import bigru
+
+    ran = {d: n for d, n in bigru.design_launches.items() if n}
+    kernels = [k for k in PATH_DESIGN if counts[k]]
+    require(len(kernels) == 1 and len(ran) == 1,
+            f"{what}: recurrence launches {kernels} on designs {ran}")
+    (d, n), = ran.items()
+    want = PATH_DESIGN[kernels[0]]
+    require(d.name == want and n == counts[kernels[0]],
+            f"{what}: {kernels[0]} launched {counts[kernels[0]]} times, "
+            f"{n} on {d}; expected all on the {want} design")
+    return d, n
+
+
+def design_fields(design, n: int) -> dict:
+    return dict(design=design.name, cluster=design.cluster, rows=design.rows,
+                design_launches=n)
+
+
 def golden_lines(g, key: str):
     c, hs, ws = g[f"{key}_canvas"], g[f"{key}_heights"], g[f"{key}_widths"]
     return [c[i, :h, :w] for i, (h, w) in enumerate(zip(hs, ws))]
+
+
+RESIDENT_PTXAS: dict = {}  # phase 1's report per resident instance
+
+
+def resident_ptxas(report: str) -> dict:
+    """ptxas's registers, stack, spills and static shared memory per
+    instance of ``birnn_resident_kernel``, keyed ``"<cell> R<rows>"``, from
+    ``nvcc -Xptxas -v``'s report of ``bigru.cu``."""
+    import re
+
+    out, cur = {}, None
+    for ln in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            k = re.search(r"birnn_resident_kernelI\S*?(Gru|Lstm)CellELi(\d+)"
+                          r"ELb[01]E", entry.group(1))
+            cur = f"{k.group(1).lower()} R{k.group(2)}" if k else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                         ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                out[cur][key] = int(m.group(1))
+    return out
 
 
 def phase_build(card: str):
@@ -341,7 +461,58 @@ def phase_build(card: str):
                if "registers" in ln or "spill" in ln]
         for name, rep in _build.ptxas_reports.items()
     }
-    emit("build", seconds=round(secs, 3), built=built, ptxas=ptxas)
+    RESIDENT_PTXAS.update(resident_ptxas(_build.ptxas_reports.get("bigru",
+                                                                  "")))
+    emit("build", seconds=round(secs, 3), built=built, ptxas=ptxas,
+         resident_ptxas=RESIDENT_PTXAS)
+
+
+def resident_resources(cell: str, H: int, design) -> dict:
+    """A resident instance's resources on this card, launching nothing:
+    its dynamic shared memory, the most clusters the card holds at once,
+    its registers and local memory per thread (the runtime's view; phase 1
+    has ptxas's)."""
+    import ctypes
+
+    from crnn_ocr_torch.kernels import _build
+
+    lib = _build.load("bigru")
+    fn = lib.crnn_birnn_resident_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, fn(int(cell == "lstm"), H, design.cluster, design.rows,
+                         ctypes.addressof(info)), "resident info")
+    return dict(smem_bytes=info[0], max_active_clusters=info[1],
+                runtime_registers=info[2], local_bytes=info[3],
+                ptxas=RESIDENT_PTXAS.get(f"{cell} R{design.rows}"))
+
+
+def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
+    """Phases 2 and 18: the design the path's shape selects and, for the
+    resident one, the device time of the streamed design on the same
+    inputs, held to the plain version's hs at 2e-2: a yardstick only, like
+    ``library_ms``, launched here and nowhere on the path."""
+    from crnn_ocr_torch.kernels import bigru as bg
+
+    T, _, B, G = xw.shape
+    H = G // bg.GATES[cell]
+    d = bg.design_for(cell, stash, H, B, xw.dtype)
+    out = dict(design=d.name, cluster=d.cluster, rows=d.rows)
+    if d.name != "resident":
+        return out
+
+    def streamed():
+        return bg._launch(cell, xw, u, rb, uk, stash,
+                          bg.Design("streamed", 0, 16))[0]
+
+    err = float((streamed().float() - plain.float()).abs().max())
+    require(err <= 2e-2, f"{cell} streamed design: hs error {err}")
+    out["streamed_max_abs_err"] = err
+    out["streamed_ms"] = device_ms(streamed)
+    out["resources"] = resident_resources(
+        cell, bg._padded_units(H, xw.dtype), d)
+    return out
 
 
 def check_stem(model, x_img, dtype_name: str):
@@ -457,6 +628,7 @@ def check_bigru(model, feat, dtype_name: str):
         library="torch.nn.GRU bidirectional (cuDNN) on the layer input; "
                 "its time includes the input projection",
     )
+    res.update(design_times("gru", xw, u, rb, uk, False, want))
     # yardstick only: the port never calls torch.nn.GRU
     gru = torch_gru_from(rnn, dt)
     res["library_vs_port_max_abs"] = float(
@@ -530,9 +702,11 @@ def phase_goldens(g, f32_models, bf16_model, bf16_max_off: int = 1):
 def phase_throughput(card: str, name: str, lines, want: dict):
     """The main path, counted: ``REPS`` timed ``predict`` calls of ``name``
     (as shipped) on ``lines`` with the launch counts set to 0 just before
-    them and read just after; ``want``: each kernel's launches per call."""
+    them and read just after; ``want``: each kernel's launches per call.
+    Returns the counts and, under ``"design"``, ``read_design``'s."""
     import torch
     from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.kernels import bigru
 
     reps = 20
     pred = load_pretrained(name, device="cuda")
@@ -546,9 +720,11 @@ def phase_throughput(card: str, name: str, lines, want: dict):
         out = pred.predict(lines, bucket=BUCKET)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
-    emit("launches", model=name, predict_calls=reps, **counts)
+    emit("launches", model=name, predict_calls=reps, **counts,
+         designs=[[*d, n] for d, n in bigru.design_launches.items()])
     require_launches(counts, {k: v * reps for k, v in want.items()},
                      f"{name}: {reps} predict calls")
+    design = read_design(counts, f"{name}: {reps} predict calls")
     require(len(out) == BATCH and all(isinstance(o.text, str) for o in out),
             "throughput run returned malformed predictions")
 
@@ -592,7 +768,7 @@ def phase_throughput(card: str, name: str, lines, want: dict):
                card=card)
     emit("throughput", **res)
     emit("trace", model=name, **trace_predict(pred, lines))
-    return counts
+    return {**counts, "design": design}
 
 
 def stn_stages(m, x, clock, t):
@@ -710,6 +886,7 @@ def check_bigru_train(state, batch, dtype_name: str):
         library="torch.nn.GRU bidirectional (cuDNN), training-mode forward "
                 "on the layer input; includes the input projection",
         bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
+        **design_times("gru", xw, u, rb, uk, True, p_hs),
     )
     emit("kernel_check", **res)
     require(res["ok"], f"bigru_train {dtype_name}: hs error {hs_err}, "
@@ -964,9 +1141,11 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     Each step is ``produce_batch`` (the host canvas to device frames) plus
     ``fit``'s own train step, synchronized and timed; the launch counts are
     set to 0 just before the timed steps and read just after, and must be
-    ``want``'s per step."""
+    ``want``'s per step. Returns the counts and, under ``"design"``,
+    ``read_design``'s."""
     import torch
     from crnn_ocr_torch.data.pipeline import produce_batch
+    from crnn_ocr_torch.kernels import bigru
     from crnn_ocr_torch.train import loop as loop_lib
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
@@ -993,9 +1172,11 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
-    emit("launches", model=name, train_steps=TRAIN_STEPS, **counts)
+    emit("launches", model=name, train_steps=TRAIN_STEPS, **counts,
+         designs=[[*d, n] for d, n in bigru.design_launches.items()])
     require_launches(counts, {k: v * TRAIN_STEPS for k, v in want.items()},
                      f"{name}: {TRAIN_STEPS} train steps")
+    design = read_design(counts, f"{name}: {TRAIN_STEPS} train steps")
     loss_curve = [float(x) for x in losses]
     first, last5 = loss_curve[0], statistics.mean(loss_curve[-5:])
     require(all(map(lambda v: v == v, loss_curve)), "a train loss is NaN")
@@ -1067,7 +1248,7 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
                            iter(batches[:1]), codec, 1)
     emit("fit", steps=state.step, eval=ev)
     require(0.0 <= ev["cer"] <= 1.0, f"fit's evaluation is malformed: {ev}")
-    return counts
+    return {**counts, "design": design}
 
 
 def trace_train(step, ranges, n: int = 3) -> dict:
@@ -1568,6 +1749,7 @@ def check_bilstm(rnn, feat, dtype_name: str):
         bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
         library="torch.nn.LSTM bidirectional (cuDNN) on the layer input; "
                 "its time includes the input projection",
+        **design_times("lstm", xw, u, None, uk, False, want),
     )
     # yardstick only: the port never calls torch.nn.LSTM
     lstm = torch_lstm_from(rnn, dt)
@@ -1627,6 +1809,7 @@ def check_bilstm_train(state, batch, dtype_name: str):
         library="torch.nn.LSTM bidirectional (cuDNN), training-mode "
                 "forward on the layer input; includes the input projection",
         bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
+        **design_times("lstm", xw, u, None, uk, True, p_hs),
     )
     emit("kernel_check", **res)
     require(res["ok"], f"bilstm_train {dtype_name}: hs error {hs_err}, "
@@ -1741,12 +1924,16 @@ def main() -> int:
                   ("fonts-hard", "hard"))
     counts = phase_throughput(card, "fonts-hard", lines,
                               {"fused_stem": 1, "bigru": 2})
+    # each recurrence's (design, launches) in the counted run that holds it
+    designs = {"bigru": counts.pop("design")}
 
     # slice 2: training
     checks += phase_train_kernels(g)
     phase_train_parity(g)
-    counts.update({k: v for k, v in phase_train(g, card).items()
-                   if k in ("bigru_train", "ctc_alpha", "ctc_beta")})
+    train = phase_train(g, card)
+    counts.update({k: train[k] for k in ("bigru_train", "ctc_alpha",
+                                         "ctc_beta")})
+    designs["bigru_train"] = train["design"]
 
     # slice 3: the STN front end
     sg = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
@@ -1786,8 +1973,8 @@ def main() -> int:
     lg = np.load(LSTM_GOLDENS)
     checks += phase_lstm_kernels(g, lines)
     phase_lstm_goldens(g, lg)
-    counts["bilstm"] = phase_throughput(card, LSTM_NAME, lines,
-                                        LSTM_SERVE_KERNELS)["bilstm"]
+    serve = phase_throughput(card, LSTM_NAME, lines, LSTM_SERVE_KERNELS)
+    counts["bilstm"], designs["bilstm"] = serve["bilstm"], serve["design"]
     # the stem's kernels in both steps: with the plain stem as well, block1's
     # weight gradients differed by 9e-4 of their largest on the H100
     # (stem_kernels_alone reports what the stem's kernels change alone)
@@ -1795,8 +1982,9 @@ def main() -> int:
                        {k[6:]: lg[k] for k in lg.files
                         if k.startswith("train/")}, LSTM_TRAIN_KERNELS,
                        plain_stem=False)
-    counts["bilstm_train"] = phase_train(
-        g, card, LSTM_NAME, "hard", LSTM_TRAIN_KERNELS)["bilstm_train"]
+    train = phase_train(g, card, LSTM_NAME, "hard", LSTM_TRAIN_KERNELS)
+    counts["bilstm_train"] = train["bilstm_train"]
+    designs["bilstm_train"] = train["design"]
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
@@ -1849,8 +2037,17 @@ def main() -> int:
                 if o["kernel"] == name and o["dtype"] == "float32"),
             **{k: c[k] for k in ("max_err_over_scale", "pair_library_ms",
                                  "pair_library_device_ms",
-                                 "k4_same_inputs_device_ms") if k in c},
+                                 "k4_same_inputs_device_ms", "streamed_ms",
+                                 "resources")
+               if k in c},
         ))
+        if name in designs:  # the recurrences: T dependent steps
+            d, n = designs[name]
+            require((c["design"], c["cluster"], c["rows"]) == tuple(d),
+                    f"{name}: timed on {c['design']} C{c['cluster']} "
+                    f"R{c['rows']}, but the counted run ran {d}")
+            kernels[-1].update(design_fields(d, n),
+                               ms_per_step=c["kernel_device_ms"] / c["T"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

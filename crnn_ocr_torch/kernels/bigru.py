@@ -14,10 +14,12 @@ U[d]`` (plus the GRU's recurrent bias ``b_rec[d]``) and the gate math, with
 the state carried in f32 whatever the compute dtype: h, and for the LSTM
 also c, as the Pallas kernels carry them (``bigru.py:63-73, 343-345``).
 The CUDA kernels are in ``csrc/bigru.cu``, the cell a template parameter
-of each: bf16 on the tensor cores (``mma.sync``), f32 on the CUDA cores
-(its header has the designs and the H100 bounds, bytes-bound plus 64
-dependent steps); ``bigru_plain`` and ``bilstm_plain`` are the same
-functions as Python loops over T.
+of each: bf16 on the tensor cores, f32 on the CUDA cores (its header has
+the designs and the H100 bounds, bytes-bound plus 64 dependent steps).
+:func:`design_for` picks the design from the shape alone: K2 and K5 keep U
+resident in a cluster's shared memory, K3 and K4 stream it from L2.
+``bigru_plain`` and ``bilstm_plain`` are the same functions as Python
+loops over T.
 
 ``bigru`` and ``bilstm`` dispatch on the device of ``xw`` and on nothing
 else: a CPU tensor goes through the plain version, a CUDA tensor through
@@ -36,7 +38,9 @@ stored ``hs`` (the compute dtype) widened to f32, U is widened to f32,
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +56,53 @@ lstm_train_launches = 0
 MAX_UNITS = 1024  # one thread per hidden unit in a block
 GATES = {"gru": 3, "lstm": 4}
 STASH = {"gru": 4, "lstm": 5}  # the training stash's width, in units of H
+
+# The resident design keeps U in the shared memory of a cluster of at most
+# RESIDENT_MAX_CLUSTER CTAs, each owning at most RESIDENT_UNITS units of
+# every gate (one M-tile). It is wired in for K2 (the GRU, serving) and K5
+# (the LSTM, training) only; K3 and K4 stay on the streamed design.
+RESIDENT_UNITS = 64
+RESIDENT_MAX_CLUSTER = 4
+RESIDENT_KERNELS = (("gru", False), ("lstm", True))
+# 8 batch rows a cluster in place of 16 where they were measured faster on
+# the H100 (tools/time_rnn_designs.py, PERF.md): at these padded widths,
+# while the grid fits the CTAs the card holds at once, which are the
+# instance's cudaOccupancyMaxActiveClusters times the cluster size (a grid
+# past it runs in two waves and loses). Every other shape takes 16 rows.
+ROWS8_WAVE_CTAS = {("gru", 256): 248, ("lstm", 256): 120,
+                   ("gru", 128): 528, ("lstm", 128): 396}
+# launches per Design, counted where K2-K5 launch (the comparisons'
+# launches included); the per-kernel counts above are the path's
+design_launches: collections.Counter = collections.Counter()
+
+
+class Design(NamedTuple):
+    """Which kernel design runs a recurrence: ``"resident"`` (U in a
+    cluster's shared memory, ``cluster`` CTAs of ``rows`` batch rows),
+    ``"streamed"`` (U streamed from L2 by blocks of 16 rows) or ``"f32"``
+    (CUDA cores)."""
+
+    name: str
+    cluster: int = 0
+    rows: int = 0
+
+
+def design_for(cell: str, stash: bool, H: int, B: int, dtype) -> Design:
+    """The design for a recurrence of ``H`` units at batch ``B``, a pure
+    function of the shape: bf16 K2 and K5 take the resident design
+    whenever the padded units fit 4 CTAs of 64 (H <= 256), each CTA an
+    even number of units; the cluster is the fewest CTAs that hold them,
+    and the rows a cluster 16, or 8 where ``ROWS8_WAVE_CTAS`` says."""
+    if dtype != torch.bfloat16:
+        return Design("f32")
+    hp = _padded_units(H, dtype)
+    if (cell, stash) in RESIDENT_KERNELS:
+        for c in range(-(-hp // RESIDENT_UNITS), RESIDENT_MAX_CLUSTER + 1):
+            if hp % c == 0 and (hp // c) % 2 == 0:
+                wave = ROWS8_WAVE_CTAS.get((cell, hp), 0)
+                rows = 8 if -(-B // 8) * 2 * c <= wave else 16
+                return Design("resident", c, rows)
+    return Design("streamed", 0, 16)
 
 
 def _recurrence(xw, u, rec_bias, stash: bool):
@@ -185,11 +236,15 @@ def kernel_weights(u):
     return mma_operand(u)
 
 
-def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool):
+def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
+            design: Design = None):
     """Run K2 or K3 (``cell="gru"``), K4 or K5 (``"lstm"``) on the card:
     hs, and the stash for K3 and K5. Checks every operand; raises for a
-    device without a kernel."""
+    device without a kernel. ``design``: :func:`design_for`'s, unless a
+    caller that compares designs on the same inputs names another."""
     T, B, H = _check(xw, u, rec_bias, cell)
+    if design is None:
+        design = design_for(cell, stash, H, B, xw.dtype)
     name = f"bi{cell}_train" if stash else f"bi{cell}"
     if xw.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for {xw.device}")
@@ -223,16 +278,31 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool):
     hs = torch.empty((T, 2, B, hp), dtype=xw.dtype, device=dev)
     gates = (torch.empty((T, 2, B, sw * hp), dtype=torch.float32, device=dev)
              if stash else None)
+    if (design.name == "f32") == bf16:
+        raise ValueError(f"{name}: the {design.name} design does not take "
+                         f"{xw.dtype}")
     lib = _build.load("bigru")
-    fn = getattr(lib, f"crnn_bi{cell}_{'bf16' if bf16 else 'f32'}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (len(operands) + 2) + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ptrs = [t.data_ptr() for t in operands]
+    out = [hs.data_ptr(), gates.data_ptr() if stash else None]
     with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in operands), hs.data_ptr(),
-                 gates.data_ptr() if stash else None, T, B, hp,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, name)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if design.name == "resident":
+            fn = lib.crnn_birnn_resident
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+                ctypes.c_int] * 5 + [ctypes.c_void_p]
+            if cell == "lstm":
+                ptrs.append(None)  # no recurrent bias
+            err = fn(int(cell == "lstm"), *ptrs, *out, T, B, hp,
+                     design.cluster, design.rows, stream)
+        else:
+            fn = getattr(lib, f"crnn_bi{cell}_{'bf16' if bf16 else 'f32'}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * (len(operands) + 2) + [
+                ctypes.c_int] * 3 + [ctypes.c_void_p]
+            err = fn(*ptrs, *out, T, B, hp, stream)
+    _build.check(lib, err, f"{name} ({design.name} design)")
+    design_launches[design] += 1
     if hp != H:
         hs = hs[..., :H].contiguous()
         if stash:

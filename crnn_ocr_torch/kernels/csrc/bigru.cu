@@ -22,34 +22,59 @@
 // direction 1 already time-reversed by the caller; hs (T, 2, B, H) is
 // written in xw's type, direction 1 still reversed.
 //
-// Design: the work is split by (direction, tile of batch rows), never by
-// hidden columns, so no block needs another block's state, no grid-wide
-// sync exists, and the time loop runs inside the block with one
-// __syncthreads per step. The cell is a template policy (GruCell,
-// LstmCell): its gate count, its stash, whether it has a recurrent bias and
-// its per-unit step. Two kernels, one per compute type, each instantiated
-// for both cells:
+// The cell is a template policy (GruCell, LstmCell): its gate count, its
+// stash, whether it has a recurrent bias and its per-unit step. Three
+// designs; kernels/bigru.py::design_for picks one from the shape alone:
 //
-// * bf16 (the main path), birnn_mma_kernel: a block owns 16 batch rows (one
-//   m16 tile) and kMmaJT 8-wide tiles of hidden units j per warp, for every
-//   gate, so the thread that holds a (row, j)'s gate accumulators also does
-//   its gate math and keeps its f32 state (h; and c for the LSTM) in
-//   registers across all T steps. round(h) sits in shared memory as the A
-//   operand of mma.sync.m16n8k16 (bf16 in, f32 accumulate), two buffers
-//   that alternate between steps. U does not fit: 384 KB (GRU) or 512 KB
-//   (LSTM) per direction in bf16 at H = 256, above the 227 KB of shared
-//   memory a block may hold. So every step each warp streams its B
-//   fragments from global memory (L2) through its own ring of shared-memory
-//   stages with cp.async, several k-steps ahead and on across time steps.
-//   The wrapper transposes U to [d][n][k] and permutes k within each
-//   16-block, so that a fragment is 256 contiguous bytes and one 8-byte
-//   shared load per lane. At H = 256 the LSTM's ring (8 warps x 6 stages x
-//   4 gates x 4 tiles x 256 B = 192 KB) and the two A buffers (16.5 KB)
-//   take 208.5 KB.
-// * f32, birnn_f32_kernel: a block has H threads; thread j owns column j of
-//   every gate for kBT rows and walks k over H with CUDA-core FMAs,
-//   U[d][k][j] read from global memory, round(h) (here h itself) in shared
-//   memory as [H][kBT].
+// * resident (bf16 K2 and K5, H <= 256 after padding),
+//   birnn_resident_kernel: U stays in shared memory for all T steps. Each
+//   (direction, tile of R batch rows) is a cluster of C <= 4 CTAs; CTA c
+//   owns the units [c H/C, (c+1) H/C) of every gate, so its U slice (at
+//   H = 256, C = 4: 96 KB for the GRU, 128 KB for the LSTM) is loaded once,
+//   rearranged from kernel_weights' operand into K-major core matrices, and
+//   the cell step stays in the CTA's registers (h, and c, in f32). Each
+//   CTA keeps the whole round(h), R x H bf16, twice (this step's, the
+//   next's): after its cell step it writes its units of the new h into
+//   every CTA's next buffer with st.shared::cluster, then one cluster
+//   barrier (arrive after the writes, wait at the step's end) replaces
+//   __syncthreads. The product runs with the operands swapped, gates^T =
+//   U_slice^T . round(h)^T: gate q's units are M-tile q, the batch rows N,
+//   so the thread that holds (unit, row) of one gate holds it in every
+//   gate. The product is mma.sync.m16n8k16, its fragments loaded with
+//   ldmatrix from the resident K-major core matrices (wgmma.m64nRk16 on
+//   the same layouts measured 13-19 % slower on the H100 at the main-path
+//   shapes; PERF.md). M rows are ordered so that a thread's two rows are
+//   adjacent units: xw, h, hs and the stash move two units at a time. xw
+//   is loaded into registers one step ahead. R is 16, or 8 where that was
+//   measured faster (kernels/bigru.py::design_for): K2 at B = 256 runs
+//   128 CTAs and K5 at B = 128 64 CTAs, both of 16 rows. Per step and CTA the
+//   tensor cores read the U slice from shared memory once (128 KB for the
+//   LSTM at H = 256, ~1000 cycles at 128 B a cycle) and the cluster
+//   barrier waits for the slowest CTA: the design is bound by this latency
+//   per step, not by the bytes of xw and the outputs.
+// * streamed (K3, K4 and wider bf16 shapes), birnn_mma_kernel: the
+//   work is split by (direction, tile of batch rows), never by hidden
+//   columns, so no block needs another block's state and the time loop
+//   runs inside the block with one __syncthreads per step. A block owns
+//   16 batch rows (one m16 tile) and kMmaJT 8-wide tiles of hidden units j
+//   per warp, for every gate, so the thread that holds a (row, j)'s gate
+//   accumulators also does its gate math and keeps its f32 state (h; and c
+//   for the LSTM) in registers across all T steps. round(h) sits in shared
+//   memory as the A operand of mma.sync.m16n8k16 (bf16 in, f32
+//   accumulate), two buffers that alternate between steps. U does not fit:
+//   384 KB (GRU) or 512 KB (LSTM) per direction in bf16 at H = 256, above
+//   the 227 KB of shared memory a block may hold. So every step each warp
+//   streams its B fragments from global memory (L2) through its own ring of
+//   shared-memory stages with cp.async, several k-steps ahead and on across
+//   time steps. The wrapper transposes U to [d][n][k] and permutes k within
+//   each 16-block, so that a fragment is 256 contiguous bytes and one
+//   8-byte shared load per lane. At H = 256 the LSTM's ring (8 warps x 6
+//   stages x 4 gates x 4 tiles x 256 B = 192 KB) and the two A buffers
+//   (16.5 KB) take 208.5 KB.
+// * f32, birnn_f32_kernel, split as the streamed design: a block has H
+//   threads; thread j owns column j of every gate for kBT rows and walks k
+//   over H with CUDA-core FMAs, U[d][k][j] read from global memory, round(h)
+//   (here h itself) in shared memory as [H][kBT].
 //
 // K3 and K5 are the kernels instantiated with kStash = true, chosen by a
 // non-null gates pointer: the serving instances (kStash = false) compute
@@ -68,14 +93,18 @@
 //   + U 1.0 MB + hs 8.4 MB + stash 83.9 MB = 126.9 MB -> 37.9 us; 8.6 GFLOP
 //   -> 8.7 us.
 // All four are bytes-bound, the stash above all, plus 64 dependent steps.
-// Each block re-reads its direction's U from L2 every step, which bounds
-// this design near 3.4 us (GRU) and 4.5 us (LSTM) per step. Left for later:
-// U resident in shared memory (a cluster with distributed shared memory at
-// H = 256) and wgmma.
+// In the streamed design each block re-reads its direction's U from L2
+// every step, which bounds it near 3.4 us (GRU) and 4.5 us (LSTM) per
+// step; the resident design reads U from global memory once, and its step
+// is bound by the shared-memory read of the U slice (~0.6 us for the
+// LSTM at H = 256), the cell math of 2 x R / 4 (unit, row) pairs per
+// thread and one cluster barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -429,6 +458,374 @@ birnn_mma_kernel(const __nv_bfloat16* __restrict__ xw,
   }
 }
 
+// ---- the resident design (K2, K5): U in a cluster's shared memory ----
+
+constexpr int kResThreads = 128;  // four warps per CTA
+constexpr int kResUnits = 64;     // units of each gate a CTA owns at most:
+                                  // one M-tile, 16 rows a warp
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// barrier.cluster's arrive releases and its wait acquires by default
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// the address of the same shared-memory offset in the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3,
+                                        uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma16816(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The unit of the CTA's slice that row m of a gate's M-tile holds: the
+// accumulator rows m and m + 8 of one thread (m = 16 warp + lane / 4) are
+// the adjacent units 16 warp + 2 (lane / 4) and the next, so that a thread
+// loads xw and stores h, hs and the stash two units at a time.
+__device__ __forceinline__ int res_unit(int m) {
+  return 16 * (m >> 4) + 2 * (m & 7) + ((m >> 3) & 1);
+}
+
+// gates^T (NG M-tiles of 64 units, R rows) = U_slice^T . round(h)^T on
+// mma.sync.m16n8k16, its fragments loaded with ldmatrix from the resident
+// layouts: warp w takes M rows 16w..16w+15 of every gate tile; acc[q][4 jn
+// + v] holds (M row 16w + lane / 4 + 8 (v / 2), batch row 8 jn + 2 (lane %
+// 4) + v % 2).
+template <int R, int NG>
+__device__ __forceinline__ void product_mma(float (&acc)[NG][R / 2],
+                                            uint32_t a_addr, uint32_t b_addr,
+                                            int H, uint32_t tile_bytes,
+                                            int warp, int lane) {
+  constexpr int NJ = R / 8;
+  const int kc = H / 8;
+  const int mi = lane >> 3, r8 = lane & 7;  // this lane's ldmatrix row
+  // A: matrix mi is (rows + 8 if mi & 1, k half mi >> 1) of the warp's rows
+  const uint32_t a_lane =
+      a_addr + ((2 * warp + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
+  // B: matrix mi is (8-row tile mi >> 1, k half mi & 1)
+  const uint32_t b_lane =
+      b_addr + (((mi >> 1) % NJ) * kc + (mi & 1)) * 128 + r8 * 16;
+  for (int kk = 0; kk < H / 16; ++kk) {
+    uint32_t b[NJ][2];
+    if constexpr (NJ == 2)
+      ldsm_x4(b[0][0], b[0][1], b[1][0], b[1][1], b_lane + kk * 256);
+    else
+      ldsm_x2(b[0][0], b[0][1], b_lane + kk * 256);
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      uint32_t a[4];
+      ldsm_x4(a[0], a[1], a[2], a[3], a_lane + q * tile_bytes + kk * 256);
+#pragma unroll
+      for (int jn = 0; jn < NJ; ++jn)
+        mma16816(&acc[q][4 * jn], a, b[jn][0], b[jn][1]);
+    }
+  }
+}
+
+// xw (T, 2, B, NG H), hs (T, 2, B, H) bf16; ut (2, NG H, H) bf16 as
+// birnn_mma_kernel reads it; gates (T, 2, B, kStash H) f32 when kStash.
+// Grid (C x tiles of R rows, 2 directions), clusters of C CTAs along x;
+// CTA `rank` owns the units [rank upc, (rank + 1) upc) of every gate.
+// Shared memory: U's slice as NG M-tiles of 64 rows x H (K-major core
+// matrices: (row, k) at ((row / 8) (H / 8) + k / 8) 128 + (row % 8) 16 +
+// (k % 8) 2), then two h buffers of R rows x H in the same layout.
+template <class Cell, int R, bool kStash>
+__global__ void __launch_bounds__(kResThreads, 1)
+birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
+                      const __nv_bfloat16* __restrict__ ut,
+                      const float* __restrict__ brec,
+                      __nv_bfloat16* __restrict__ hs,
+                      float* __restrict__ gates, int steps, int B, int H,
+                      int upc) {
+  constexpr int NG = Cell::kGates;
+  constexpr int NJ = R / 8;  // 8-row tiles of the batch (mma N = 8)
+  extern __shared__ __align__(128) unsigned char res_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint32_t rank = cluster_rank(), csize = cluster_size();
+  const int d = blockIdx.y, b0 = (blockIdx.x / csize) * R;
+  const int G = NG * H, kc = H / 8, nk = H / 16;
+  const uint32_t tile_bytes = (uint32_t)kResUnits * H * 2;
+  const uint32_t hbuf_bytes = (uint32_t)R * H * 2;
+  unsigned char* sA = res_smem;
+  unsigned char* sH = res_smem + NG * tile_bytes;
+  const uint32_t sA_addr = smem_addr(sA), sH_addr = smem_addr(sH);
+
+  // U's slice, once: 32 bytes of ut (one 16-block of k, permuted) become
+  // the two core-matrix rows of k 0-7 and 8-15; rows past upc stay 0
+  const __nv_bfloat16* utd = ut + (size_t)d * G * H;
+#pragma unroll 4
+  for (int i = tid; i < NG * kResUnits * nk; i += kResThreads) {
+    const int kb = i % nk, m = (i / nk) % kResUnits, q = i / (nk * kResUnits);
+    const int jl = res_unit(m);
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+    if (jl < upc) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          utd + (size_t)(q * H + rank * upc + jl) * H + kb * 16);
+      const uint4 v0 = __ldg(src), v1 = __ldg(src + 1);
+      lo = make_uint4(v0.x, v0.z, v1.x, v1.z);
+      hi = make_uint4(v0.y, v0.w, v1.y, v1.w);
+    }
+    unsigned char* dst =
+        sA + q * tile_bytes + ((m >> 3) * kc + 2 * kb) * 128 + (m & 7) * 16;
+    *reinterpret_cast<uint4*>(dst) = lo;
+    *reinterpret_cast<uint4*>(dst + 128) = hi;
+  }
+  for (int i = tid; i < (int)(hbuf_bytes / 16); i += kResThreads)
+    reinterpret_cast<uint4*>(sH)[i] = make_uint4(0, 0, 0, 0);  // h = 0
+
+  // this thread's units u0 and u0 + 1 of the slice (j, j + 1 of the layer)
+  // and rows 8 jn + 2 t4 + e of the tile
+  const int u0 = 16 * warp + 2 * g;
+  const bool on = u0 < upc;
+  const int j = rank * upc + u0;
+  float bias[NG][2];
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      bias[q][i] = Cell::kRecBias && on ? brec[d * G + q * H + j + i] : 0.f;
+  uint32_t peer[4];  // the h buffers' base in each CTA of the cluster
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    peer[r] = r < (int)csize ? map_rank(sH_addr, r) : 0u;
+  const uint32_t h_at = (j >> 3) * 128 + (j & 7) * 2;  // + row's offset
+
+  auto load_x = [&](int t, uint32_t (&x)[NJ][2][NG]) {
+#pragma unroll
+    for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = b0 + 8 * jn + 2 * t4 + e;
+        const __nv_bfloat16* p = xw + (((size_t)t * 2 + d) * B + b) * G + j;
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+          x[jn][e][q] = on && b < B ? __ldg(reinterpret_cast<
+                                          const unsigned int*>(p + q * H))
+                                    : 0u;
+      }
+  };
+
+  float h[NJ][2][2], c[NJ][2][2];  // [jn][e][i]: row 8jn+2t4+e, unit u0+i
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) h[jn][e][i] = c[jn][e][i] = 0.f;
+  // xw one step ahead, in registers: each step's loads are issued a whole
+  // step before its cell math reads them
+  uint32_t xc[NJ][2][NG], xn[NJ][2][NG];
+  if (steps > 0) load_x(0, xc);
+  cluster_arrive();  // every CTA runs, its U slice and h = 0 in place
+  cluster_wait();
+
+  for (int t = 0; t < steps; ++t) {
+    const uint32_t cur = (t & 1) * hbuf_bytes, nxt = ((t + 1) & 1) * hbuf_bytes;
+    if (t + 1 < steps) load_x(t + 1, xn);
+    float acc[NG][R / 2];
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int v = 0; v < R / 2; ++v) acc[q][v] = 0.f;
+    product_mma<R, NG>(acc, sA_addr, sH_addr + cur, H, tile_bytes, warp,
+                       lane);
+
+    // the cell step in registers; the new round(h) into every CTA's next
+    // buffer (its own included), then the cluster barrier's arrive
+    uint32_t hv[NJ][2];
+    float st[NJ][2][2][Cell::kStash];
+#pragma unroll
+    for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x[NG], a[NG];
+#pragma unroll
+          for (int q = 0; q < NG; ++q) {
+            x[q] = i ? bf16_hi(xc[jn][e][q]) : bf16_lo(xc[jn][e][q]);
+            a[q] = acc[q][4 * jn + 2 * i + e] + bias[q][i];
+          }
+          Cell::step(h[jn][e][i], c[jn][e][i], x, a, st[jn][e][i]);
+        }
+        hv[jn][e] = pack_bf16(h[jn][e][0], h[jn][e][1]);
+        if (on) {
+          const int n = 8 * jn + 2 * t4 + e;
+          const uint32_t o = nxt + h_at + (n >> 3) * kc * 128 + (n & 7) * 16;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (r < (int)csize) st_cluster(peer[r] + o, hv[jn][e]);
+        }
+      }
+    cluster_arrive();
+
+    // the step's outputs go out while the peers catch up
+#pragma unroll
+    for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = b0 + 8 * jn + 2 * t4 + e;
+        if (on && b < B) {
+          const size_t row = ((size_t)t * 2 + d) * B + b;
+          *reinterpret_cast<uint32_t*>(hs + row * H + j) = hv[jn][e];
+          if constexpr (kStash) {
+            float* gt = gates + row * Cell::kStash * H + j;
+#pragma unroll
+            for (int s = 0; s < Cell::kStash; ++s)
+              *reinterpret_cast<float2*>(gt + s * H) =
+                  make_float2(st[jn][e][0][s], st[jn][e][1][s]);
+          }
+        }
+      }
+#pragma unroll
+    for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int q = 0; q < NG; ++q) xc[jn][e][q] = xn[jn][e][q];
+    // h(t + 1) has landed everywhere; nobody reads h(t) any more, so the
+    // next step may overwrite it. After the last step this wait also keeps
+    // every CTA alive until no peer writes into its shared memory.
+    cluster_wait();
+  }
+}
+
+size_t resident_smem(int gates, int R, int H) {
+  return (size_t)gates * kResUnits * H * 2 + 2 * (size_t)R * H * 2;
+}
+
+// Launch, or with info != null fill info = {dynamic shared memory bytes,
+// the most clusters that can be resident at once, registers per thread,
+// local memory bytes per thread} and launch nothing. A cluster that cannot
+// be scheduled is refused with cudaErrorInvalidConfiguration.
+template <class Cell, int R, bool kStash>
+cudaError_t launch_resident(const void* xw, const void* ut, const void* brec,
+                            void* hs, void* gates, int steps, int B, int H,
+                            int C, cudaStream_t stream, int* info) {
+  const auto kernel = birnn_resident_kernel<Cell, R, kStash>;
+  const size_t smem = resident_smem(Cell::kGates, R, H);
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + R - 1) / R), 2);
+  cfg.blockDim = dim3(kResThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // the occupancy answer for (smem, C) does not change, and serving is
+  // host-bound: it is kept, key and answer in one word so that concurrent
+  // launches read them together
+  static std::atomic<uint64_t> known{0};
+  const uint64_t key = ((uint64_t)smem * 8 + C) << 32;
+  const uint64_t seen = known.load(std::memory_order_relaxed);
+  int clusters = (int)(uint32_t)seen;
+  if ((seen & ~0xffffffffull) != key) {
+    e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    known.store(key | (uint32_t)clusters, std::memory_order_relaxed);
+  }
+  if (info) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, (const void*)kernel);
+    if (e != cudaSuccess) return e;
+    info[0] = (int)smem;
+    info[1] = clusters;
+    info[2] = fa.numRegs;
+    info[3] = (int)fa.localSizeBytes;
+    return cudaSuccess;
+  }
+  if (clusters == 0) return cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kernel,
+                         static_cast<const __nv_bfloat16*>(xw),
+                         static_cast<const __nv_bfloat16*>(ut),
+                         static_cast<const float*>(brec),
+                         static_cast<__nv_bfloat16*>(hs),
+                         static_cast<float*>(gates), steps, B, H, H / C);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <class Cell, bool kStash>
+int run_resident(const void* xw, const void* ut, const void* brec, void* hs,
+                 void* gates, int steps, int B, int H, int C, int R,
+                 void* stream, int* info) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R == 8)
+    return (int)launch_resident<Cell, 8, kStash>(xw, ut, brec, hs, gates,
+                                                 steps, B, H, C, s, info);
+  if (R == 16)
+    return (int)launch_resident<Cell, 16, kStash>(xw, ut, brec, hs, gates,
+                                                  steps, B, H, C, s, info);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The two instances wired in: the GRU without a stash (K2), the LSTM with
+// one (K5). H (padded units) % 16 == 0, split over C <= 4 CTAs of at most
+// 64 units each, an even number.
+int resident(bool lstm, const void* xw, const void* ut, const void* brec,
+             void* hs, void* gates, int steps, int B, int H, int C, int R,
+             void* stream, int* info) {
+  if (H % 16 || C < 1 || C > 4 || H % C || (H / C) % 2 ||
+      H / C > kResUnits || (lstm && !info && !gates) || (!lstm && gates))
+    return (int)cudaErrorInvalidValue;
+  if (lstm)
+    return run_resident<LstmCell, true>(xw, ut, brec, hs, gates, steps, B, H,
+                                        C, R, stream, info);
+  return run_resident<GruCell, false>(xw, ut, brec, hs, gates, steps, B, H,
+                                      C, R, stream, info);
+}
+
 cudaError_t set_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -529,6 +926,27 @@ extern "C" int crnn_bilstm_bf16(const void* xw, const void* ut, void* hs,
                                 void* gates, int steps, int B, int H,
                                 void* stream) {
   return run<LstmCell>(true, xw, ut, nullptr, hs, gates, steps, B, H, stream);
+}
+
+// K2 (lstm = 0: gates must be null, brec the (2, 3H) f32 recurrent bias)
+// or K5 (lstm = 1: gates (T, 2, B, 5H) f32) on the resident design: C CTAs
+// a cluster, R (8 or 16) batch rows a cluster. xw, ut, hs as
+// crnn_bigru_bf16 takes them.
+extern "C" int crnn_birnn_resident(int lstm, const void* xw, const void* ut,
+                                   const void* brec, void* hs, void* gates,
+                                   int steps, int B, int H, int C, int R,
+                                   void* stream) {
+  return resident(lstm, xw, ut, brec, hs, gates, steps, B, H, C, R, stream,
+                  nullptr);
+}
+
+// The resident instance's resources, launching nothing: info[4] = {dynamic
+// shared memory bytes, most clusters resident at once, registers per
+// thread, local memory bytes per thread}.
+extern "C" int crnn_birnn_resident_info(int lstm, int H, int C, int R,
+                                        int* info) {
+  return resident(lstm, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, H,
+                  C, R, nullptr, info);
 }
 
 extern "C" const char* crnn_error_string(int err) {

@@ -152,8 +152,14 @@ def evaluate(
 ) -> Dict[str, float]:
     """Validation: the mean per-line loss and, where the batches carry
     their texts and a codec is given, the greedy decode's CER, WER and
-    sequence accuracy against them (NaN otherwise)."""
+    sequence accuracy against them. Where every batch lacks texts (or no
+    codec is given) but carries ``the_labels``, the CER is taken in label
+    space instead and WER and sequence accuracy are NaN, as JAX's
+    ``evaluate`` does (``crnn_ocr_tpu/train/loop.py:421-456``); with
+    neither, all three are NaN."""
     losses, preds, refs = [], [], []
+    dist_sum = ref_len_sum = label_batches = 0
+    label_cer_ok = True
     for j, batch in enumerate(eval_iter):
         if j >= max_batches:
             break
@@ -161,14 +167,40 @@ def evaluate(
         loss_vec, decoded = eval_step(state, batch)
         losses.append(loss_vec.cpu().numpy())
         if codec is not None and texts is not None:
+            label_cer_ok = False
             for row, ref in zip(ctc.trim_dense(decoded.cpu()), texts):
                 preds.append(codec.labels_to_text(row))
                 refs.append(ref)
+        elif "the_labels" in batch:
+            dist, ref_len = _label_distance(decoded, batch["the_labels"],
+                                            batch["label_length"])
+            dist_sum += dist
+            ref_len_sum += ref_len
+            label_batches += 1
+        else:
+            label_cer_ok = False
     out = {"loss": float(np.mean(np.concatenate(losses)))}
     if refs:
         out["cer"] = metrics_lib.cer(preds, refs)
         out["wer"] = metrics_lib.wer(preds, refs)
         out["seq_acc"] = metrics_lib.sequence_accuracy(preds, refs)
+    elif label_cer_ok and label_batches:
+        out.update(cer=dist_sum / max(ref_len_sum, 1), wer=float("nan"),
+                   seq_acc=float("nan"))
     else:
         out.update(cer=float("nan"), wer=float("nan"), seq_acc=float("nan"))
     return out
+
+
+def _label_distance(decoded, labels, label_length):
+    """The summed edit distance between each line's decoded labels (the
+    ``>= 0`` prefix of its row) and ``labels[:label_length]``, and the
+    summed label lengths: the sums JAX's ``batched_levenshtein`` gives
+    (``crnn_ocr_tpu/ops/editdistance.py``), on the host."""
+    dec = decoded.cpu().numpy()
+    lab = labels.cpu().numpy()
+    lens = label_length.cpu().numpy().reshape(-1)
+    dec_lens = (dec >= 0).sum(axis=1)
+    dist = sum(metrics_lib.levenshtein(list(d[:n]), list(lb[:m]))
+               for d, n, lb, m in zip(dec, dec_lens, lab, lens))
+    return dist, int(lens.sum())

@@ -27,6 +27,7 @@ orders), and its autograd Function on the card against the CPU as
 ``tests/test_torch_stem_train.py`` holds the CPU to JAX. TF32 is off.
 """
 
+import collections
 import os
 
 import numpy as np
@@ -82,11 +83,22 @@ def test_stem_kernel_matches_plain(card, dtype, shape):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+def _design_name(dtype, H):
+    """The design the card tests expect: the resident one for K2 and K5 in
+    bf16 up to 256 units, the streamed one beyond, f32 on the CUDA cores."""
+    if dtype == "float32":
+        return "f32"
+    return "resident" if H <= 256 else "streamed"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (5, 96), (3, 1024),
-                                 (4, 40)])  # bf16 pads 40 units to 48
+                                 (4, 40),  # bf16 pads 40 units to 48
+                                 (256, 256),  # fonts-hard's serving batch
+                                 (3, 128)])
 def test_bigru_kernel_matches_plain(card, dtype, B, H):
+    """K2 against bigru_plain, on the design its shape selects."""
     dt = DTYPES[dtype]
     rng = np.random.default_rng(4)
     xw = torch.from_numpy(rng.normal(size=(6, 2, B, 3 * H))
@@ -95,10 +107,13 @@ def test_bigru_kernel_matches_plain(card, dtype, B, H):
                          .astype(np.float32)).to(dt)
     b = torch.from_numpy((rng.normal(size=(2, 3 * H)) * 0.1)
                          .astype(np.float32))
-    before = tbg.launches
+    design = tbg.design_for("gru", False, H, B, dt)
+    assert design.name == _design_name(dtype, H)
+    before, ran = tbg.launches, dict(tbg.design_launches)
     got = tbg.bigru(xw.to(card), u.to(card), b.to(card))
     torch.cuda.synchronize()
     assert tbg.launches == before + 1
+    assert tbg.design_launches - collections.Counter(ran) == {design: 1}
     want = tbg.bigru_plain(xw, u, b)
     atol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -179,22 +194,56 @@ def test_bilstm_kernel_matches_plain(card, dtype, B, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (128, 256), (3, 1024),
-                                 (4, 40)])
+@pytest.mark.parametrize("B,H", [(8, 128), (13, 256),
+                                 (128, 256),  # fonts-hard-lstm's training
+                                 (3, 1024), (4, 40), (3, 128)])
 def test_bilstm_train_kernel_matches_plain(card, dtype, B, H):
     """K5: hs and the stash [i | f | g | o | c], against
-    bilstm_train_plain."""
+    bilstm_train_plain, on the design its shape selects."""
     xw, u, atol = _lstm_case(16, B, H, dtype)
+    design = tbg.design_for("lstm", True, H, B, DTYPES[dtype])
+    assert design.name == _design_name(dtype, H)
     n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
+    ran = dict(tbg.design_launches)
     hs, st = tbg.bilstm_train(xw.to(card), u.to(card))
     torch.cuda.synchronize()
     assert (tbg.lstm_launches, tbg.lstm_train_launches) == (n4, n5 + 1)
+    assert tbg.design_launches - collections.Counter(ran) == {design: 1}
     want_hs, want_st = tbg.bilstm_train_plain(xw, u)
     assert st.shape == want_st.shape and st.dtype == torch.float32
     np.testing.assert_allclose(hs.float().cpu().numpy(),
                                want_hs.float().numpy(), rtol=0, atol=atol)
     rtol = atol if dtype == "bfloat16" else 0.0
     np.testing.assert_allclose(st.cpu().numpy(), want_st.numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_k3_and_k4_still_run_the_streamed_design(card):
+    """K3 (the GRU with its stash) at fonts-hard's training shape and K4
+    (the LSTM without one) at its serving shape launch the streamed design,
+    not the resident one, and still match their plain versions."""
+    xw, u, atol = _lstm_case(19, 256, 256, "bfloat16")
+    rng = np.random.default_rng(20)
+    gxw = torch.from_numpy(rng.normal(size=(6, 2, 128, 768))
+                           .astype(np.float32)).bfloat16()
+    gu = torch.from_numpy((rng.normal(size=(2, 256, 768)) / 16.0)
+                          .astype(np.float32)).bfloat16()
+    gb = torch.from_numpy((rng.normal(size=(2, 768)) * 0.1)
+                          .astype(np.float32))
+    before = dict(tbg.design_launches)
+    hs4 = tbg.bilstm_infer(xw.to(card), u.to(card))
+    hs3, g3 = tbg.bigru_train(gxw.to(card), gu.to(card), gb.to(card))
+    torch.cuda.synchronize()
+    assert (tbg.design_launches - collections.Counter(before)
+            == {tbg.Design("streamed", 0, 16): 2})
+    np.testing.assert_allclose(hs4.float().cpu().numpy(),
+                               tbg.bilstm_plain(xw, u).float().numpy(),
+                               rtol=0, atol=atol)
+    want_hs, want_g = tbg.bigru_train_plain(gxw, gu, gb)
+    np.testing.assert_allclose(hs3.float().cpu().numpy(),
+                               want_hs.float().numpy(), rtol=0, atol=atol)
+    np.testing.assert_allclose(g3.cpu().numpy(), want_g.numpy(), rtol=0,
                                atol=atol)
 
 

@@ -1,0 +1,98 @@
+"""Time the recurrence kernels' designs against each other on one GPU.
+
+    python3 tools/time_rnn_designs.py
+
+For K2 (the GRU, serving) and K5 (the LSTM with its stash, training) at
+H 256 and H 128, T 64, on seeded random inputs: the resident design at 8
+and at 16 batch rows a cluster, and the streamed design, at batches where
+8 rows fit one wave of the card's clusters and where they do not. Each
+resident instance's line gives the clusters the card holds at once
+(``cudaOccupancyMaxActiveClusters``) and its shared memory, from which
+``kernels/bigru.py::ROWS8_WAVE_CTAS`` is read. Each time is the mean of 20
+back-to-back launches between two CUDA events, after 3 warm-up launches,
+in two rounds; every design's hs is held to the streamed design's.
+Prints the card's ``name, power.limit``, then one JSON line per
+measurement. Needs a CUDA card; builds ``csrc/bigru.cu`` at first use.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+CASES = (("gru", 256, 256), ("gru", 256, 240), ("gru", 256, 112),
+         ("lstm", 256, 128), ("lstm", 256, 112), ("lstm", 256, 64),
+         ("gru", 128, 256), ("gru", 128, 64), ("gru", 128, 16),
+         ("lstm", 128, 128), ("lstm", 128, 64), ("lstm", 128, 16))
+
+
+def event_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    z.record()
+    z.synchronize()
+    return a.elapsed_time(z) / reps
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    from chip_smoke import resident_resources
+    from crnn_ocr_torch.kernels import bigru as bg
+
+    if not torch.cuda.is_available():
+        print("time_rnn_designs: needs a CUDA card", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    T = 64
+    for cell, H, B in CASES:
+        rng = np.random.default_rng(1)
+        n = bg.GATES[cell]
+        xw = torch.from_numpy(rng.normal(size=(T, 2, B, n * H))
+                              .astype(np.float32)).bfloat16().cuda()
+        u = torch.from_numpy((rng.normal(size=(2, H, n * H)) / np.sqrt(H))
+                             .astype(np.float32)).bfloat16().cuda()
+        rb = torch.zeros(2, n * H, device="cuda") if cell == "gru" else None
+        uk = bg.kernel_weights(u)
+        stash = cell == "lstm"
+        chosen = bg.design_for(cell, stash, H, B, torch.bfloat16)
+        streamed = bg.Design("streamed", 0, 16)
+        designs = [chosen._replace(rows=rows) for rows in (8, 16)]
+        designs.append(streamed)
+        want = bg._launch(cell, xw, u, rb, uk, stash, streamed)[0].float()
+        for rnd in range(2):
+            for d in designs:
+                def run(d=d):
+                    return bg._launch(cell, xw, u, rb, uk, stash, d)[0]
+
+                out = dict(cell=cell, B=B, H=H, T=T, design=d._asdict(),
+                           chosen=d == chosen, ms=event_ms(run), round=rnd)
+                if d.name == "resident":
+                    out["max_abs_diff"] = float(
+                        (run().float() - want).abs().max())
+                    out["ctas"] = -(-B // d.rows) * 2 * d.cluster
+                    res = resident_resources(cell, H, d)
+                    out["smem_bytes"] = res["smem_bytes"]
+                    out["max_active_clusters"] = res["max_active_clusters"]
+                print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
