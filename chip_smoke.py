@@ -16,8 +16,9 @@ exits non-zero. It needs one CUDA card and refuses to run without one.
    tolerance, and the median times of the kernel, the plain version and a
    PyTorch yardstick the port never calls, beside the kernel's bound. K2
    reports its design (``kernels/bigru.py::design_for``: cluster size and
-   rows) and, on the same inputs, the streamed design's time (K3's and
-   K4's, a yardstick held to the plain version), with the instance's
+   rows) and, on the same inputs, the streamed design's time (the design
+   of bf16 shapes above 256 units, a yardstick held to the plain version
+   and compared with the path's design bit for bit), with the instance's
    shared memory, registers and the clusters the card holds at once.
 3. Golden texts: ``load_pretrained`` on the card against the JAX
    predictor's texts and scores in ``crnn_ocr_torch/testdata/
@@ -47,7 +48,7 @@ lines repeated, labels padded to 32):
 8. The training path, counted: 30 timed steps of ``produce_batch`` plus
    ``fit``'s train step (dropout 0.2, learning rate 1e-4) with the launch
    counts set to 0 just before and read just after: each step must launch
-   K3 twice (on the streamed design), K6 and K7 once, the training stem's
+   K3 twice (on the resident design), K6 and K7 once, the training stem's
    K8, K1, K9 and K10 once, K2 never; the mean loss of the last 5 steps
    must be below the first
    step's. Then lines/s over the timed steps' whole time, the p50 step, a
@@ -107,8 +108,8 @@ golden lines:
     against their plain versions on layer 0's own input projections, bf16
     and f32, TF32 off; K4 also timed on K5's inputs (the stash's cost);
     ``nn.LSTM`` (bidirectional, the weights carried over, the input
-    projection included) as the yardstick; K5 with its design and the
-    same yardsticks as K2 in phase 2.
+    projection included) as the yardstick; K4 and K5 with their designs
+    and the same yardsticks as K2 in phase 2 (K3 with its own in phase 6).
 19. Golden texts (``crnn_ocr_torch/testdata/lstm_goldens.npz``, written by
     ``tools/gen_torch_goldens.py --lstm``): the seeded layers' digest; f32
     texts equal to the JAX predictor's, scores within rtol 1e-4; bf16 texts
@@ -117,7 +118,7 @@ golden lines:
     of 8 lines against JAX's (the texts are all empty: the seeded BiLSTM
     leaves ``fonts-hard``'s trained head on blank).
 20. Serving ``fonts-hard-lstm`` counted, as phase 4: each ``predict`` must
-    launch K1 once and K4 twice (on the streamed design), K2 never.
+    launch K1 once and K4 twice (on the resident design), K2 never.
 21. One f32 ``fonts-hard-lstm`` train step: kernels against plain versions
     (the stem's kernels kept in both steps: they are held to their plain
     versions in phases 15-17, and their ulp differences flip block1's
@@ -147,9 +148,10 @@ and K9's and K10's ``library_ms`` is null (no single PyTorch call computes
 either), their ``pair_library_ms`` the plain stem's autograd backward,
 which computes both. The recurrences' rows add ``design``, ``cluster`` and
 ``rows`` as the counted run launched them, ``design_launches`` (that run's
-launches on that design) and ``ms_per_step`` (``ms`` over the T steps);
-K2's and K5's also ``streamed_ms`` (the streamed design's device time on
-the same inputs) and ``resources``.
+launches on that design) and ``ms_per_step`` (``ms`` over the T steps),
+``streamed_ms`` (the streamed design's device time on the same inputs),
+``streamed_equal`` (its outputs equal to the path design's bit for bit)
+and ``resources``.
 """
 
 from __future__ import annotations
@@ -382,7 +384,7 @@ def require_launches(counts: dict, want: dict, what: str) -> None:
 # the design each recurrence kernel runs on the counted paths (bf16, 256
 # units, or 128 for fonts-small's K3)
 PATH_DESIGN = {"bigru": "resident", "bilstm_train": "resident",
-               "bigru_train": "streamed", "bilstm": "streamed"}
+               "bigru_train": "resident", "bilstm": "resident"}
 
 
 def read_design(counts: dict, what: str):
@@ -419,8 +421,9 @@ RESIDENT_PTXAS: dict = {}  # phase 1's report per resident instance
 
 def resident_ptxas(report: str) -> dict:
     """ptxas's registers, stack, spills and static shared memory per
-    instance of ``birnn_resident_kernel``, keyed ``"<cell> R<rows>"``, from
-    ``nvcc -Xptxas -v``'s report of ``bigru.cu``."""
+    instance of ``birnn_resident_kernel``, keyed by its wrapper's kernel
+    and rows (:func:`ptxas_key`), from ``nvcc -Xptxas -v``'s report of
+    ``bigru.cu``."""
     import re
 
     out, cur = {}, None
@@ -428,8 +431,9 @@ def resident_ptxas(report: str) -> dict:
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
             k = re.search(r"birnn_resident_kernelI\S*?(Gru|Lstm)CellELi(\d+)"
-                          r"ELb[01]E", entry.group(1))
-            cur = f"{k.group(1).lower()} R{k.group(2)}" if k else None
+                          r"ELb([01])E", entry.group(1))
+            cur = (ptxas_key(k.group(1).lower(), k.group(3) == "1",
+                             int(k.group(2))) if k else None)
             if cur:
                 out[cur] = {}
             continue
@@ -444,6 +448,12 @@ def resident_ptxas(report: str) -> dict:
             if m:
                 out[cur][key] = int(m.group(1))
     return out
+
+
+def ptxas_key(cell: str, stash: bool, rows: int) -> str:
+    """``"bigru R8"``, ``"bilstm_train R32"``: the kernel a resident
+    instance serves (K2-K5 by cell and stash) and its rows."""
+    return f"bi{cell}{'_train' if stash else ''} R{rows}"
 
 
 def phase_build(card: str):
@@ -467,7 +477,7 @@ def phase_build(card: str):
          resident_ptxas=RESIDENT_PTXAS)
 
 
-def resident_resources(cell: str, H: int, design) -> dict:
+def resident_resources(cell: str, stash: bool, H: int, design) -> dict:
     """A resident instance's resources on this card, launching nothing:
     its dynamic shared memory, the most clusters the card holds at once,
     its registers and local memory per thread (the runtime's view; phase 1
@@ -479,20 +489,25 @@ def resident_resources(cell: str, H: int, design) -> dict:
     lib = _build.load("bigru")
     fn = lib.crnn_birnn_resident_info
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     info = (ctypes.c_int * 4)()
-    _build.check(lib, fn(int(cell == "lstm"), H, design.cluster, design.rows,
-                         ctypes.addressof(info)), "resident info")
+    _build.check(lib, fn(int(cell == "lstm"), int(stash), H, design.cluster,
+                         design.rows, ctypes.addressof(info)),
+                 "resident info")
     return dict(smem_bytes=info[0], max_active_clusters=info[1],
                 runtime_registers=info[2], local_bytes=info[3],
-                ptxas=RESIDENT_PTXAS.get(f"{cell} R{design.rows}"))
+                ptxas=RESIDENT_PTXAS.get(ptxas_key(cell, stash,
+                                                   design.rows)))
 
 
 def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
-    """Phases 2 and 18: the design the path's shape selects and, for the
-    resident one, the device time of the streamed design on the same
-    inputs, held to the plain version's hs at 2e-2: a yardstick only, like
-    ``library_ms``, launched here and nowhere on the path."""
+    """Phases 2, 6 and 18: the design the path's shape selects and, for
+    the resident one, the device time of the streamed design on the same
+    inputs, held to the plain version's hs at 2e-2 (a yardstick only, like
+    ``library_ms``, launched here and nowhere on the path), whether its hs
+    and stash equal the resident design's bit for bit, and the resident
+    instance's resources."""
+    import torch
     from crnn_ocr_torch.kernels import bigru as bg
 
     T, _, B, G = xw.shape
@@ -504,14 +519,23 @@ def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
 
     def streamed():
         return bg._launch(cell, xw, u, rb, uk, stash,
-                          bg.Design("streamed", 0, 16))[0]
+                          bg.Design("streamed", 0, 16))
 
-    err = float((streamed().float() - plain.float()).abs().max())
+    theirs, ours = streamed(), bg._launch(cell, xw, u, rb, uk, stash, d)
+    err = float((theirs[0].float() - plain.float()).abs().max())
     require(err <= 2e-2, f"{cell} streamed design: hs error {err}")
     out["streamed_max_abs_err"] = err
+    out["streamed_equal"] = all(torch.equal(a, b) for a, b in
+                                zip(ours, theirs) if a is not None)
     out["streamed_ms"] = device_ms(streamed)
-    out["resources"] = resident_resources(
-        cell, bg._padded_units(H, xw.dtype), d)
+    res = resident_resources(cell, stash, bg._padded_units(H, xw.dtype), d)
+    # one wave: the grid within the CTAs the card holds at once
+    res["ctas"] = -(-B // d.rows) * 2 * d.cluster
+    res["wave_ctas"] = res["max_active_clusters"] * d.cluster
+    require(res["ctas"] <= res["wave_ctas"],
+            f"{cell} {d}: {res['ctas']} CTAs, the card holds "
+            f"{res['wave_ctas']} at once")
+    out["resources"] = res
     return out
 
 
@@ -2038,7 +2062,7 @@ def main() -> int:
             **{k: c[k] for k in ("max_err_over_scale", "pair_library_ms",
                                  "pair_library_device_ms",
                                  "k4_same_inputs_device_ms", "streamed_ms",
-                                 "resources")
+                                 "streamed_equal", "resources")
                if k in c},
         ))
         if name in designs:  # the recurrences: T dependent steps

@@ -16,10 +16,10 @@ also c, as the Pallas kernels carry them (``bigru.py:63-73, 343-345``).
 The CUDA kernels are in ``csrc/bigru.cu``, the cell a template parameter
 of each: bf16 on the tensor cores, f32 on the CUDA cores (its header has
 the designs and the H100 bounds, bytes-bound plus 64 dependent steps).
-:func:`design_for` picks the design from the shape alone: K2 and K5 keep U
-resident in a cluster's shared memory, K3 and K4 stream it from L2.
-``bigru_plain`` and ``bilstm_plain`` are the same functions as Python
-loops over T.
+:func:`design_for` picks the design from the shape alone: up to 256
+padded units K2-K5 keep U resident in a cluster's shared memory, wider
+bf16 shapes stream it from L2. ``bigru_plain`` and ``bilstm_plain`` are the
+same functions as Python loops over T.
 
 ``bigru`` and ``bilstm`` dispatch on the device of ``xw`` and on nothing
 else: a CPU tensor goes through the plain version, a CUDA tensor through
@@ -59,18 +59,31 @@ STASH = {"gru": 4, "lstm": 5}  # the training stash's width, in units of H
 
 # The resident design keeps U in the shared memory of a cluster of at most
 # RESIDENT_MAX_CLUSTER CTAs, each owning at most RESIDENT_UNITS units of
-# every gate (one M-tile). It is wired in for K2 (the GRU, serving) and K5
-# (the LSTM, training) only; K3 and K4 stay on the streamed design.
+# every gate (one M-tile). Every (cell, stash) pair runs it, as
+# csrc/bigru.cu::resident takes them: K2 (the GRU, serving), K3 (the GRU,
+# training), K4 (the LSTM, serving), K5 (the LSTM, training).
 RESIDENT_UNITS = 64
 RESIDENT_MAX_CLUSTER = 4
-RESIDENT_KERNELS = (("gru", False), ("lstm", True))
-# 8 batch rows a cluster in place of 16 where they were measured faster on
-# the H100 (tools/time_rnn_designs.py, PERF.md): at these padded widths,
-# while the grid fits the CTAs the card holds at once, which are the
-# instance's cudaOccupancyMaxActiveClusters times the cluster size (a grid
-# past it runs in two waves and loses). Every other shape takes 16 rows.
-ROWS8_WAVE_CTAS = {("gru", 256): 248, ("lstm", 256): 120,
-                   ("gru", 128): 528, ("lstm", 128): 396}
+RESIDENT_KERNELS = (("gru", False), ("gru", True), ("lstm", False),
+                    ("lstm", True))
+RESIDENT_ROWS = (8, 16, 32)  # batch rows a cluster, the instances compiled
+# The CTAs the H100 holds at once per resident instance, (cell, stash,
+# padded units, rows): cudaOccupancyMaxActiveClusters times the cluster
+# size, as tools/time_rnn_designs.py measured them (PERF.md), the same with
+# and without the stash. A grid past it runs in two waves and loses (K4 at
+# B 256: 16 rows in two waves 20 % slower than 32 in one). design_for takes
+# the fewest rows whose grid fits, since at one wave fewer rows were
+# measured faster; a width not in the table, or a batch that no measured
+# instance holds in one wave, takes 16 rows.
+WAVE_CTAS = {
+    (cell, stash, hp, rows): ctas
+    for cell, hp, caps in (("gru", 256, (248, 248, 120)),
+                           ("lstm", 256, (120, 120, 120)),
+                           ("gru", 128, (528, 528, 264)),
+                           ("lstm", 128, (396, 396, 264)))
+    for stash in (False, True)
+    for rows, ctas in zip(RESIDENT_ROWS, caps)
+}
 # launches per Design, counted where K2-K5 launch (the comparisons'
 # launches included); the per-kernel counts above are the path's
 design_launches: collections.Counter = collections.Counter()
@@ -89,19 +102,19 @@ class Design(NamedTuple):
 
 def design_for(cell: str, stash: bool, H: int, B: int, dtype) -> Design:
     """The design for a recurrence of ``H`` units at batch ``B``, a pure
-    function of the shape: bf16 K2 and K5 take the resident design
-    whenever the padded units fit 4 CTAs of 64 (H <= 256), each CTA an
-    even number of units; the cluster is the fewest CTAs that hold them,
-    and the rows a cluster 16, or 8 where ``ROWS8_WAVE_CTAS`` says."""
+    function of the shape: bf16 K2-K5 take the resident design whenever
+    the padded units fit 4 CTAs of 64 (H <= 256), each CTA an even number
+    of units; the cluster is the fewest CTAs that hold them, and the rows a
+    cluster the fewest of ``RESIDENT_ROWS`` whose grid ``WAVE_CTAS`` says
+    the card holds in one wave, else 16."""
     if dtype != torch.bfloat16:
         return Design("f32")
     hp = _padded_units(H, dtype)
-    if (cell, stash) in RESIDENT_KERNELS:
-        for c in range(-(-hp // RESIDENT_UNITS), RESIDENT_MAX_CLUSTER + 1):
-            if hp % c == 0 and (hp // c) % 2 == 0:
-                wave = ROWS8_WAVE_CTAS.get((cell, hp), 0)
-                rows = 8 if -(-B // 8) * 2 * c <= wave else 16
-                return Design("resident", c, rows)
+    for c in range(-(-hp // RESIDENT_UNITS), RESIDENT_MAX_CLUSTER + 1):
+        if hp % c == 0 and (hp // c) % 2 == 0:
+            rows = next((r for r in RESIDENT_ROWS if -(-B // r) * 2 * c
+                         <= WAVE_CTAS.get((cell, stash, hp, r), 0)), 16)
+            return Design("resident", c, rows)
     return Design("streamed", 0, 16)
 
 
@@ -240,8 +253,10 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
             design: Design = None):
     """Run K2 or K3 (``cell="gru"``), K4 or K5 (``"lstm"``) on the card:
     hs, and the stash for K3 and K5. Checks every operand; raises for a
-    device without a kernel. ``design``: :func:`design_for`'s, unless a
-    caller that compares designs on the same inputs names another."""
+    device without a kernel, and for a launch the card refuses (a resident
+    cluster that cannot be scheduled): no other design stands in.
+    ``design``: :func:`design_for`'s, unless a caller that compares designs
+    on the same inputs names another."""
     T, B, H = _check(xw, u, rec_bias, cell)
     if design is None:
         design = design_for(cell, stash, H, B, xw.dtype)
@@ -293,6 +308,7 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
                 ctypes.c_int] * 5 + [ctypes.c_void_p]
             if cell == "lstm":
                 ptrs.append(None)  # no recurrent bias
+            # the training instance (K3, K5) when the stash pointer is set
             err = fn(int(cell == "lstm"), *ptrs, *out, T, B, hp,
                      design.cluster, design.rows, stream)
         else:

@@ -26,8 +26,8 @@
 // stash, whether it has a recurrent bias and its per-unit step. Three
 // designs; kernels/bigru.py::design_for picks one from the shape alone:
 //
-// * resident (bf16 K2 and K5, H <= 256 after padding),
-//   birnn_resident_kernel: U stays in shared memory for all T steps. Each
+// * resident (bf16 K2-K5, H <= 256 after padding), birnn_resident_kernel:
+//   U stays in shared memory for all T steps. Each
 //   (direction, tile of R batch rows) is a cluster of C <= 4 CTAs; CTA c
 //   owns the units [c H/C, (c+1) H/C) of every gate, so its U slice (at
 //   H = 256, C = 4: 96 KB for the GRU, 128 KB for the LSTM) is loaded once,
@@ -45,14 +45,17 @@
 //   the same layouts measured 13-19 % slower on the H100 at the main-path
 //   shapes; PERF.md). M rows are ordered so that a thread's two rows are
 //   adjacent units: xw, h, hs and the stash move two units at a time. xw
-//   is loaded into registers one step ahead. R is 16, or 8 where that was
-//   measured faster (kernels/bigru.py::design_for): K2 at B = 256 runs
-//   128 CTAs and K5 at B = 128 64 CTAs, both of 16 rows. Per step and CTA the
-//   tensor cores read the U slice from shared memory once (128 KB for the
-//   LSTM at H = 256, ~1000 cycles at 128 B a cycle) and the cluster
-//   barrier waits for the slowest CTA: the design is bound by this latency
-//   per step, not by the bytes of xw and the outputs.
-// * streamed (K3, K4 and wider bf16 shapes), birnn_mma_kernel: the
+//   is loaded into registers one step ahead. R is 8, 16 or 32, the fewest
+//   whose grid the card holds in one wave (kernels/bigru.py::design_for,
+//   from measured capacities): at H = 256, K2 at B = 256 runs 128 CTAs of
+//   16 rows, K3 at B = 128 128 CTAs of 8, K4 at B = 256 64 CTAs of 32 (16
+//   rows would take 128 CTAs, two waves of the 120 the card holds) and K5
+//   at B = 128 64 CTAs of 16. Per step and CTA the tensor cores read the U
+//   slice from shared memory once (128 KB for the LSTM at H = 256, ~1000
+//   cycles at 128 B a cycle) and the cluster barrier waits for the slowest
+//   CTA: the design is bound by this latency per step, not by the bytes of
+//   xw and the outputs.
+// * streamed (bf16 shapes above 4 x 64 units), birnn_mma_kernel: the
 //   work is split by (direction, tile of batch rows), never by hidden
 //   columns, so no block needs another block's state and the time loop
 //   runs inside the block with one __syncthreads per step. A block owns
@@ -458,7 +461,7 @@ birnn_mma_kernel(const __nv_bfloat16* __restrict__ xw,
   }
 }
 
-// ---- the resident design (K2, K5): U in a cluster's shared memory ----
+// ---- the resident design (K2-K5): U in a cluster's shared memory ----
 
 constexpr int kResThreads = 128;  // four warps per CTA
 constexpr int kResUnits = 64;     // units of each gate a CTA owns at most:
@@ -544,15 +547,19 @@ __device__ __forceinline__ void product_mma(float (&acc)[NG][R / 2],
   // A: matrix mi is (rows + 8 if mi & 1, k half mi >> 1) of the warp's rows
   const uint32_t a_lane =
       a_addr + ((2 * warp + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
-  // B: matrix mi is (8-row tile mi >> 1, k half mi & 1)
+  // B: matrix mi is (8-row tile mi >> 1 of a pair, k half mi & 1)
   const uint32_t b_lane =
       b_addr + (((mi >> 1) % NJ) * kc + (mi & 1)) * 128 + r8 * 16;
   for (int kk = 0; kk < H / 16; ++kk) {
     uint32_t b[NJ][2];
-    if constexpr (NJ == 2)
-      ldsm_x4(b[0][0], b[0][1], b[1][0], b[1][1], b_lane + kk * 256);
-    else
+    if constexpr (NJ == 1) {
       ldsm_x2(b[0][0], b[0][1], b_lane + kk * 256);
+    } else {
+#pragma unroll
+      for (int p = 0; p < NJ / 2; ++p)  // tiles 2p and 2p + 1
+        ldsm_x4(b[2 * p][0], b[2 * p][1], b[2 * p + 1][0], b[2 * p + 1][1],
+                b_lane + 2 * p * kc * 128 + kk * 256);
+    }
 #pragma unroll
     for (int q = 0; q < NG; ++q) {
       uint32_t a[4];
@@ -807,23 +814,31 @@ int run_resident(const void* xw, const void* ut, const void* brec, void* hs,
   if (R == 16)
     return (int)launch_resident<Cell, 16, kStash>(xw, ut, brec, hs, gates,
                                                   steps, B, H, C, s, info);
+  if (R == 32)
+    return (int)launch_resident<Cell, 32, kStash>(xw, ut, brec, hs, gates,
+                                                  steps, B, H, C, s, info);
   return (int)cudaErrorInvalidValue;
 }
 
-// The two instances wired in: the GRU without a stash (K2), the LSTM with
-// one (K5). H (padded units) % 16 == 0, split over C <= 4 CTAs of at most
-// 64 units each, an even number.
-int resident(bool lstm, const void* xw, const void* ut, const void* brec,
-             void* hs, void* gates, int steps, int B, int H, int C, int R,
-             void* stream, int* info) {
-  if (H % 16 || C < 1 || C > 4 || H % C || (H / C) % 2 ||
-      H / C > kResUnits || (lstm && !info && !gates) || (!lstm && gates))
+// Every (cell, stash) pair: the GRU without a stash (K2) and with one (K3),
+// the LSTM without (K4) and with (K5). H (padded units) % 16 == 0, split
+// over C <= 4 CTAs of at most 64 units each, an even number.
+int resident(bool lstm, bool stash, const void* xw, const void* ut,
+             const void* brec, void* hs, void* gates, int steps, int B, int H,
+             int C, int R, void* stream, int* info) {
+  if (H % 16 || C < 1 || C > 4 || H % C || (H / C) % 2 || H / C > kResUnits)
     return (int)cudaErrorInvalidValue;
   if (lstm)
-    return run_resident<LstmCell, true>(xw, ut, brec, hs, gates, steps, B, H,
-                                        C, R, stream, info);
-  return run_resident<GruCell, false>(xw, ut, brec, hs, gates, steps, B, H,
-                                      C, R, stream, info);
+    return stash ? run_resident<LstmCell, true>(xw, ut, brec, hs, gates,
+                                                steps, B, H, C, R, stream,
+                                                info)
+                 : run_resident<LstmCell, false>(xw, ut, brec, hs, gates,
+                                                 steps, B, H, C, R, stream,
+                                                 info);
+  return stash ? run_resident<GruCell, true>(xw, ut, brec, hs, gates, steps,
+                                             B, H, C, R, stream, info)
+               : run_resident<GruCell, false>(xw, ut, brec, hs, gates, steps,
+                                              B, H, C, R, stream, info);
 }
 
 cudaError_t set_smem(const void* fn, size_t smem) {
@@ -928,25 +943,27 @@ extern "C" int crnn_bilstm_bf16(const void* xw, const void* ut, void* hs,
   return run<LstmCell>(true, xw, ut, nullptr, hs, gates, steps, B, H, stream);
 }
 
-// K2 (lstm = 0: gates must be null, brec the (2, 3H) f32 recurrent bias)
-// or K5 (lstm = 1: gates (T, 2, B, 5H) f32) on the resident design: C CTAs
-// a cluster, R (8 or 16) batch rows a cluster. xw, ut, hs as
-// crnn_bigru_bf16 takes them.
+// K2 or K3 (lstm = 0, brec the (2, 3H) f32 recurrent bias), K4 or K5
+// (lstm = 1, brec null) on the resident design: the training instance (K3,
+// K5) when gates is not null, which then receives the stash (T, 2, B, 4H or
+// 5H) f32. C CTAs a cluster, R (8, 16 or 32) batch rows a cluster. xw, ut,
+// hs as crnn_bigru_bf16 takes them.
 extern "C" int crnn_birnn_resident(int lstm, const void* xw, const void* ut,
                                    const void* brec, void* hs, void* gates,
                                    int steps, int B, int H, int C, int R,
                                    void* stream) {
-  return resident(lstm, xw, ut, brec, hs, gates, steps, B, H, C, R, stream,
-                  nullptr);
+  return resident(lstm, gates != nullptr, xw, ut, brec, hs, gates, steps, B,
+                  H, C, R, stream, nullptr);
 }
 
-// The resident instance's resources, launching nothing: info[4] = {dynamic
-// shared memory bytes, most clusters resident at once, registers per
-// thread, local memory bytes per thread}.
-extern "C" int crnn_birnn_resident_info(int lstm, int H, int C, int R,
-                                        int* info) {
-  return resident(lstm, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, H,
-                  C, R, nullptr, info);
+// The resources of the resident instance (lstm, stash, R) at H units over C
+// CTAs, launching nothing: info[4] = {dynamic shared memory bytes, most
+// clusters resident at once, registers per thread, local memory bytes per
+// thread}.
+extern "C" int crnn_birnn_resident_info(int lstm, int stash, int H, int C,
+                                        int R, int* info) {
+  return resident(lstm, stash, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  0, 1, H, C, R, nullptr, info);
 }
 
 extern "C" const char* crnn_error_string(int err) {

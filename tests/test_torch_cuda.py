@@ -84,8 +84,8 @@ def test_stem_kernel_matches_plain(card, dtype, shape):
 
 
 def _design_name(dtype, H):
-    """The design the card tests expect: the resident one for K2 and K5 in
-    bf16 up to 256 units, the streamed one beyond, f32 on the CUDA cores."""
+    """The design the card tests expect: the resident one for K2-K5 in bf16
+    up to 256 units, the streamed one beyond, f32 on the CUDA cores."""
     if dtype == "float32":
         return "f32"
     return "resident" if H <= 256 else "streamed"
@@ -144,7 +144,8 @@ def test_predictor_on_card_reads_golden_texts(card, name, key):
 @pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (128, 256), (3, 1024),
                                  (4, 40)])  # bf16 pads 40 units to 48
 def test_bigru_train_kernel_matches_plain(card, dtype, B, H):
-    """K3: hs and the gate stash, against bigru_train_plain."""
+    """K3: hs and the gate stash, against bigru_train_plain, on the design
+    its shape selects."""
     dt = DTYPES[dtype]
     rng = np.random.default_rng(6)
     xw = torch.from_numpy(rng.normal(size=(6, 2, B, 3 * H))
@@ -153,10 +154,14 @@ def test_bigru_train_kernel_matches_plain(card, dtype, B, H):
                          .astype(np.float32)).to(dt)
     b = torch.from_numpy((rng.normal(size=(2, 3 * H)) * 0.1)
                          .astype(np.float32))
+    design = tbg.design_for("gru", True, H, B, dt)
+    assert design.name == _design_name(dtype, H)
     n2, n3 = tbg.launches, tbg.train_launches
+    ran = dict(tbg.design_launches)
     hs, gates = tbg.bigru_train(xw.to(card), u.to(card), b.to(card))
     torch.cuda.synchronize()
     assert (tbg.launches, tbg.train_launches) == (n2, n3 + 1)
+    assert tbg.design_launches - collections.Counter(ran) == {design: 1}
     want_hs, want_g = tbg.bigru_train_plain(xw, u, b)
     atol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
     np.testing.assert_allclose(hs.float().cpu().numpy(),
@@ -181,12 +186,16 @@ def _lstm_case(seed, B, H, dtype):
                                  (4, 40)])  # bf16 pads 40 units to 48
 def test_bilstm_kernel_matches_plain(card, dtype, B, H):
     """K4 against bilstm_plain (fonts-hard-lstm's serving batch among the
-    shapes)."""
+    shapes), on the design its shape selects."""
     xw, u, atol = _lstm_case(15, B, H, dtype)
+    design = tbg.design_for("lstm", False, H, B, DTYPES[dtype])
+    assert design.name == _design_name(dtype, H)
     n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
+    ran = dict(tbg.design_launches)
     got = tbg.bilstm(xw.to(card), u.to(card))
     torch.cuda.synchronize()
     assert (tbg.lstm_launches, tbg.lstm_train_launches) == (n4 + 1, n5)
+    assert tbg.design_launches - collections.Counter(ran) == {design: 1}
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                tbg.bilstm_plain(xw, u).float().numpy(),
                                rtol=0, atol=atol)
@@ -219,10 +228,12 @@ def test_bilstm_train_kernel_matches_plain(card, dtype, B, H):
 
 
 @pytest.mark.cuda
-def test_k3_and_k4_still_run_the_streamed_design(card):
+def test_k3_and_k4_run_the_resident_design_equal_to_the_streamed(card):
     """K3 (the GRU with its stash) at fonts-hard's training shape and K4
-    (the LSTM without one) at its serving shape launch the streamed design,
-    not the resident one, and still match their plain versions."""
+    (the LSTM without one) at its serving shape launch the resident design
+    that design_for names, K4's B 256 grid within one wave of the clusters
+    the card holds; their hs, and K3's stash, equal the streamed design's
+    bit for bit, and match their plain versions."""
     xw, u, atol = _lstm_case(19, 256, 256, "bfloat16")
     rng = np.random.default_rng(20)
     gxw = torch.from_numpy(rng.normal(size=(6, 2, 128, 768))
@@ -231,16 +242,33 @@ def test_k3_and_k4_still_run_the_streamed_design(card):
                           .astype(np.float32)).bfloat16()
     gb = torch.from_numpy((rng.normal(size=(2, 768)) * 0.1)
                           .astype(np.float32))
+    d4 = tbg.design_for("lstm", False, 256, 256, torch.bfloat16)
+    d3 = tbg.design_for("gru", True, 256, 128, torch.bfloat16)
+    assert d4.name == d3.name == "resident"
+    from chip_smoke import resident_resources
+
+    for cell, stash, B, d in (("lstm", False, 256, d4),
+                              ("gru", True, 128, d3)):
+        # the table never claims more CTAs than the card reports holding
+        held = resident_resources(cell, stash, 256, d)["max_active_clusters"]
+        wave = tbg.WAVE_CTAS[(cell, stash, 256, d.rows)]
+        assert -(-B // d.rows) * 2 * d.cluster <= wave <= held * d.cluster
+    xw, u, gxw, gu, gb_c = (t.to(card) for t in (xw, u, gxw, gu, gb))
     before = dict(tbg.design_launches)
-    hs4 = tbg.bilstm_infer(xw.to(card), u.to(card))
-    hs3, g3 = tbg.bigru_train(gxw.to(card), gu.to(card), gb.to(card))
+    hs4 = tbg.bilstm_infer(xw, u)
+    hs3, g3 = tbg.bigru_train(gxw, gu, gb_c)
     torch.cuda.synchronize()
     assert (tbg.design_launches - collections.Counter(before)
-            == {tbg.Design("streamed", 0, 16): 2})
+            == collections.Counter({d4: 1, d3: 1}))
+    streamed = tbg.Design("streamed", 0, 16)
+    s4, _ = tbg._launch("lstm", xw, u, None, None, False, streamed)
+    s3, sg3 = tbg._launch("gru", gxw, gu, gb_c, None, True, streamed)
+    assert torch.equal(hs4, s4)
+    assert torch.equal(hs3, s3) and torch.equal(g3, sg3)
     np.testing.assert_allclose(hs4.float().cpu().numpy(),
-                               tbg.bilstm_plain(xw, u).float().numpy(),
-                               rtol=0, atol=atol)
-    want_hs, want_g = tbg.bigru_train_plain(gxw, gu, gb)
+                               tbg.bilstm_plain(xw.cpu(), u.cpu()).float()
+                               .numpy(), rtol=0, atol=atol)
+    want_hs, want_g = tbg.bigru_train_plain(gxw.cpu(), gu.cpu(), gb)
     np.testing.assert_allclose(hs3.float().cpu().numpy(),
                                want_hs.float().numpy(), rtol=0, atol=atol)
     np.testing.assert_allclose(g3.cpu().numpy(), want_g.numpy(), rtol=0,

@@ -39,10 +39,11 @@ STREAMED = tbg.Design("streamed", 0, 16)
     ("gru", False, 256, 240, BF16, _res(4, 8)),
     ("gru", False, 128, 256, BF16, _res(2, 8)),
     ("lstm", True, 128, 792, BF16, _res(2, 8)),
-    # ... else 16 (K5 at B 128 would take 128 CTAs at 8 rows, K2 at B 256
-    # 256)
+    # ... else 16 where 16 fits (K5 at B 128 would take 128 CTAs at 8 rows,
+    # K2 at B 256 256), else 32 where 32 fits (K5 at B 256: 128 CTAs at 16
+    # rows, 64 at 32), else 16 (no measured instance holds K2's B 512)
     ("gru", False, 256, 512, BF16, _res(4, 16)),
-    ("lstm", True, 256, 256, BF16, _res(4, 16)),
+    ("lstm", True, 256, 256, BF16, _res(4, 32)),
     ("gru", False, 128, 1064, BF16, _res(2, 16)),
     ("lstm", True, 128, 800, BF16, _res(2, 16)),
     # 16 rows at the widths where 8 were not measured
@@ -55,11 +56,29 @@ STREAMED = tbg.Design("streamed", 0, 16)
     ("lstm", True, 1024, 3, BF16, STREAMED),
     ("gru", False, 256, 256, F32, tbg.Design("f32")),
     ("lstm", True, 256, 128, F32, tbg.Design("f32")),
-    # K3 and K4 stay on the streamed design whatever the shape
-    ("gru", True, 256, 128, BF16, STREAMED),
-    ("gru", True, 128, 128, BF16, STREAMED),
-    ("lstm", False, 256, 256, BF16, STREAMED),
-    ("lstm", False, 40, 4, BF16, STREAMED),
+    # K3 and K4 on the resident design too: K3 fine-tuning fonts-hard and
+    # fonts-small on 8 rows, K4 serving fonts-hard-lstm at B 256 on 32 rows
+    # (64 CTAs, one wave; 16 rows would take 128, two waves)
+    ("gru", True, 256, 128, BF16, _res(4, 8)),
+    ("gru", True, 128, 128, BF16, _res(2, 8)),
+    ("lstm", False, 256, 256, BF16, _res(4, 32)),
+    ("lstm", False, 40, 4, BF16, _res(1, 16)),
+    # K3 and K4 at other batches, K5 at the edges of the 16-row wave
+    ("gru", True, 256, 64, BF16, _res(4, 8)),
+    ("gru", True, 256, 256, BF16, _res(4, 16)),
+    ("gru", True, 256, 13, BF16, _res(4, 8)),
+    ("gru", True, 40, 4, BF16, _res(1, 16)),
+    ("lstm", False, 256, 128, BF16, _res(4, 16)),
+    ("lstm", False, 256, 13, BF16, _res(4, 8)),
+    ("lstm", False, 128, 256, BF16, _res(2, 8)),
+    ("lstm", False, 256, 480, BF16, _res(4, 32)),
+    ("lstm", False, 256, 481, BF16, _res(4, 16)),
+    ("lstm", True, 256, 240, BF16, _res(4, 16)),
+    ("lstm", True, 256, 241, BF16, _res(4, 32)),
+    # the streamed design above 4 x 64 units, f32 on the CUDA cores
+    ("gru", True, 1024, 128, BF16, STREAMED),
+    ("lstm", False, 1024, 256, BF16, STREAMED),
+    ("lstm", False, 256, 256, F32, tbg.Design("f32")),
 ])
 def test_design_for_shape(cell, stash, H, B, dtype, want):
     assert tbg.design_for(cell, stash, H, B, dtype) == want
@@ -70,9 +89,10 @@ def test_every_resident_design_fits_the_card(cell, stash):
     """For every H up to 256 and a range of batches: at most 4 CTAs of at
     most 64 units, an even number each, all units covered; the U slice
     (one 64-row M-tile per gate) and two h buffers fit the 227 KB of shared
-    memory a CTA may hold; 8 rows only at a measured width, while the grid
-    is one wave, and no wave above what the H100's 132 SMs of 228 KB of
-    shared memory could hold (1 KB of it reserved per CTA)."""
+    memory a CTA may hold; the rows the fewest whose grid fits the measured
+    capacity of their instance (one wave), 16 when none does; and no
+    capacity above what the H100's 132 SMs of 228 KB of shared memory
+    could hold (1 KB of it reserved per CTA)."""
     for H in range(1, 257):
         hp = -(-H // 16) * 16
         for B in (1, 3, 13, 64, 128, 200, 256, 1000):
@@ -81,14 +101,53 @@ def test_every_resident_design_fits_the_card(cell, stash):
             upc = hp // d.cluster
             assert 1 <= d.cluster <= 4 and upc * d.cluster == hp
             assert upc % 2 == 0 and upc <= tbg.RESIDENT_UNITS
+            assert d.rows in tbg.RESIDENT_ROWS
             smem = tbg.GATES[cell] * 64 * hp * 2 + 2 * d.rows * hp * 2
             assert smem <= 232448
-            if d.rows == 8:
-                wave = tbg.ROWS8_WAVE_CTAS[(cell, hp)]
-                assert -(-B // 8) * 2 * d.cluster <= wave
+            fits = [r for r in tbg.RESIDENT_ROWS if -(-B // r) * 2 * d.cluster
+                    <= tbg.WAVE_CTAS.get((cell, stash, hp, r), 0)]
+            if fits:
+                assert d.rows == fits[0]
+                wave = tbg.WAVE_CTAS[(cell, stash, hp, d.rows)]
+                assert -(-B // d.rows) * 2 * d.cluster <= wave
                 assert wave <= 132 * (233472 // (smem + 1024))
             else:
                 assert d.rows == 16
+
+
+def test_resident_ptxas_keys_every_instance_apart():
+    """chip_smoke.resident_ptxas on a canned ``nvcc -Xptxas -v`` report of
+    every resident instance (both cells, with and without the stash, 8, 16
+    and 32 rows) and a streamed one: one key per resident instance, named
+    by its kernel and rows, none colliding, each with its own numbers."""
+    import chip_smoke
+
+    lines, want = [], {}
+    instances = [(cell, stash, rows) for cell in ("gru", "lstm")
+                 for stash in (False, True) for rows in tbg.RESIDENT_ROWS]
+    for i, (cell, stash, rows) in enumerate(instances):
+        c = {"gru": "7GruCell", "lstm": "8LstmCell"}[cell]
+        name = (f"_ZN12_GLOBAL__N_121birnn_resident_kernelINS_{c}ELi{rows}"
+                f"ELb{int(stash)}EEEvPK13__nv_bfloat16S4_PKfPS2_Pfiiii")
+        lines += [f"ptxas info    : Compiling entry function '{name}' for "
+                  f"'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  f"    {i} bytes stack frame, {2 * i} bytes spill stores, "
+                  f"{3 * i} bytes spill loads",
+                  f"ptxas info    : Used {100 + i} registers, used 1 "
+                  f"barriers, 384 bytes cmem[0]"]
+        key = f"bi{cell}{'_train' if stash else ''} R{rows}"
+        want[key] = dict(registers=100 + i, stack_bytes=i,
+                         spill_store_bytes=2 * i, spill_load_bytes=3 * i)
+    streamed = ("_ZN12_GLOBAL__N_116birnn_mma_kernelINS_7GruCellELi256ELi6E"
+                "Lb0EEEvPK13__nv_bfloat16S4_PKfPS2_Pfiii")
+    lines += [f"ptxas info    : Compiling entry function '{streamed}' for "
+              f"'sm_90a'",
+              "ptxas info    : Used 64 registers, 384 bytes cmem[0]"]
+    got = chip_smoke.resident_ptxas("\n".join(lines))
+    assert len(want) == len(instances) == 12
+    assert got == want
+    assert chip_smoke.ptxas_key("lstm", True, 32) == "bilstm_train R32"
 
 
 def test_launch_on_cpu_raises_and_wrappers_take_plain_versions():

@@ -2,15 +2,17 @@
 
     python3 tools/time_rnn_designs.py
 
-For K2 (the GRU, serving) and K5 (the LSTM with its stash, training) at
-H 256 and H 128, T 64, on seeded random inputs: the resident design at 8
-and at 16 batch rows a cluster, and the streamed design, at batches where
-8 rows fit one wave of the card's clusters and where they do not. Each
-resident instance's line gives the clusters the card holds at once
-(``cudaOccupancyMaxActiveClusters``) and its shared memory, from which
-``kernels/bigru.py::ROWS8_WAVE_CTAS`` is read. Each time is the mean of 20
-back-to-back launches between two CUDA events, after 3 warm-up launches,
-in two rounds; every design's hs is held to the streamed design's.
+For each of K2 (the GRU, serving), K3 (the GRU with its stash, training),
+K4 (the LSTM, serving) and K5 (the LSTM with its stash, training) at H 256
+and H 128, T 64, on seeded random inputs: the resident design at 8, 16 and
+32 batch rows a cluster, and the streamed design, at batches where the
+fewer rows fit one wave of the card's clusters and where they do not. Each
+resident instance's line gives the CTAs of its grid and the clusters the
+card holds at once (``cudaOccupancyMaxActiveClusters``) with its shared
+memory, from which ``kernels/bigru.py::WAVE_CTAS`` is read. Each time is
+the mean of 20 back-to-back launches between two CUDA events, after 3
+warm-up launches, in two rounds; every resident design's hs (and stash) is
+held to the streamed design's (``max_abs_diff``, 0 when bit for bit equal).
 Prints the card's ``name, power.limit``, then one JSON line per
 measurement. Needs a CUDA card; builds ``csrc/bigru.cu`` at first use.
 """
@@ -25,10 +27,18 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-CASES = (("gru", 256, 256), ("gru", 256, 240), ("gru", 256, 112),
-         ("lstm", 256, 128), ("lstm", 256, 112), ("lstm", 256, 64),
-         ("gru", 128, 256), ("gru", 128, 64), ("gru", 128, 16),
-         ("lstm", 128, 128), ("lstm", 128, 64), ("lstm", 128, 16))
+# (cell, stash, H, B): K2, K5, K3, K4
+CASES = (("gru", False, 256, 256), ("gru", False, 256, 240),
+         ("gru", False, 256, 112), ("gru", False, 128, 256),
+         ("gru", False, 128, 64), ("gru", False, 128, 16),
+         ("lstm", True, 256, 256), ("lstm", True, 256, 128),
+         ("lstm", True, 256, 112), ("lstm", True, 256, 64),
+         ("lstm", True, 128, 128), ("lstm", True, 128, 64),
+         ("lstm", True, 128, 16),
+         ("gru", True, 256, 128), ("gru", True, 256, 64),
+         ("gru", True, 128, 128),
+         ("lstm", False, 256, 256), ("lstm", False, 256, 128),
+         ("lstm", False, 128, 128))
 
 
 def event_ms(fn, reps: int = 20) -> float:
@@ -61,7 +71,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     T = 64
-    for cell, H, B in CASES:
+    for cell, stash, H, B in CASES:
         rng = np.random.default_rng(1)
         n = bg.GATES[cell]
         xw = torch.from_numpy(rng.normal(size=(T, 2, B, n * H))
@@ -70,26 +80,30 @@ def main() -> int:
                              .astype(np.float32)).bfloat16().cuda()
         rb = torch.zeros(2, n * H, device="cuda") if cell == "gru" else None
         uk = bg.kernel_weights(u)
-        stash = cell == "lstm"
         chosen = bg.design_for(cell, stash, H, B, torch.bfloat16)
         streamed = bg.Design("streamed", 0, 16)
-        designs = [chosen._replace(rows=rows) for rows in (8, 16)]
+        designs = [chosen._replace(rows=rows) for rows in bg.RESIDENT_ROWS]
         designs.append(streamed)
-        want = bg._launch(cell, xw, u, rb, uk, stash, streamed)[0].float()
+        want = bg._launch(cell, xw, u, rb, uk, stash, streamed)
         for rnd in range(2):
             for d in designs:
                 def run(d=d):
-                    return bg._launch(cell, xw, u, rb, uk, stash, d)[0]
+                    return bg._launch(cell, xw, u, rb, uk, stash, d)
 
-                out = dict(cell=cell, B=B, H=H, T=T, design=d._asdict(),
-                           chosen=d == chosen, ms=event_ms(run), round=rnd)
+                out = dict(cell=cell, stash=stash, B=B, H=H, T=T,
+                           design=d._asdict(), chosen=d == chosen,
+                           ms=event_ms(run), round=rnd)
                 if d.name == "resident":
-                    out["max_abs_diff"] = float(
-                        (run().float() - want).abs().max())
+                    out["max_abs_diff"] = max(
+                        float((a - b).float().abs().max())
+                        for a, b in zip(run(), want) if a is not None)
                     out["ctas"] = -(-B // d.rows) * 2 * d.cluster
-                    res = resident_resources(cell, H, d)
+                    res = resident_resources(cell, stash, H, d)
                     out["smem_bytes"] = res["smem_bytes"]
                     out["max_active_clusters"] = res["max_active_clusters"]
+                    out["wave_ctas"] = res["max_active_clusters"] * d.cluster
+                    out["registers"] = res["runtime_registers"]
+                    out["local_bytes"] = res["local_bytes"]
                 print(json.dumps(out), flush=True)
     return 0
 
