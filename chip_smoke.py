@@ -9,7 +9,8 @@ exits non-zero. It needs one CUDA card and refuses to run without one.
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    then the nvcc build of every kernel (``crnn_ocr_torch/kernels/csrc``),
    timed, with ptxas's register and spill report (per instance of the
-   recurrences' resident design, ``resident_ptxas``).
+   recurrences' resident design, ``resident_ptxas``, and of K9's and K10's
+   tiled kernel, ``stem_bwd_ptxas``).
 2. Each kernel against its plain PyTorch version on the card, at the
    main-path shapes and on the main path's own tensors (``fonts-hard``,
    256 lines, bucket 256), with TF32 off: max error against the stated
@@ -91,7 +92,10 @@ B 128, bucket 128, on its 64 golden lines repeated):
     own image, weights and pooled gradient, at ``fonts-small``'s shape and
     at ``fonts-hard``'s (bucket 256), bf16 and f32, TF32 off; K1's time in
     the training forward; cuDNN's conv + ``torch.var_mean`` (K8) and the
-    plain stem's autograd backward (K9 + K10 as a pair) as yardsticks.
+    plain stem's autograd backward (K9 + K10 as a pair) as yardsticks. K9's
+    and K10's rows add their ``design`` (``fused_stem_train.bwd_plan``:
+    band rows, column tiles, channels a thread, tiles, CTAs, shared-memory
+    bytes) and their instance's ``ptxas`` report.
 16. One f32 ``fonts-small`` train step: kernels against plain versions,
     and against the JAX step (``train_goldens.npz``, ``small/``), which ran
     the JAX package's fused train stem.
@@ -146,7 +150,8 @@ device time. K8-K10 compute sums over the batch: their rows add
 ``max_err_over_scale``, the error over the sum of the terms' magnitudes,
 and K9's and K10's ``library_ms`` is null (no single PyTorch call computes
 either), their ``pair_library_ms`` the plain stem's autograd backward,
-which computes both. The recurrences' rows add ``design``, ``cluster`` and
+which computes both; K9's and K10's rows add their ``design`` and
+``ptxas`` (phase 15). The recurrences' rows add ``design``, ``cluster`` and
 ``rows`` as the counted run launched them, ``design_launches`` (that run's
 launches on that design) and ``ms_per_step`` (``ms`` over the T steps),
 ``streamed_ms`` (the streamed design's device time on the same inputs),
@@ -158,6 +163,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -417,23 +423,20 @@ def golden_lines(g, key: str):
 
 
 RESIDENT_PTXAS: dict = {}  # phase 1's report per resident instance
+STEM_BWD_PTXAS: dict = {}  # and per K9/K10 instance
 
 
-def resident_ptxas(report: str) -> dict:
-    """ptxas's registers, stack, spills and static shared memory per
-    instance of ``birnn_resident_kernel``, keyed by its wrapper's kernel
-    and rows (:func:`ptxas_key`), from ``nvcc -Xptxas -v``'s report of
-    ``bigru.cu``."""
+def ptxas_instances(report: str, key_of) -> dict:
+    """ptxas's registers, stack, spills and static shared memory per kernel
+    instance of ``nvcc -Xptxas -v``'s report, keyed by ``key_of(mangled
+    entry name)`` (entries it maps to None are left out)."""
     import re
 
     out, cur = {}, None
     for ln in report.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", ln)
         if entry:
-            k = re.search(r"birnn_resident_kernelI\S*?(Gru|Lstm)CellELi(\d+)"
-                          r"ELb([01])E", entry.group(1))
-            cur = (ptxas_key(k.group(1).lower(), k.group(3) == "1",
-                             int(k.group(2))) if k else None)
+            cur = key_of(entry.group(1))
             if cur:
                 out[cur] = {}
             continue
@@ -448,6 +451,37 @@ def resident_ptxas(report: str) -> dict:
             if m:
                 out[cur][key] = int(m.group(1))
     return out
+
+
+def resident_ptxas(report: str) -> dict:
+    """ptxas's report per instance of ``birnn_resident_kernel``, keyed by
+    its wrapper's kernel and rows (:func:`ptxas_key`), from ``bigru.cu``'s
+    build."""
+    import re
+
+    def key_of(name):
+        k = re.search(r"birnn_resident_kernelI\S*?(Gru|Lstm)CellELi(\d+)"
+                      r"ELb([01])E", name)
+        return (ptxas_key(k.group(1).lower(), k.group(3) == "1",
+                          int(k.group(2))) if k else None)
+
+    return ptxas_instances(report, key_of)
+
+
+def stem_bwd_ptxas(report: str) -> dict:
+    """ptxas's report per instance of ``bwd_tile_kernel`` (K9 and K10, bf16
+    and f32), keyed ``"stem_bwd_partials bfloat16"`` and so on, from
+    ``fused_stem.cu``'s build."""
+    import re
+
+    def key_of(name):
+        k = re.search(r"bwd_tile_kernelI(13__nv_bfloat16|f)Lb([01])E", name)
+        if not k:
+            return None
+        kernel = "stem_bwd_final" if k.group(2) == "1" else "stem_bwd_partials"
+        return f"{kernel} {'float32' if k.group(1) == 'f' else 'bfloat16'}"
+
+    return ptxas_instances(report, key_of)
 
 
 def ptxas_key(cell: str, stash: bool, rows: int) -> str:
@@ -473,8 +507,13 @@ def phase_build(card: str):
     }
     RESIDENT_PTXAS.update(resident_ptxas(_build.ptxas_reports.get("bigru",
                                                                   "")))
+    STEM_BWD_PTXAS.update(stem_bwd_ptxas(_build.ptxas_reports.get(
+        "fused_stem", "")))
+    require("fused_stem" not in built or len(STEM_BWD_PTXAS) == 4,
+            f"ptxas reported {sorted(STEM_BWD_PTXAS)} of K9's and K10's 4 "
+            f"instances")
     emit("build", seconds=round(secs, 3), built=built, ptxas=ptxas,
-         resident_ptxas=RESIDENT_PTXAS)
+         resident_ptxas=RESIDENT_PTXAS, stem_bwd_ptxas=STEM_BWD_PTXAS)
 
 
 def resident_resources(cell: str, stash: bool, H: int, design) -> dict:
@@ -1672,6 +1711,11 @@ def check_stem_train(state, batch, dtype_name: str, path: str):
         else:
             res.update(pair, library="none computes it alone; pair_library "
                                      "is K9 + K10's yardstick")
+            res["design"] = dict(
+                dataclasses.asdict(fst.bwd_design(img, C,
+                                                  name == "stem_bwd_final")),
+                channels_per_thread=fst.BWD_CPT)
+            res["ptxas"] = STEM_BWD_PTXAS.get(f"{name} {dtype_name}")
         out.append(res)
         emit("kernel_check", **res)
         require(ok, f"{name} {dtype_name} ({path}): max error "
@@ -2060,7 +2104,7 @@ def main() -> int:
                 o["max_abs_err"] for o in checks
                 if o["kernel"] == name and o["dtype"] == "float32"),
             **{k: c[k] for k in ("max_err_over_scale", "pair_library_ms",
-                                 "pair_library_device_ms",
+                                 "pair_library_device_ms", "design", "ptxas",
                                  "k4_same_inputs_device_ms", "streamed_ms",
                                  "streamed_equal", "resources")
                if k in c},

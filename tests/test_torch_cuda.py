@@ -518,15 +518,24 @@ def test_grid_sample_autograd_on_card_matches_cpu(card):
                                rtol=1e-4, atol=1e-4)
 
 
-def _stem_train_case(seed, B, H, W, C, dtype):
+def _stem_train_case(seed, B, H, W, C, dtype, ties=False):
     """An image, weights and a pooled gradient in ``dtype``, and the
     per-channel vectors of K9 and K10 as the autograd Function derives
-    them."""
+    them. With ``ties`` the image takes values k/8 and the weights j/16, so
+    every z is exact in f32 whatever the sum order (and ties between a
+    window's positions are exact in every pass), and the right quarter of
+    each line is white (1.0), as a bucketed line is padded."""
     rng = np.random.default_rng(seed)
     dt = DTYPES[dtype]
     img = torch.from_numpy(rng.normal(size=(B, H, W, 1)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(3, 3, 1, C)) * 0.5)
                          .astype(np.float32))
+    if ties:
+        img = torch.from_numpy(rng.integers(0, 9, size=(B, H, W, 1))
+                               .astype(np.float32) / 8)
+        img[:, :, W - W // 4:] = 1.0
+        w = torch.from_numpy(rng.integers(-16, 17, size=(3, 3, 1, C))
+                             .astype(np.float32) / 16)
     g = torch.from_numpy(rng.normal(size=(B, H // 2, W // 2, C))
                          .astype(np.float32))
     gamma = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
@@ -545,13 +554,22 @@ def _stem_train_case(seed, B, H, W, C, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(128, 32, 128, 64), (4, 32, 48, 8),
                                    (3, 6, 10, 12), (2, 32, 66, 64),
-                                   (1, 4, 4, 1000)])
+                                   (1, 4, 4, 1000), (2, 10, 520, 20),
+                                   (3, 6, 14, 18), (16, 32, 256, 64, "ties"),
+                                   (5, 26, 262, 70, "ties")])
 def test_stem_train_kernels_match_plain(card, dtype, shape):
-    """K8, K9 and K10 against their plain versions (fonts-small's training
-    shape, narrow and odd widths, one block of 1000 channels)."""
+    """K8, K9 and K10 against their plain versions: fonts-small's training
+    shape, narrow and odd widths, 1000 channels (16 channel chunks of K9's
+    and K10's tiles); pooled rows not a multiple of the tiles' 8 (H 10, 6,
+    14, 26: 13 pooled rows in tiles of 8 and 5), pooled columns over the
+    column cap of 128 (W 520 and 262: three and two column tiles), channels
+    not a multiple of the 64-channel chunk (C 20, 70) or of a thread's 4
+    (C 18); and exact ties with white padding (``_stem_train_case``'s
+    ``ties``)."""
     import chip_smoke
 
-    img, w, g, v9, v10 = _stem_train_case(13, *shape, dtype)
+    ties = shape[-1] == "ties"
+    img, w, g, v9, v10 = _stem_train_case(13, *shape[:4], dtype, ties)
 
     def on(*ts):
         return [t.to(card) for t in ts]
@@ -572,6 +590,13 @@ def test_stem_train_kernels_match_plain(card, dtype, shape):
              tfst.stem_bwd_final(*on(img, w, g, *v10))]
     # no atomics: a second run gives the same bits
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # K9 and K10 read the weights through their strides: the model's HWIO
+    # view of its OIHW weights gives the same bits as a contiguous copy
+    w_view = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    assert not w_view.is_contiguous()
+    assert torch.equal(tfst.stem_bwd_partials(*on(img, w_view, g, *v9)),
+                       got[1])
+    assert torch.equal(tfst.stem_bwd_final(*on(img, w_view, g, *v10)), got[2])
     scales = chip_smoke.stem_train_scales(img, w, g, *v10)
     for a, b, sc in zip(got, want, scales):
         assert a.shape == b.shape and a.dtype == torch.float32
