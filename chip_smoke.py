@@ -9,8 +9,9 @@ exits non-zero. It needs one CUDA card and refuses to run without one.
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    then the nvcc build of every kernel (``crnn_ocr_torch/kernels/csrc``),
    timed, with ptxas's register and spill report (per instance of the
-   recurrences' resident design, ``resident_ptxas``, and of K9's and K10's
-   tiled kernel, ``stem_bwd_ptxas``).
+   recurrences' resident design, ``resident_ptxas``, of K9's and K10's
+   tiled kernel, ``stem_bwd_ptxas``, and of K1's and K8's kernels,
+   ``stem_fwd_ptxas``).
 2. Each kernel against its plain PyTorch version on the card, at the
    main-path shapes and on the main path's own tensors (``fonts-hard``,
    256 lines, bucket 256), with TF32 off: max error against the stated
@@ -20,7 +21,10 @@ exits non-zero. It needs one CUDA card and refuses to run without one.
    rows) and, on the same inputs, the streamed design's time (the design
    of bf16 shapes above 256 units, a yardstick held to the plain version
    and compared with the path's design bit for bit), with the instance's
-   shared memory, registers and the clusters the card holds at once.
+   shared memory, registers and the clusters the card holds at once. K1
+   reports its design (``"mma"`` in bf16 with its plan,
+   ``_stem_tiles.stem_plan``; ``"conv9"`` in f32) and its instance's
+   ptxas report.
 3. Golden texts: ``load_pretrained`` on the card against the JAX
    predictor's texts and scores in ``crnn_ocr_torch/testdata/
    greedy_goldens.npz`` (written by ``tools/gen_torch_goldens.py``).
@@ -28,8 +32,9 @@ exits non-zero. It needs one CUDA card and refuses to run without one.
    bucket 256, bf16, from uint8 images to texts through
    ``Predictor.predict``. The kernels' launch counts, and the recurrences'
    launches per design, are set to 0 just before its timed calls and read
-   just after: each call must launch K1 once and K2 twice (one per BiGRU
-   layer), every K2 on the resident design. Throughput, then a per-stage
+   just after: each call must launch K1 once (on the ``"mma"`` design) and
+   K2 twice (one per BiGRU layer), every K2 on the resident design.
+   Throughput, then a per-stage
    breakdown through the Predictor's own steps and a profiler trace.
 5. Per kernel: its launches in phase 4's timed calls, error, times and
    bound.
@@ -50,7 +55,8 @@ lines repeated, labels padded to 32):
    ``fit``'s train step (dropout 0.2, learning rate 1e-4) with the launch
    counts set to 0 just before and read just after: each step must launch
    K3 twice (on the resident design), K6 and K7 once, the training stem's
-   K8, K1, K9 and K10 once, K2 never; the mean loss of the last 5 steps
+   K8, K1 (on the ``"conv9"`` design), K9 and K10 once, K2 never; the mean
+   loss of the last 5 steps
    must be below the first
    step's. Then lines/s over the timed steps' whole time, the p50 step, a
    per-stage breakdown (the stem's forward a stage of its own, its
@@ -72,7 +78,8 @@ bucket 256; and ``fonts-stn``), on the 64 lines of each model's own task in
     (bf16) at most 1 line in 64 off the JAX bf16 golden, and the kernel
     run's texts equal the plain versions'.
 11. Serving ``fonts-warp-stn`` counted, as phase 4: each ``predict`` must
-    launch K11 once, K1 once and K2 twice; stages split into the STN's
+    launch K11 once, K1 once (on ``"mma"``) and K2 twice; stages split
+    into the STN's
     localization, the sampler and the rest.
 12. One f32 ``fonts-warp-stn`` train step: kernels against plain versions,
     and against the JAX step (``stn_goldens.npz``, ``train/``).
@@ -90,18 +97,20 @@ B 128, bucket 128, on its 64 golden lines repeated):
 15. K8 (batch statistics), K9 and K10 (the stem backward's partial sums and
     weight gradient) against their plain versions on the training path's
     own image, weights and pooled gradient, at ``fonts-small``'s shape and
-    at ``fonts-hard``'s (bucket 256), bf16 and f32, TF32 off; K1's time in
-    the training forward; cuDNN's conv + ``torch.var_mean`` (K8) and the
-    plain stem's autograd backward (K9 + K10 as a pair) as yardsticks. K9's
-    and K10's rows add their ``design`` (``fused_stem_train.bwd_plan``:
-    band rows, column tiles, channels a thread, tiles, CTAs, shared-memory
-    bytes) and their instance's ``ptxas`` report.
+    at ``fonts-hard``'s (bucket 256), bf16 and f32, TF32 off; K1 in the
+    training forward (on ``"conv9"``, fed the batch statistics) against
+    its plain version at phase 2's tolerance, and its time; cuDNN's conv +
+    ``torch.var_mean`` (K8) and the plain stem's autograd backward (K9 +
+    K10 as a pair) as yardsticks. K8's, K9's and K10's rows add their
+    ``design`` (``_stem_tiles.stem_plan`` and ``fused_stem_train.
+    bwd_plan``: band rows, column tiles, tiles, CTAs, shared-memory bytes)
+    and their instance's ``ptxas`` report.
 16. One f32 ``fonts-small`` train step: kernels against plain versions,
     and against the JAX step (``train_goldens.npz``, ``small/``), which ran
     the JAX package's fused train stem.
 17. Fine-tuning ``fonts-small`` counted, as phase 8 (bf16, dropout 0.2):
-    each step must launch K8, K9, K10 and K1 once, K3 twice, K6 and K7
-    once, K2 never; the loss must fall.
+    each step must launch K8, K9, K10 and K1 (on ``"conv9"``) once, K3
+    twice, K6 and K7 once, K2 never; the loss must fall.
 
 Slice 5, the BiLSTM (``fonts-hard-lstm``: ``fonts-hard`` with its two BiGRU
 layers replaced by seeded BiLSTM layers, ``crnn_ocr_torch/infer/
@@ -122,7 +131,8 @@ golden lines:
     of 8 lines against JAX's (the texts are all empty: the seeded BiLSTM
     leaves ``fonts-hard``'s trained head on blank).
 20. Serving ``fonts-hard-lstm`` counted, as phase 4: each ``predict`` must
-    launch K1 once and K4 twice (on the resident design), K2 never.
+    launch K1 once (on ``"mma"``) and K4 twice (on the resident design), K2
+    never.
 21. One f32 ``fonts-hard-lstm`` train step: kernels against plain versions
     (the stem's kernels kept in both steps: they are held to their plain
     versions in phases 15-17, and their ulp differences flip block1's
@@ -130,12 +140,15 @@ golden lines:
     against the all-plain one is reported beside it), and against the JAX
     step (``lstm_goldens.npz``, ``train/``).
 22. Fine-tuning ``fonts-hard-lstm`` counted, as phase 8: each step must
-    launch K5 twice (on the resident design), K6 and K7 once, K8, K1, K9
-    and K10 once, K3 and K4 never; the loss must fall.
+    launch K5 twice (on the resident design), K6 and K7 once, K8, K1 (on
+    ``"conv9"``), K9 and K10 once, K3 and K4 never; the loss must fall.
 
 Every counted run (phases 4, 8, 11, 13, 17, 20, 22) requires each
 recurrence launch to have run on the design ``PATH_DESIGN`` names for its
-kernel, one design (cluster and rows) for all of them.
+kernel, one design (cluster and rows) for all of them, and each K1 launch
+on the design ``STEM_PATH_DESIGN`` names for the path: ``"mma"`` serving
+(bf16, the conv on the tensor cores), ``"conv9"`` in the training forward
+(K9 and K10 recompute its z bit for bit).
 
 The last lines are the card's ``name, power.limit``, the kernels' JSON
 line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's, K11
@@ -150,8 +163,10 @@ device time. K8-K10 compute sums over the batch: their rows add
 ``max_err_over_scale``, the error over the sum of the terms' magnitudes,
 and K9's and K10's ``library_ms`` is null (no single PyTorch call computes
 either), their ``pair_library_ms`` the plain stem's autograd backward,
-which computes both; K9's and K10's rows add their ``design`` and
-``ptxas`` (phase 15). The recurrences' rows add ``design``, ``cluster`` and
+which computes both; K8's, K9's and K10's rows add their ``design`` and
+``ptxas`` (phase 15), K1's its ``design`` and ``ptxas`` (phase 2) and
+``design_launches`` (phase 4's launches by design). The recurrences' rows
+add ``design``, ``cluster`` and
 ``rows`` as the counted run launched them, ``design_launches`` (that run's
 launches on that design) and ``ms_per_step`` (``ms`` over the T steps),
 ``streamed_ms`` (the streamed design's device time on the same inputs),
@@ -325,7 +340,9 @@ def plain_kernels(stem: bool = True):
             return bigru.bilstm_train_plain(xw, u)
 
     stem_sites = [(crnn_mod, "fused_stem_serve", fused_stem.fused_stem_plain),
-                  (fst, "fused_stem_serve", fused_stem.fused_stem_plain),
+                  (fused_stem, "_forward",
+                   lambda img, w, s, b, design: fused_stem.fused_stem_plain(
+                       img, w, s, b)),
                   (fst, "stem_stats", fst.stem_stats_plain),
                   (fst, "stem_bwd_partials", fst.stem_bwd_partials_plain),
                   (fst, "stem_bwd_final", fst.stem_bwd_final_plain)]
@@ -356,7 +373,8 @@ def reset_launches() -> None:
     from crnn_ocr_torch.kernels import fused_stem_train as fst
     from crnn_ocr_torch.kernels import grid_sample as gs
 
-    fused_stem.launches = bigru.launches = bigru.train_launches = 0
+    bigru.launches = bigru.train_launches = 0
+    fused_stem.design_launches.clear()
     bigru.lstm_launches = bigru.lstm_train_launches = 0
     bigru.design_launches.clear()
     ctc_loss.alpha_launches = ctc_loss.beta_launches = 0
@@ -417,6 +435,25 @@ def design_fields(design, n: int) -> dict:
                 design_launches=n)
 
 
+# the design K1 runs on in the counted runs: bf16 serving on the tensor
+# cores, the training forward on conv9 (K9 and K10 recompute its z)
+STEM_PATH_DESIGN = {"serve": "mma", "train": "conv9"}
+
+
+def read_stem_design(counts: dict, path: str, what: str) -> dict:
+    """The counted run's K1 launches per design (``fused_stem.
+    design_launches``, set to 0 by ``reset_launches``): every one on the
+    design ``STEM_PATH_DESIGN`` names for the path. Returns them."""
+    from crnn_ocr_torch.kernels import fused_stem
+
+    ran = {d: n for d, n in fused_stem.design_launches.items() if n}
+    n = counts["fused_stem"]
+    want = {STEM_PATH_DESIGN[path]: n} if n else {}
+    require(ran == want, f"{what}: K1 launched {ran} by design; expected "
+                         f"{want}")
+    return ran
+
+
 def golden_lines(g, key: str):
     c, hs, ws = g[f"{key}_canvas"], g[f"{key}_heights"], g[f"{key}_widths"]
     return [c[i, :h, :w] for i, (h, w) in enumerate(zip(hs, ws))]
@@ -424,6 +461,7 @@ def golden_lines(g, key: str):
 
 RESIDENT_PTXAS: dict = {}  # phase 1's report per resident instance
 STEM_BWD_PTXAS: dict = {}  # and per K9/K10 instance
+STEM_FWD_PTXAS: dict = {}  # and per K1/K8 instance
 
 
 def ptxas_instances(report: str, key_of) -> dict:
@@ -484,6 +522,26 @@ def stem_bwd_ptxas(report: str) -> dict:
     return ptxas_instances(report, key_of)
 
 
+def stem_fwd_ptxas(report: str) -> dict:
+    """ptxas's report per instance of K1's and K8's kernels, keyed by
+    wrapper, dtype and, for K1, design: ``"fused_stem bfloat16 mma"``
+    (``stem_mma_kernel``'s serving instance), ``"fused_stem float32
+    conv9"`` (``stem_kernel``), ``"stem_stats bfloat16"`` (K8), and so on,
+    from ``fused_stem.cu``'s build."""
+    import re
+
+    def key_of(name):
+        dt = lambda k: "float32" if k == "f" else "bfloat16"  # noqa: E731
+        k = re.search(r"stem_mma_kernelI(13__nv_bfloat16|f)Lb([01])E", name)
+        if k:
+            return (f"stem_stats {dt(k.group(1))}" if k.group(2) == "1"
+                    else f"fused_stem {dt(k.group(1))} mma")
+        k = re.search(r"stem_kernelI(13__nv_bfloat16|f)E", name)
+        return f"fused_stem {dt(k.group(1))} conv9" if k else None
+
+    return ptxas_instances(report, key_of)
+
+
 def ptxas_key(cell: str, stash: bool, rows: int) -> str:
     """``"bigru R8"``, ``"bilstm_train R32"``: the kernel a resident
     instance serves (K2-K5 by cell and stash) and its rows."""
@@ -509,11 +567,17 @@ def phase_build(card: str):
                                                                   "")))
     STEM_BWD_PTXAS.update(stem_bwd_ptxas(_build.ptxas_reports.get(
         "fused_stem", "")))
+    STEM_FWD_PTXAS.update(stem_fwd_ptxas(_build.ptxas_reports.get(
+        "fused_stem", "")))
     require("fused_stem" not in built or len(STEM_BWD_PTXAS) == 4,
             f"ptxas reported {sorted(STEM_BWD_PTXAS)} of K9's and K10's 4 "
             f"instances")
+    require("fused_stem" not in built or len(STEM_FWD_PTXAS) == 5,
+            f"ptxas reported {sorted(STEM_FWD_PTXAS)} of K1's and K8's 5 "
+            f"instances")
     emit("build", seconds=round(secs, 3), built=built, ptxas=ptxas,
-         resident_ptxas=RESIDENT_PTXAS, stem_bwd_ptxas=STEM_BWD_PTXAS)
+         resident_ptxas=RESIDENT_PTXAS, stem_bwd_ptxas=STEM_BWD_PTXAS,
+         stem_fwd_ptxas=STEM_FWD_PTXAS)
 
 
 def resident_resources(cell: str, stash: bool, H: int, design) -> dict:
@@ -578,6 +642,30 @@ def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
     return out
 
 
+def stem_design_fields(img, C: int, design: str) -> dict:
+    """K1's design and, for ``"mma"`` and K8's ``"stats"``, its launch's
+    plan (``_stem_tiles.stem_plan``)."""
+    from crnn_ocr_torch.kernels import _stem_tiles as tiles
+
+    if design == "conv9":
+        return dict(name=design)
+    return dict(name=design, **dataclasses.asdict(
+        tiles.stem_design(img, C, design == "stats")))
+
+
+def stem_tolerance(want, bf16: bool):
+    """K1's tolerance against its plain version's output ``want`` (f32):
+    (per-element bound, its text)."""
+    import torch
+
+    if bf16:
+        # one bf16 ulp of the output (ulp(x) <= |x| * 2^-7), plus 1e-6 for
+        # values that the f32 sums' order puts on either side of the ReLU
+        return (want.abs() * 2.0 ** -7 + 1e-6,
+                "1 bf16 ulp of the output (+1e-6)")
+    return torch.full_like(want, 1e-5), "1e-5 abs"
+
+
 def check_stem(model, x_img, dtype_name: str):
     """K1 on the main path's stem input and the model's stem weights."""
     import torch
@@ -590,19 +678,16 @@ def check_stem(model, x_img, dtype_name: str):
     scale, bias = fs.fold_bn(bn.weight, bn.bias, bn.running_mean,
                              bn.running_var, 1e-3)
     w = model.stem_conv.weight.permute(2, 3, 1, 0).contiguous()
+    design = "mma" if bf16 else "conv9"
+    before = dict(fs.design_launches)
     got = fs.fused_stem_serve(img, w, scale, bias)
     want = fs.fused_stem_plain(img, w, scale, bias)
     torch.cuda.synchronize()
+    require(fs.design_launches - collections.Counter(before) == {design: 1},
+            f"fused_stem {dtype_name}: not launched on the {design} design")
     g, p = got.float(), want.float()
     err = (g - p).abs()
-    if bf16:
-        # one bf16 ulp of the output (ulp(x) <= |x| * 2^-7), plus 1e-6 for
-        # values that the f32 sums' order puts on either side of the ReLU
-        tol = p.abs() * 2.0 ** -7 + 1e-6
-        tol_text = "1 bf16 ulp of the output (+1e-6)"
-    else:
-        tol = torch.full_like(p, 1e-5)
-        tol_text = "1e-5 abs"
+    tol, tol_text = stem_tolerance(p, bf16)
     ok = bool((err <= tol).all())
     B, H, W, _ = img.shape
     C = w.shape[-1]
@@ -627,6 +712,8 @@ def check_stem(model, x_img, dtype_name: str):
         library_ms=time_ms(library), library_device_ms=device_ms(library),
         library="cudnn conv2d + affine + relu + max_pool2d",
         bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
+        design=stem_design_fields(img, C, design),
+        ptxas=STEM_FWD_PTXAS.get(f"fused_stem {dtype_name} {design}"),
     )
     emit("kernel_check", **res)
     require(ok, f"fused_stem {dtype_name}: max error {res['max_abs_err']} "
@@ -769,7 +856,7 @@ def phase_throughput(card: str, name: str, lines, want: dict):
     Returns the counts and, under ``"design"``, ``read_design``'s."""
     import torch
     from crnn_ocr_torch import load_pretrained
-    from crnn_ocr_torch.kernels import bigru
+    from crnn_ocr_torch.kernels import bigru, fused_stem
 
     reps = 20
     pred = load_pretrained(name, device="cuda")
@@ -784,10 +871,13 @@ def phase_throughput(card: str, name: str, lines, want: dict):
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
     emit("launches", model=name, predict_calls=reps, **counts,
-         designs=[[*d, n] for d, n in bigru.design_launches.items()])
+         designs=[[*d, n] for d, n in bigru.design_launches.items()],
+         stem_designs=dict(fused_stem.design_launches))
     require_launches(counts, {k: v * reps for k, v in want.items()},
                      f"{name}: {reps} predict calls")
     design = read_design(counts, f"{name}: {reps} predict calls")
+    stem_design = read_stem_design(counts, "serve",
+                                   f"{name}: {reps} predict calls")
     require(len(out) == BATCH and all(isinstance(o.text, str) for o in out),
             "throughput run returned malformed predictions")
 
@@ -831,7 +921,7 @@ def phase_throughput(card: str, name: str, lines, want: dict):
                card=card)
     emit("throughput", **res)
     emit("trace", model=name, **trace_predict(pred, lines))
-    return {**counts, "design": design}
+    return {**counts, "design": design, "stem_design": stem_design}
 
 
 def stn_stages(m, x, clock, t):
@@ -1208,7 +1298,7 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     ``read_design``'s."""
     import torch
     from crnn_ocr_torch.data.pipeline import produce_batch
-    from crnn_ocr_torch.kernels import bigru
+    from crnn_ocr_torch.kernels import bigru, fused_stem
     from crnn_ocr_torch.train import loop as loop_lib
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
@@ -1236,10 +1326,13 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
     emit("launches", model=name, train_steps=TRAIN_STEPS, **counts,
-         designs=[[*d, n] for d, n in bigru.design_launches.items()])
+         designs=[[*d, n] for d, n in bigru.design_launches.items()],
+         stem_designs=dict(fused_stem.design_launches))
     require_launches(counts, {k: v * TRAIN_STEPS for k, v in want.items()},
                      f"{name}: {TRAIN_STEPS} train steps")
     design = read_design(counts, f"{name}: {TRAIN_STEPS} train steps")
+    stem_design = read_stem_design(counts, "train",
+                                   f"{name}: {TRAIN_STEPS} train steps")
     loss_curve = [float(x) for x in losses]
     first, last5 = loss_curve[0], statistics.mean(loss_curve[-5:])
     require(all(map(lambda v: v == v, loss_curve)), "a train loss is NaN")
@@ -1311,7 +1404,7 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
                            iter(batches[:1]), codec, 1)
     emit("fit", steps=state.step, eval=ev)
     require(0.0 <= ev["cer"] <= 1.0, f"fit's evaluation is malformed: {ev}")
-    return {**counts, "design": design}
+    return {**counts, "design": design, "stem_design": stem_design}
 
 
 def trace_train(step, ranges, n: int = 3) -> dict:
@@ -1631,7 +1724,9 @@ def stem_train_scales(img, w, g, mean, inv, scale, bias, c1, c2, c3):
 
 def check_stem_train(state, batch, dtype_name: str, path: str):
     """K8, K9 and K10 against their plain versions on a training path's own
-    operands (``stem_train_operands``); K1's time in the training forward;
+    operands (``stem_train_operands``); K1 in the training forward (on
+    ``"conv9"``, fed the batch statistics) against its plain version, at
+    phase 2's tolerance, and its time;
     the yardsticks: cuDNN's conv with ``torch.var_mean`` for K8, the plain
     stem's autograd backward (conv, BatchNorm, ReLU, max-pool) for K9 and
     K10 as a pair."""
@@ -1707,7 +1802,9 @@ def check_stem_train(state, batch, dtype_name: str, path: str):
         if name == "stem_stats":
             res.update(library_ms=time_ms(lib_stats),
                        library_device_ms=device_ms(lib_stats),
-                       library="cuDNN conv2d + torch.var_mean over (N, H, W)")
+                       library="cuDNN conv2d + torch.var_mean over (N, H, W)",
+                       design=stem_design_fields(img, C, "stats"),
+                       ptxas=STEM_FWD_PTXAS.get(f"stem_stats {dtype_name}"))
         else:
             res.update(pair, library="none computes it alone; pair_library "
                                      "is K9 + K10's yardstick")
@@ -1720,17 +1817,29 @@ def check_stem_train(state, batch, dtype_name: str, path: str):
         emit("kernel_check", **res)
         require(ok, f"{name} {dtype_name} ({path}): max error "
                     f"{res['max_abs_err']} beyond {res['tolerance']}")
-    # K1 in the training forward, fed the batch statistics
+    # K1 in the training forward (on conv9), fed the batch statistics
     scale, bias = fs.fold_bn(state.model.stem_bn.weight.detach(),
                              state.model.stem_bn.bias.detach(), vecs9[0], var)
-    pooled = fs.fused_stem_serve(img, w, scale, bias)
+
+    def k1_train():
+        return fs._forward(img, w, scale, bias, "conv9")
+
+    pooled = k1_train()
+    want = fs.fused_stem_plain(img, w, scale, bias).float()
+    torch.cuda.synchronize()
+    err = (pooled.float() - want).abs()
+    tol, tol_text = stem_tolerance(want, dt == torch.bfloat16)
+    ok = bool((err <= tol).all())
     k1_ms, k1_by = bound_ms(nbytes(img, pooled) + 11 * C * 4, 21 * elems,
                             dtype_name)
     emit("k1_train_forward", dtype=dtype_name, path=path,
-         kernel_ms=time_ms(lambda: fs.fused_stem_serve(img, w, scale, bias)),
-         kernel_device_ms=device_ms(
-             lambda: fs.fused_stem_serve(img, w, scale, bias)),
-         bound_ms=k1_ms, bound_by=k1_by)
+         max_abs_err=float(err.max()), tolerance=tol_text, ok=ok,
+         kernel_ms=time_ms(k1_train), kernel_device_ms=device_ms(k1_train),
+         bound_ms=k1_ms, bound_by=k1_by,
+         design=stem_design_fields(img, C, "conv9"),
+         ptxas=STEM_FWD_PTXAS.get(f"fused_stem {dtype_name} conv9"))
+    require(ok, f"fused_stem {dtype_name} conv9 ({path}): max error "
+                f"{float(err.max())} beyond {tol_text}")
     return out
 
 
@@ -1994,6 +2103,7 @@ def main() -> int:
                               {"fused_stem": 1, "bigru": 2})
     # each recurrence's (design, launches) in the counted run that holds it
     designs = {"bigru": counts.pop("design")}
+    stem_design_launches = counts.pop("stem_design")
 
     # slice 2: training
     checks += phase_train_kernels(g)
@@ -2109,6 +2219,8 @@ def main() -> int:
                                  "streamed_equal", "resources")
                if k in c},
         ))
+        if name == "fused_stem":  # phase 4's launches by design
+            kernels[-1]["design_launches"] = stem_design_launches
         if name in designs:  # the recurrences: T dependent steps
             d, n = designs[name]
             require((c["design"], c["cluster"], c["rows"]) == tuple(d),

@@ -2,10 +2,19 @@
 
 Replaces ``crnn_ocr_tpu/kernels/fused_stem.py::fused_stem_serve``, the TPU
 kernel that keeps the full-resolution conv activation out of device memory
-and writes only the pooled ``(B, H/2, W/2, C)`` result. The CUDA kernel is
-``csrc/fused_stem.cu`` (its header has the design and the H100 bound, 21 us
-at the main-path shape, bytes-bound); ``fused_stem_plain`` is the same
-function in plain PyTorch.
+and writes only the pooled ``(B, H/2, W/2, C)`` result. The CUDA kernels
+are in ``csrc/fused_stem.cu`` (its header has the designs and the H100
+bound, 21 us at the main-path shape, bytes-bound), in two designs:
+
+* ``"mma"`` (``stem_mma_kernel``, launched by ``_stem_tiles.launch_mma``,
+  which K8 shares): the conv on the tensor cores, as the TPU kernel runs
+  it on the MXU; bf16 serving takes it;
+* ``"conv9"`` (``stem_kernel``): the conv as 9 f32 FMAs on the CUDA cores;
+  f32 serving takes it, and so does the training forward in both dtypes
+  (``fused_stem_train``), whose z the backward's kernels recompute bit for
+  bit.
+
+``fused_stem_plain`` is the same function in plain PyTorch.
 
 Layouts are the JAX package's: the image is NHWC ``(B, H, W, 1)``, the conv
 kernel HWIO ``(3, 3, 1, C)``, the output NHWC. The image's dtype sets the
@@ -14,19 +23,29 @@ products, sums, affine, ReLU and max in f32 before one cast to bf16 (the
 TPU kernel's rounding points); f32 is f32 throughout.
 
 ``fused_stem_serve`` dispatches on the image's device and on nothing else:
-a CPU tensor goes through ``fused_stem_plain``, a CUDA tensor through the
-kernel, or the call raises.
+a CPU tensor goes through ``fused_stem_plain``, a CUDA tensor through a
+kernel (its design set by the dtype), or the call raises.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 import torch.nn.functional as F
 
-# Kernel launches made by fused_stem_serve (the plain version is not counted).
-launches = 0
+from crnn_ocr_torch.kernels._stem_tiles import launch_mma
+
+# Kernel launches per design (the plain version is not counted); their sum
+# reads as ``launches``, like the other kernel modules' counts
+design_launches: collections.Counter = collections.Counter()
+
+
+def __getattr__(name):
+    if name == "launches":
+        return sum(design_launches.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def fold_bn(gamma, beta, mean, var, eps: float = 1e-3):
@@ -71,7 +90,15 @@ def _check(img, conv_w, scale, bias):
 def fused_stem_serve(img, conv_w, scale, bias):
     """img (B, H, W, 1) -> pooled stem activation (B, H/2, W/2, C) in the
     image's dtype. ``scale``/``bias``: the BatchNorm folded by
-    :func:`fold_bn`."""
+    :func:`fold_bn`. A bf16 image takes the ``"mma"`` design, an f32 one
+    ``"conv9"``."""
+    design = "mma" if img.dtype == torch.bfloat16 else "conv9"
+    return _forward(img, conv_w, scale, bias, design)
+
+
+def _forward(img, conv_w, scale, bias, design: str):
+    """:func:`fused_stem_serve` on ``design`` (``"mma"``: bf16 only, or
+    ``"conv9"``); the plain version for a CPU image."""
     B, H, W, C = _check(img, conv_w, scale, bias)
     if img.device.type == "cpu":
         return fused_stem_plain(img, conv_w, scale, bias)
@@ -82,8 +109,25 @@ def fused_stem_serve(img, conv_w, scale, bias):
         if t.device != dev:
             raise RuntimeError(f"fused_stem_serve: {name} is on {t.device}, "
                                f"image on {dev}")
+    if design == "mma":
+        if img.dtype != torch.bfloat16:
+            raise ValueError(f"the mma design takes a bf16 image, got "
+                             f"{img.dtype}")
+        out = launch_mma(img, conv_w, scale, bias)
+    elif design == "conv9":
+        out = _launch_conv9(img, conv_w, scale, bias)
+    else:
+        raise ValueError(f"unknown stem design {design!r}")
+    design_launches[design] += 1
+    return out
+
+
+def _launch_conv9(img, conv_w, scale, bias):
     from crnn_ocr_torch.kernels import _build
 
+    B, H, W, _ = img.shape
+    C = conv_w.shape[-1]
+    dev = img.device
     taps = conv_w.to(img.dtype).float().reshape(9, C)  # (kh, kw), channel
     params = torch.cat([taps.reshape(-1), scale.float(), bias.float()])
     img = img.contiguous()
@@ -93,7 +137,6 @@ def fused_stem_serve(img, conv_w, scale, bias):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    global launches
     with torch.cuda.device(dev):
         err = fn(
             img.data_ptr(), params.data_ptr(), out.data_ptr(), B, H, W, C,
@@ -101,5 +144,4 @@ def fused_stem_serve(img, conv_w, scale, bias):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "fused_stem_serve")
-    launches += 1
     return out

@@ -5,17 +5,20 @@ in device memory.
 Replaces ``crnn_ocr_tpu/kernels/fused_stem_train.py``: ``_run_stats`` (:290,
 K8), ``_run_bwd_partials`` (:309, K9) and ``_run_bwd_final`` (:333, K10),
 behind ``fused_stem_train`` (:359). The CUDA kernels are in
-``csrc/fused_stem.cu`` beside K1, sharing its conv function so that every
-pass computes the conv bit for bit alike (its header has the designs and
-the H100 bounds); ``stem_stats_plain``, ``stem_bwd_partials_plain`` and
+``csrc/fused_stem.cu`` beside K1 (its header has the designs and the H100
+bounds): K8 computes z on the tensor cores (the window tile it shares with
+K1's bf16 serving call), K9 and K10 recompute it with K1's training call's
+conv function, bit for bit alike, since they route by it;
+``stem_stats_plain``, ``stem_bwd_partials_plain`` and
 ``stem_bwd_final_plain`` are the same functions in plain PyTorch.
 
 The four passes, as the JAX module runs them:
 
 * forward: K8 gives per-channel ``sum z`` and ``sum z^2`` of the conv output
   z over (B, H, W); ``mean = sum z / n`` and ``var = sum z^2 / n - mean^2``
-  (not clamped, ``:392-393``); then K1 (``fused_stem.fused_stem_serve``)
-  with ``fold_bn(gamma, beta, mean, var)`` writes the pooled output;
+  (not clamped, ``:392-393``); then K1 (on its ``conv9`` design, whose z
+  K9 and K10 recompute bit for bit) with ``fold_bn(gamma, beta, mean,
+  var)`` writes the pooled output;
 * backward (``_bwd``, :402-440): ``inv = rsqrt(var + eps)``, the folded
   ``scale = gamma * inv``, ``bias = beta - mean * inv * gamma``; K9 routes
   the pooled gradient to the first maximum of each 2x2 window in (h, w)
@@ -44,14 +47,14 @@ or the call raises.
 
 from __future__ import annotations
 
-import ctypes
-import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
-from crnn_ocr_torch.kernels.fused_stem import fold_bn, fused_stem_serve
+from crnn_ocr_torch.kernels import _stem_tiles as tiles
+from crnn_ocr_torch.kernels import fused_stem
+from crnn_ocr_torch.kernels.fused_stem import fold_bn
 
 # Kernel launches: K8 (stem_stats), K9 (stem_bwd_partials) and K10
 # (stem_bwd_final). The plain versions are not counted.
@@ -59,86 +62,34 @@ stats_launches = 0
 partials_launches = 0
 final_launches = 0
 
-# K8: 256-thread blocks of min(C, 256) channels by 256 // min(C, 256)
-# pixels; at most MAX_BLOCKS along the pixels (about one wave on 132 SMs)
-THREADS = 256
-MAX_BLOCKS = 1024
-
-# K9 and K10 (``bwd_tile_kernel``): a tile is BWD_ROWS pooled rows of one
-# image (8: one tile a CTA at the training shapes, and the fastest of 2, 4
-# and 8 on the H100) by a column tile of at most BWD_COL_CAP pooled columns
-# by BWD_CHUNK channels. The rest as ``csrc/fused_stem.cu`` fixes it: a
-# thread owns BWD_CPT channels of one pooled pixel; the staged band is
-# followed by the chunk's constants (64 channels x 20 floats) and K10's
-# warp buffers (8 warps x (two 4x4 patches, 8 d_conv rows of 72 floats and
-# 16 of shift)) or K9's reduction scratch (8 warps x 2 x 64 floats)
-BWD_ROWS, BWD_COL_CAP, BWD_CHUNK, BWD_CPT = 8, 128, 64, 4
+# K9 and K10 walk the tiles of ``_stem_tiles`` (a thread owns BWD_CPT
+# channels of one pooled pixel). The staged f32 band is followed by the
+# chunk's constants (64 channels x 20 floats) and K10's warp buffers (8
+# warps x (two 4x4 patches, 8 d_conv rows of 72 floats and 16 of shift)) or
+# K9's reduction scratch (8 warps x 2 x 64 floats)
+BWD_CPT = 4
 _K10_BUFFER_FLOATS = 64 * 20 + 8 * (32 + 8 * 72 + 16)
 _K9_BUFFER_FLOATS = 64 * 20 + 8 * 2 * 64
 
 
-@dataclasses.dataclass(frozen=True)
-class BwdPlan:
-    """One K9 or K10 launch: ``rows`` pooled rows a tile, the pooled columns
-    in ``col_tiles`` near-equal runs, ``chunks`` channel chunks, ``tiles``
-    tiles in all, walked by ``ctas`` persistent CTAs (one wave: no more than
-    the card holds at once) with ``smem_bytes`` of shared memory each."""
-
-    rows: int
-    col_tiles: int
-    chunks: int
-    tiles: int
-    ctas: int
-    smem_bytes: int
-
-
 def bwd_plan(B: int, H: int, W: int, C: int, final: bool,
-             holds: Callable[[int], int]) -> BwdPlan:
+             holds: Callable[[int], int]) -> tiles.TilePlan:
     """The plan of K9 (``final`` False) or K10 for a (B, H, W, 1) image and C
     channels; ``holds(smem_bytes)`` is the number of CTAs the card holds at
     once at that much shared memory. The same in both dtypes: the band is
     staged in f32 either way."""
-    H2, W2 = H // 2, W // 2
-    rows = min(BWD_ROWS, H2)
-    col_tiles = -(-W2 // BWD_COL_CAP)
-    max_cols = -(-W2 // col_tiles)
-    chunks = -(-C // BWD_CHUNK)
-    tiles = B * -(-H2 // rows) * col_tiles * chunks
-    band = (2 * rows + 2) * (2 * max_cols + 2)
-    smem = 4 * (band + (_K10_BUFFER_FLOATS if final else _K9_BUFFER_FLOATS))
-    return BwdPlan(rows, col_tiles, chunks, tiles, min(tiles, holds(smem)),
-                   smem)
+    extra = _K10_BUFFER_FLOATS if final else _K9_BUFFER_FLOATS
+    return tiles.tile_plan(B, H, W, C, lambda rows, cols: 4 * (
+        (2 * rows + 2) * (2 * cols + 2) + extra), holds)
 
 
-# CTAs the card holds at once, per (device, bf16, final, shared memory)
-_holds: Dict[Tuple[int, bool, bool, int], int] = {}
-
-
-def _card_holds(dev, bf16: bool, final: bool, smem: int) -> int:
-    key = (dev.index, bf16, final, smem)
-    if key not in _holds:
-        from crnn_ocr_torch.kernels import _build
-
-        lib = _build.load("fused_stem")
-        fn = lib.crnn_stem_bwd_ctas_per_sm
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        per_sm = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            err = fn(int(bf16), int(final), smem, ctypes.byref(per_sm))
-        _build.check(lib, err, "crnn_stem_bwd_ctas_per_sm")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _holds[key] = per_sm.value * sms
-    return _holds[key]
-
-
-def bwd_design(img, C: int, final: bool) -> BwdPlan:
+def bwd_design(img, C: int, final: bool) -> tiles.TilePlan:
     """The plan K9 (``final`` False) or K10 launches with for this CUDA
     image and C channels."""
     B, H, W = img.shape[0], img.shape[1], img.shape[2]
     bf16 = img.dtype == torch.bfloat16
-    return bwd_plan(B, H, W, C, final,
-                    lambda smem: _card_holds(img.device, bf16, final, smem))
+    return bwd_plan(B, H, W, C, final, lambda smem: tiles.card_holds(
+        img.device, "crnn_stem_bwd_ctas_per_sm", bf16, final, smem))
 
 
 def _conv(img, conv_w):
@@ -223,60 +174,6 @@ def _check(img, conv_w, g=None, vecs=()):
     return B, H, W, C
 
 
-def _on_card(entry, img, tensors):
-    """Raise unless the image and every operand are on one CUDA device and
-    the pooled pixels fit the kernels' 32-bit indices."""
-    dev = img.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"{entry}: no kernel for {dev}")
-    for t in tensors:
-        if t.device != dev:
-            raise RuntimeError(f"{entry}: an operand is on {t.device}, the "
-                               f"image on {dev}")
-    B, H, W = img.shape[0], img.shape[1], img.shape[2]
-    npix = B * (H // 2) * (W // 2)
-    if npix >= 2 ** 31:
-        raise ValueError(f"{entry}: at most 2^31 - 1 pooled pixels, got "
-                         f"{npix}")
-
-
-def _call(entry, args, dev):
-    """Call C entry ``entry`` of ``csrc/fused_stem.cu`` with ``args``
-    (pointers as ``ctypes.c_void_p``, the rest ints) on ``dev``'s current
-    stream, and raise on a CUDA error."""
-    from crnn_ocr_torch.kernels import _build
-
-    lib = _build.load("fused_stem")
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [type(a) if isinstance(a, ctypes.c_void_p) else ctypes.c_int
-                   for a in args] + [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, entry)
-
-
-def _ptr(t):
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _launch_stats(img, conv_w):
-    """Launch K8 and return the sum of the blocks' partials, (2, C) f32, in
-    fixed order."""
-    _on_card("crnn_stem_stats", img, (conv_w,))
-    B, H, W, C = img.shape[0], img.shape[1], img.shape[2], conv_w.shape[-1]
-    P = THREADS // min(C, THREADS)
-    blocks = min(-(-(B * (H // 2) * (W // 2)) // P), MAX_BLOCKS)
-    params = conv_w.to(img.dtype).float().reshape(9 * C)
-    img = img.contiguous()
-    parts = torch.empty((blocks, 2, C), dtype=torch.float32,
-                        device=img.device)
-    _call("crnn_stem_stats",
-          [_ptr(img), _ptr(params), _ptr(parts), B, H, W, C,
-           int(img.dtype == torch.bfloat16), blocks], img.device)
-    return parts.sum(0)
-
-
 def _launch_bwd(img, conv_w, g, vecs, final: bool):
     """Launch K9 (``final`` False, ``vecs`` mean, inv, scale, bias) or K10
     (``vecs`` those, then c1, c2, c3) and return the sum of the CTAs'
@@ -284,12 +181,10 @@ def _launch_bwd(img, conv_w, g, vecs, final: bool):
     in CTA order. The weights go as they are (f32, read through their
     strides: the model's HWIO view of its OIHW weights needs no copy), and
     so do the vectors: no kernel runs before the launch."""
-    _on_card("crnn_stem_bwd", img, (conv_w, g, *vecs))
+    tiles.on_card("crnn_stem_bwd", img, (conv_w, g, *vecs))
     B, H, W, C = img.shape[0], img.shape[1], img.shape[2], conv_w.shape[-1]
     plan = bwd_design(img, C, final)
-    taps = conv_w.float()[:, :, 0]  # (3, 3, C): tap kh * 3 + kw at [kh, kw]
-    if taps.stride(0) != 3 * taps.stride(1):
-        taps = taps.contiguous()
+    taps = tiles.taps(conv_w)
     vecs = [v.float().contiguous() for v in vecs]
     vecs += [None] * (7 - len(vecs))
     img, g = img.contiguous(), g.contiguous()
@@ -297,11 +192,12 @@ def _launch_bwd(img, conv_w, g, vecs, final: bool):
     parts = torch.empty((plan.ctas, rows, C), dtype=torch.float32,
                         device=img.device)
     out = torch.empty((rows, C), dtype=torch.float32, device=img.device)
-    _call("crnn_stem_bwd",
-          [_ptr(img), _ptr(g), _ptr(taps), taps.stride(1), taps.stride(2),
-           *map(_ptr, vecs), _ptr(parts), _ptr(out), B, H, W, C,
-           int(img.dtype == torch.bfloat16), int(final), plan.rows,
-           plan.col_tiles, plan.ctas, plan.smem_bytes], img.device)
+    ptr = tiles.ptr
+    tiles.call("crnn_stem_bwd",
+               [ptr(img), ptr(g), ptr(taps), taps.stride(1), taps.stride(2),
+                *map(ptr, vecs), ptr(parts), ptr(out), B, H, W, C,
+                int(img.dtype == torch.bfloat16), int(final), plan.rows,
+                plan.col_tiles, plan.ctas, plan.smem_bytes], img.device)
     return out
 
 
@@ -310,7 +206,7 @@ def stem_stats(img, conv_w):
     _check(img, conv_w)
     if img.device.type == "cpu":
         return stem_stats_plain(img, conv_w)
-    out = _launch_stats(img, conv_w)
+    out = tiles.launch_mma(img, conv_w)
     global stats_launches
     stats_launches += 1
     return out
@@ -362,7 +258,8 @@ class _FusedStemTrain(torch.autograd.Function):
         mean = s[0] / n
         var = s[1] / n - mean * mean
         scale, bias = fold_bn(gamma, beta, mean, var, eps)
-        pooled = fused_stem_serve(img, conv_w, scale, bias)
+        # K1 on conv9: K9 and K10 recompute its z bit for bit
+        pooled = fused_stem._forward(img, conv_w, scale, bias, "conv9")
         ctx.save_for_backward(img, conv_w, gamma, beta, mean, var)
         ctx.eps, ctx.n = eps, n
         ctx.mark_non_differentiable(mean, var)

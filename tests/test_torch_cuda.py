@@ -55,32 +55,58 @@ def card():
     return torch.device("cuda")
 
 
-def _stem(rng, B, H, W, C, dtype, device):
+def _stem(rng, B, H, W, C, dtype, device, design=None):
     img = torch.from_numpy(rng.normal(size=(B, H, W, 1)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(3, 3, 1, C)) * 0.5)
                          .astype(np.float32))
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
     bias = torch.from_numpy((rng.normal(size=C) * 0.2).astype(np.float32))
     args = [t.to(device) for t in (img.to(dtype), w, scale, bias)]
-    return tfs.fused_stem_serve(*args)
+    if design is None:
+        return tfs.fused_stem_serve(*args)
+    return tfs._forward(*args, design)
+
+
+# K1's shapes: C not a multiple of 8 (12), odd pooled widths (33, 5),
+# fewer than 8 pooled rows (3), and three 64-channel chunks, the last of 2
+# channels (130)
+STEM_SHAPES = [(4, 32, 48, 8), (3, 32, 256, 64), (2, 32, 66, 12),
+               (1, 6, 10, 64), (2, 32, 66, 130)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", [(4, 32, 48, 8), (3, 32, 256, 64),
-                                   (2, 32, 66, 12), (1, 6, 10, 64)])
+@pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_kernel_matches_plain(card, dtype, shape):
+    """K1 on the design its dtype selects (bf16 ``"mma"``, f32
+    ``"conv9"``) against the plain version."""
     dt = DTYPES[dtype]
-    before = tfs.launches
+    before, ran = tfs.launches, dict(tfs.design_launches)
     got = _stem(np.random.default_rng(3), *shape, dt, card)
     torch.cuda.synchronize()
     assert tfs.launches == before + 1
+    design = "mma" if dt == torch.bfloat16 else "conv9"
+    assert tfs.design_launches - collections.Counter(ran) == {design: 1}
     want = _stem(np.random.default_rng(3), *shape, dt, "cpu")  # plain
     got, want = got.float().cpu().numpy(), want.float().numpy()
     if dt == torch.bfloat16:
         assert (np.abs(got - want) <= np.abs(want) * 2.0 ** -7 + 1e-6).all()
     else:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_mma_design_within_one_ulp_of_conv9(card, shape):
+    """K1's two designs on the same bf16 inputs: the tensor cores' z and
+    conv9's differ only in the 9-term sum's rounding, so the outputs are
+    within one bf16 ulp (plus 1e-6) of each other."""
+    mma = _stem(np.random.default_rng(3), *shape, torch.bfloat16, card,
+                "mma").float()
+    conv9 = _stem(np.random.default_rng(3), *shape, torch.bfloat16, card,
+                  "conv9").float()
+    assert bool(((mma - conv9).abs() <= conv9.abs() * 2.0 ** -7 + 1e-6)
+                .all()), float((mma - conv9).abs().max())
 
 
 def _design_name(dtype, H):
@@ -563,9 +589,10 @@ def test_stem_train_kernels_match_plain(card, dtype, shape):
     and K10's tiles); pooled rows not a multiple of the tiles' 8 (H 10, 6,
     14, 26: 13 pooled rows in tiles of 8 and 5), pooled columns over the
     column cap of 128 (W 520 and 262: three and two column tiles), channels
-    not a multiple of the 64-channel chunk (C 20, 70) or of a thread's 4
-    (C 18); and exact ties with white padding (``_stem_train_case``'s
-    ``ties``)."""
+    not a multiple of the 64-channel chunk (C 20, 70), of K8's 8 a product
+    (C 12, 18, 20, 70) or of K9's and K10's 4 a thread (C 18); and exact
+    ties with white padding (``_stem_train_case``'s ``ties``). A second
+    run gives the same bits."""
     import chip_smoke
 
     ties = shape[-1] == "ties"
@@ -609,7 +636,8 @@ def test_stem_train_kernels_match_plain(card, dtype, shape):
 def test_fused_stem_train_on_card_matches_cpu(card, dtype):
     """The autograd Function (K8 + K1 forward, K9 + K10 backward) on the
     card against the plain versions on the CPU: pooled output, batch
-    statistics and the gradients of the weights, gamma and beta."""
+    statistics and the gradients of the weights, gamma and beta; K1 on the
+    ``"conv9"`` design in both dtypes."""
     rng = np.random.default_rng(14)
     dt = DTYPES[dtype]
     img = torch.from_numpy(rng.normal(size=(8, 32, 64, 1))
@@ -623,12 +651,16 @@ def test_fused_stem_train_on_card_matches_cpu(card, dtype):
         ps = [t.clone().to(dev).requires_grad_(True) for t in leaves]
         n1, n8 = tfs.launches, tfst.stats_launches
         n9, n10 = tfst.partials_launches, tfst.final_launches
+        ran = dict(tfs.design_launches)
         p, m, v = tfst.fused_stem_train(img.to(dev), *ps)
         (torch.sin(p.float() * 1.7) * u.to(dev)).sum().backward()
         on_card = int(dev != "cpu")
         assert (tfs.launches, tfst.stats_launches, tfst.partials_launches,
                 tfst.final_launches) == (n1 + on_card, n8 + on_card,
                                          n9 + on_card, n10 + on_card)
+        # the training forward's K1 runs conv9, whose z K9 and K10 recompute
+        assert tfs.design_launches - collections.Counter(ran) == (
+            {"conv9": 1} if on_card else {})
         outs.append([t.detach().float().cpu() for t in (p, m, v)])
         grads.append([t.grad.cpu() for t in ps])
     (p0, m0, v0), (p1, m1, v1) = outs

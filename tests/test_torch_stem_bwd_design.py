@@ -25,6 +25,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from crnn_ocr_torch.kernels import _stem_tiles as stiles
 from crnn_ocr_torch.kernels import fused_stem_train as fst
 
 CARD_HOLDS = 2 * 132  # two CTAs a SM on 132 SMs, as ptxas is asked for
@@ -64,13 +65,13 @@ def test_plan_covers_every_pixel_once_within_shared_memory(shape, final):
     seen = np.zeros((plan.chunks, B, H2, W2), np.int64)
     tiles = list(_tiles(plan, B, H, W))
     for chunk, b, rows, cols in tiles:
-        assert 0 < len(rows) <= fst.BWD_ROWS
-        assert 0 < len(cols) <= fst.BWD_COL_CAP
+        assert 0 < len(rows) <= stiles.TILE_ROWS
+        assert 0 < len(cols) <= stiles.TILE_COL_CAP
         seen[chunk, b, rows.start:rows.stop, cols.start:cols.stop] += 1
     assert len(tiles) == plan.tiles
     assert (seen == 1).all()
-    assert plan.chunks * fst.BWD_CHUNK >= C > (plan.chunks - 1) * \
-        fst.BWD_CHUNK
+    assert plan.chunks * stiles.TILE_CHUNK >= C > (plan.chunks - 1) * \
+        stiles.TILE_CHUNK
     assert plan.ctas == min(plan.tiles, CARD_HOLDS)
     assert plan.smem_bytes <= SMEM_LIMIT
 
