@@ -20,7 +20,8 @@ exits non-zero. It needs one CUDA card and refuses to run without one.
    reports its design (``kernels/bigru.py::design_for``: cluster size and
    rows) and, on the same inputs, the streamed design's time (the design
    of bf16 shapes above 256 units, a yardstick held to the plain version
-   and compared with the path's design bit for bit), with the instance's
+   and compared with the path's design bit for bit; in f32 the old
+   ``"f32"`` design's), with the instance's
    shared memory, registers and the clusters the card holds at once. K1
    reports its design (``"mma"`` in bf16 with its plan,
    ``_stem_tiles.stem_plan``; ``"conv9"`` in f32) and its instance's
@@ -107,7 +108,8 @@ B 128, bucket 128, on its 64 golden lines repeated):
     and their instance's ``ptxas`` report.
 16. One f32 ``fonts-small`` train step: kernels against plain versions,
     and against the JAX step (``train_goldens.npz``, ``small/``), which ran
-    the JAX package's fused train stem.
+    the JAX package's fused train stem; its two K3 launches must run on the
+    resident design (its f32 instance).
 17. Fine-tuning ``fonts-small`` counted, as phase 8 (bf16, dropout 0.2):
     each step must launch K8, K9, K10 and K1 (on ``"conv9"``) once, K3
     twice, K6 and K7 once, K2 never; the loss must fall.
@@ -143,12 +145,24 @@ golden lines:
     launch K5 twice (on the resident design), K6 and K7 once, K8, K1 (on
     ``"conv9"``), K9 and K10 once, K3 and K4 never; the loss must fall.
 
-Every counted run (phases 4, 8, 11, 13, 17, 20, 22) requires each
+Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
+128, bucket 128):
+
+23. K2 at its serving shape (B 256) and K3 at its training shape (B 128)
+    on the path's own tensors against their plain versions, TF32 off, with
+    the old ``"f32"`` design's time on the same inputs, ``nn.GRU`` in f32
+    as the yardstick and the bound with its peak named; then ``fonts-small``
+    served counted, as phase 4, at B 256, bucket 128: each ``predict`` must
+    launch K1 once (on ``"conv9"``) and K2 twice, every K2 on the resident
+    design (its f32 instance); lines/s, the p50, the stages and a trace.
+
+Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23) requires each
 recurrence launch to have run on the design ``PATH_DESIGN`` names for its
-kernel, one design (cluster and rows) for all of them, and each K1 launch
-on the design ``STEM_PATH_DESIGN`` names for the path: ``"mma"`` serving
-(bf16, the conv on the tensor cores), ``"conv9"`` in the training forward
-(K9 and K10 recompute its z bit for bit).
+kernel (the resident design in either dtype), one design (cluster and rows)
+for all of them, and each K1 launch on the design ``STEM_PATH_DESIGN``
+names for the path: ``"mma"`` serving bf16 (the conv on the tensor cores),
+``"conv9"`` serving f32 and in the training forward (K9 and K10 recompute
+its z bit for bit).
 
 The last lines are the card's ``name, power.limit``, the kernels' JSON
 line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's, K11
@@ -171,7 +185,13 @@ add ``design``, ``cluster`` and
 launches on that design) and ``ms_per_step`` (``ms`` over the T steps),
 ``streamed_ms`` (the streamed design's device time on the same inputs),
 ``streamed_equal`` (its outputs equal to the path design's bit for bit)
-and ``resources``.
+and ``resources``. Every recurrence row adds ``f32_path_shape`` (its f32
+check at its own path's shape, phases 2, 6 and 18) and K2's and K3's an
+``f32`` entry (phase 23's check at ``fonts-small``'s shape, with the
+launches of phase 23's counted run and of phase 16's step); every bound
+names its peak (``bound_peak``): bf16 MMA, or f32 FMA on the CUDA cores,
+and for every f32 recurrence (K2-K5, whatever design runs it) 3 x TF32 on
+the tensor cores, the fastest pipe that multiplies at f32's accuracy.
 """
 
 from __future__ import annotations
@@ -188,7 +208,12 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 MMA, f32 FMA
+# dense bf16 MMA; f32 FMA on the CUDA cores; f32 as 3xTF32 on the tensor
+# cores (three TF32 products each, 495e12 dense)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
+PEAK_TEXT = {"bfloat16": "bf16 MMA 989e12",
+             "float32": "f32 FMA (CUDA cores) 67e12",
+             "tf32x3": "3 x TF32 MMA: 3 x ops over 495e12"}
 BATCH, BUCKET = 256, 256
 TRAIN_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                              "train_goldens.npz")
@@ -308,10 +333,21 @@ def profiled(run):
 
 
 def bound_ms(bytes_moved: float, ops: float, dtype: str):
+    """The least time for the work: max(bytes over the HBM rate, operations
+    over ``PEAK_OPS[dtype]``) in ms, and which of the two it is."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                       else "operations")
+
+
+def rnn_bound(bytes_moved: float, ops: float, dtype_name: str):
+    """A recurrence's bound (K2-K5), as :func:`bound_ms`, and its peak's
+    text: in f32 the products can run as 3xTF32 on the tensor cores,
+    whatever design runs them, so their peak is 495e12 / 3, not the CUDA
+    cores' 67e12."""
+    peak = "tf32x3" if dtype_name == "float32" else dtype_name
+    return (*bound_ms(bytes_moved, ops, peak), PEAK_TEXT[peak])
 
 
 def nbytes(*ts) -> int:
@@ -406,7 +442,8 @@ def require_launches(counts: dict, want: dict, what: str) -> None:
 
 
 # the design each recurrence kernel runs on the counted paths (bf16, 256
-# units, or 128 for fonts-small's K3)
+# units, or 128 for fonts-small's K3), and on the f32 paths (fonts-small
+# served as shipped, phase 23; its f32 train step, phase 16)
 PATH_DESIGN = {"bigru": "resident", "bilstm_train": "resident",
                "bigru_train": "resident", "bilstm": "resident"}
 
@@ -436,8 +473,9 @@ def design_fields(design, n: int) -> dict:
 
 
 # the design K1 runs on in the counted runs: bf16 serving on the tensor
-# cores, the training forward on conv9 (K9 and K10 recompute its z)
-STEM_PATH_DESIGN = {"serve": "mma", "train": "conv9"}
+# cores, f32 serving and the training forward on conv9 (K9 and K10
+# recompute its z)
+STEM_PATH_DESIGN = {"serve": "mma", "serve_f32": "conv9", "train": "conv9"}
 
 
 def read_stem_design(counts: dict, path: str, what: str) -> dict:
@@ -499,9 +537,12 @@ def resident_ptxas(report: str) -> dict:
 
     def key_of(name):
         k = re.search(r"birnn_resident_kernelI\S*?(Gru|Lstm)CellELi(\d+)"
-                      r"ELb([01])E", name)
-        return (ptxas_key(k.group(1).lower(), k.group(3) == "1",
-                          int(k.group(2))) if k else None)
+                      r"ELb([01])E(?:NS_\d+(Res\w+?)E)?", name)
+        if not k:
+            return None
+        return ptxas_key(k.group(1).lower(), k.group(3) == "1",
+                         int(k.group(2)),
+                         "float32" if k.group(4) == "ResTf32" else "bfloat16")
 
     return ptxas_instances(report, key_of)
 
@@ -542,10 +583,14 @@ def stem_fwd_ptxas(report: str) -> dict:
     return ptxas_instances(report, key_of)
 
 
-def ptxas_key(cell: str, stash: bool, rows: int) -> str:
-    """``"bigru R8"``, ``"bilstm_train R32"``: the kernel a resident
-    instance serves (K2-K5 by cell and stash) and its rows."""
-    return f"bi{cell}{'_train' if stash else ''} R{rows}"
+def ptxas_key(cell: str, stash: bool, rows: int,
+              dtype_name: str = "bfloat16") -> str:
+    """``"bigru R8"``, ``"bilstm_train R32"``, ``"bigru float32 R8"``: the
+    kernel a resident instance serves (K2-K5 by cell and stash), its dtype
+    when not bf16 (the f32 instances' operand policy is ``ResTf32``), and
+    its rows."""
+    tag = "" if dtype_name == "bfloat16" else f" {dtype_name}"
+    return f"bi{cell}{'_train' if stash else ''}{tag} R{rows}"
 
 
 def phase_build(card: str):
@@ -580,7 +625,8 @@ def phase_build(card: str):
          stem_fwd_ptxas=STEM_FWD_PTXAS)
 
 
-def resident_resources(cell: str, stash: bool, H: int, design) -> dict:
+def resident_resources(cell: str, stash: bool, H: int, design,
+                       dtype_name: str = "bfloat16") -> dict:
     """A resident instance's resources on this card, launching nothing:
     its dynamic shared memory, the most clusters the card holds at once,
     its registers and local memory per thread (the runtime's view; phase 1
@@ -592,24 +638,29 @@ def resident_resources(cell: str, stash: bool, H: int, design) -> dict:
     lib = _build.load("bigru")
     fn = lib.crnn_birnn_resident_info
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     info = (ctypes.c_int * 4)()
-    _build.check(lib, fn(int(cell == "lstm"), int(stash), H, design.cluster,
-                         design.rows, ctypes.addressof(info)),
+    elem = 2 if dtype_name == "bfloat16" else 4  # picks the instance
+    _build.check(lib, fn(int(cell == "lstm"), elem, int(stash), H,
+                         design.cluster, design.rows,
+                         ctypes.addressof(info)),
                  "resident info")
     return dict(smem_bytes=info[0], max_active_clusters=info[1],
                 runtime_registers=info[2], local_bytes=info[3],
-                ptxas=RESIDENT_PTXAS.get(ptxas_key(cell, stash,
-                                                   design.rows)))
+                ptxas=RESIDENT_PTXAS.get(ptxas_key(cell, stash, design.rows,
+                                                   dtype_name)))
 
 
 def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
-    """Phases 2, 6 and 18: the design the path's shape selects and, for
-    the resident one, the device time of the streamed design on the same
-    inputs, held to the plain version's hs at 2e-2 (a yardstick only, like
-    ``library_ms``, launched here and nowhere on the path), whether its hs
-    and stash equal the resident design's bit for bit, and the resident
-    instance's resources."""
+    """Phases 2, 6, 18 and 23: the design the path's shape selects and, for
+    a resident one, the device time of a yardstick design on the same
+    inputs (launched here and nowhere on the path, like ``library_ms``):
+    for bf16 the streamed design (the design of bf16 shapes above 256
+    units), its hs held to the plain version's at 2e-2 and compared with
+    the resident design's bit for bit (``streamed_*``); for f32 the old
+    ``"f32"`` design (U read from L2 by the CUDA cores), its hs held to the
+    plain version's at 1e-4 (``old_f32_*``); and the resident instance's
+    resources."""
     import torch
     from crnn_ocr_torch.kernels import bigru as bg
 
@@ -619,23 +670,36 @@ def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
     out = dict(design=d.name, cluster=d.cluster, rows=d.rows)
     if d.name != "resident":
         return out
+    bf16 = xw.dtype == torch.bfloat16
+    key, tol, yard = (("streamed", 2e-2, bg.Design("streamed", 0, 16)) if bf16
+                      else ("old_f32", 1e-4, bg.Design("f32")))
 
-    def streamed():
-        return bg._launch(cell, xw, u, rb, uk, stash,
-                          bg.Design("streamed", 0, 16))
+    def yardstick():  # the f32 design builds its own operand, U itself
+        return bg._launch(cell, xw, u, rb, uk if key == "streamed" else None,
+                          stash, yard)
 
-    theirs, ours = streamed(), bg._launch(cell, xw, u, rb, uk, stash, d)
+    theirs, ours = yardstick(), bg._launch(cell, xw, u, rb, uk, stash, d)
     err = float((theirs[0].float() - plain.float()).abs().max())
-    require(err <= 2e-2, f"{cell} streamed design: hs error {err}")
-    out["streamed_max_abs_err"] = err
-    out["streamed_equal"] = all(torch.equal(a, b) for a, b in
-                                zip(ours, theirs) if a is not None)
-    out["streamed_ms"] = device_ms(streamed)
-    res = resident_resources(cell, stash, bg._padded_units(H, xw.dtype), d)
+    require(err <= tol, f"{cell} {yard.name} design: hs error {err}")
+    out[f"{key}_max_abs_err"] = err
+    if key == "streamed":
+        out["streamed_equal"] = all(torch.equal(a, b) for a, b in
+                                    zip(ours, theirs) if a is not None)
+    out[f"{key}_ms"] = device_ms(yardstick)
+    hp = bg._padded_units(H, xw.dtype, cell)
+    res = resident_resources(cell, stash, hp, d, str(xw.dtype)[6:])
     # one wave: the grid within the CTAs the card holds at once
     res["ctas"] = -(-B // d.rows) * 2 * d.cluster
     res["wave_ctas"] = res["max_active_clusters"] * d.cluster
-    require(res["ctas"] <= res["wave_ctas"],
+    res["one_wave"] = res["ctas"] <= res["wave_ctas"]
+    # every bf16 grid must fit; an f32 grid may take two waves only where
+    # no instance's measured capacity (bigru.WAVE_CTAS) holds it in one (f32
+    # at 256 units holds one CTA an SM: B 256 takes two waves on any rows)
+    fits_one = any(
+        -(-B // r) * 2 * d.cluster
+        <= bg.WAVE_CTAS.get((xw.dtype, cell, stash, hp, r), 0)
+        for r in bg.resident_rows(xw.dtype))
+    require(res["one_wave"] or not (bf16 or fits_one),
             f"{cell} {d}: {res['ctas']} CTAs, the card holds "
             f"{res['wave_ctas']} at once")
     out["resources"] = res
@@ -745,7 +809,8 @@ def torch_gru_from(rnn, dtype):
 
 
 def check_bigru(model, feat, dtype_name: str):
-    """K2 on layer 0's input projections of the main path (fonts-hard)."""
+    """K2 on layer 0's input projections of a serving path (fonts-hard;
+    fonts-small in phase 23)."""
     import torch
     from crnn_ocr_torch.kernels import bigru as bg
 
@@ -768,17 +833,19 @@ def check_bigru(model, feat, dtype_name: str):
     H = G // 3
     bytes_moved = nbytes(xw, u, rb, got)
     ops = 2 * T * 2 * B * H * G + 12 * T * 2 * B * H
-    b_ms, b_by = bound_ms(bytes_moved, ops, dtype_name)
+    designs = design_times("gru", xw, u, rb, uk, False, want)
+    b_ms, b_by, peak_text = rnn_bound(bytes_moved, ops, dtype_name)
     res = dict(
         kernel="bigru", dtype=dtype_name, T=T, B=B, H=H, max_abs_err=err,
         tolerance=f"{tol} abs", ok=err <= tol,
         kernel_ms=time_ms(kernel), kernel_device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: bg.bigru_plain(xw, u, rb)),
-        bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
+        bound_ms=b_ms, bound_by=b_by, bound_peak=peak_text,
+        bytes=bytes_moved, ops=ops,
         library="torch.nn.GRU bidirectional (cuDNN) on the layer input; "
                 "its time includes the input projection",
+        **designs,
     )
-    res.update(design_times("gru", xw, u, rb, uk, False, want))
     # yardstick only: the port never calls torch.nn.GRU
     gru = torch_gru_from(rnn, dt)
     res["library_vs_port_max_abs"] = float(
@@ -849,11 +916,15 @@ def phase_goldens(g, f32_models, bf16_model, bf16_max_off: int = 1):
     return results
 
 
-def phase_throughput(card: str, name: str, lines, want: dict):
+def phase_throughput(card: str, name: str, lines, want: dict,
+                     bucket: int = BUCKET, path: str = "serve"):
     """The main path, counted: ``REPS`` timed ``predict`` calls of ``name``
-    (as shipped) on ``lines`` with the launch counts set to 0 just before
-    them and read just after; ``want``: each kernel's launches per call.
-    Returns the counts and, under ``"design"``, ``read_design``'s."""
+    (as shipped) on ``lines`` at ``bucket`` with the launch counts set to 0
+    just before them and read just after; ``want``: each kernel's launches
+    per call; ``path``: ``"serve"`` (bf16: K1 on ``"mma"``, the
+    recurrences on ``PATH_DESIGN``'s designs) or ``"serve_f32"`` (K1 on
+    ``"conv9"``, K2 on ``PATH_DESIGN``'s, its f32 instance). Returns the
+    counts and, under ``"design"``, ``read_design``'s."""
     import torch
     from crnn_ocr_torch import load_pretrained
     from crnn_ocr_torch.kernels import bigru, fused_stem
@@ -861,13 +932,13 @@ def phase_throughput(card: str, name: str, lines, want: dict):
     reps = 20
     pred = load_pretrained(name, device="cuda")
     for _ in range(3):
-        pred.predict(lines, bucket=BUCKET)
+        pred.predict(lines, bucket=bucket)
     torch.cuda.synchronize()
     batch_ms = []
     reset_launches()
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = pred.predict(lines, bucket=BUCKET)
+        out = pred.predict(lines, bucket=bucket)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
     emit("launches", model=name, predict_calls=reps, **counts,
@@ -876,7 +947,7 @@ def phase_throughput(card: str, name: str, lines, want: dict):
     require_launches(counts, {k: v * reps for k, v in want.items()},
                      f"{name}: {reps} predict calls")
     design = read_design(counts, f"{name}: {reps} predict calls")
-    stem_design = read_stem_design(counts, "serve",
+    stem_design = read_stem_design(counts, path,
                                    f"{name}: {reps} predict calls")
     require(len(out) == BATCH and all(isinstance(o.text, str) for o in out),
             "throughput run returned malformed predictions")
@@ -900,7 +971,7 @@ def phase_throughput(card: str, name: str, lines, want: dict):
         for _ in range(13):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            x, w_new = pred.preprocess(lines, BUCKET)
+            x, w_new = pred.preprocess(lines, bucket)
             t = clock("preprocess", t)
             if m.stn is not None:
                 x, t = stn_stages(m, x, clock, t)
@@ -915,12 +986,12 @@ def phase_throughput(card: str, name: str, lines, want: dict):
     stage_ms = {k: statistics.median(v[3:]) for k, v in stages.items()}
     p50 = statistics.median(batch_ms)
     res = dict(model=name, dtype=str(m.dtype).split(".")[-1], batch=BATCH,
-               bucket=BUCKET, lines_per_s=BATCH / (p50 / 1e3),
+               bucket=bucket, lines_per_s=BATCH / (p50 / 1e3),
                p50_batch_ms=p50, min_batch_ms=min(batch_ms),
                max_batch_ms=max(batch_ms), stage_ms=stage_ms,
                card=card)
     emit("throughput", **res)
-    emit("trace", model=name, **trace_predict(pred, lines))
+    emit("trace", model=name, **trace_predict(pred, lines, bucket))
     return {**counts, "design": design, "stem_design": stem_design}
 
 
@@ -935,12 +1006,13 @@ def stn_stages(m, x, clock, t):
     return x, clock("sampler", t)
 
 
-def trace_predict(pred, lines, n: int = 5) -> dict:
-    """torch.profiler over ``n`` predict calls: the device's busy share of
-    the wall time, and the ops that take the most device and host time."""
+def trace_predict(pred, lines, bucket: int = BUCKET, n: int = 5) -> dict:
+    """torch.profiler over ``n`` predict calls at ``bucket``: the device's
+    busy share of the wall time, and the ops that take the most device and
+    host time."""
     def run():
         for _ in range(n):
-            pred.predict(lines, bucket=BUCKET)
+            pred.predict(lines, bucket=bucket)
 
     return _trace_summary(*profiled(run), n)
 
@@ -1020,7 +1092,8 @@ def check_bigru_train(state, batch, dtype_name: str):
     H = G // 3
     bytes_moved = nbytes(xw, u, rb, hs, gates)
     ops = 2 * T * 2 * B * H * G + 14 * T * 2 * B * H
-    b_ms, b_by = bound_ms(bytes_moved, ops, dtype_name)
+    designs = design_times("gru", xw, u, rb, uk, True, p_hs)
+    b_ms, b_by, peak_text = rnn_bound(bytes_moved, ops, dtype_name)
     # yardstick only: the port never calls torch.nn.GRU
     gru = torch_gru_from(rnn, rnn.dtype).train()
     feat_g = feat.detach().to(rnn.dtype).requires_grad_(True)
@@ -1038,8 +1111,8 @@ def check_bigru_train(state, batch, dtype_name: str):
         library_device_ms=device_ms(lambda: gru(feat_g)),
         library="torch.nn.GRU bidirectional (cuDNN), training-mode forward "
                 "on the layer input; includes the input projection",
-        bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
-        **design_times("gru", xw, u, rb, uk, True, p_hs),
+        bound_ms=b_ms, bound_by=b_by, bound_peak=peak_text,
+        bytes=bytes_moved, ops=ops, **designs,
     )
     emit("kernel_check", **res)
     require(res["ok"], f"bigru_train {dtype_name}: hs error {hs_err}, "
@@ -1196,7 +1269,7 @@ def compare_steps(k, p) -> tuple:
 def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
                        gold=None, want: dict = TRAIN_KERNELS,
                        bucket: int = BUCKET, norm_rtol: float = 2e-3,
-                       plain_stem: bool = True):
+                       plain_stem: bool = True, rnn_design: str = None):
     """Phases 7, 12, 16 and 21: one f32 train step of ``name`` (dropout 0)
     at ``bucket`` through the kernels against the same step through the
     plain versions on the card, and against the JAX package's step ``gold``
@@ -1206,7 +1279,10 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
     stem's kernels in the plain step, so that the check holds the rest of
     the path's kernels (the stem's are held to their plain versions in
     phases 15-17); the step with every kernel plain is then reported beside
-    it, with the difference that the stem's kernels alone make."""
+    it, with the difference that the stem's kernels alone make.
+    ``rnn_design``: the design every recurrence launch of the kernel step
+    must run on (phase 16: K3 in f32 on ``"resident"``); the step's
+    launches per design are reported in any case."""
     import numpy as np
     import torch
     from crnn_ocr_torch.train import state as st_lib
@@ -1236,15 +1312,22 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
     # showed that as 1.1e-3 of block3's largest gradient
     cudnn = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = False
+    from crnn_ocr_torch.kernels import bigru
+
     try:
         reset_launches()
         kern = one_step(False)
         kernel_counts = read_launches()
+        kernel_designs = {d: n for d, n in bigru.design_launches.items()
+                          if n}
         plain = one_step(True)
         plain_but_stem = None if plain_stem else one_step(True, stem=False)
     finally:
         torch.backends.cudnn.enabled = cudnn
     require_launches(kernel_counts, want, f"{name}: the f32 kernel step")
+    require(rnn_design is None or {d.name for d in kernel_designs}
+            == {rnn_design}, f"{name}: the f32 kernel step's recurrences "
+                             f"ran {kernel_designs}; expected {rnn_design}")
     extra = {}
     if plain_stem:
         res, ok = compare_steps(kern, plain)
@@ -1254,6 +1337,8 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
                      stem_kernels_alone=compare_steps(plain_but_stem,
                                                       plain)[0])
     res["launches_in_kernel_step"] = kernel_counts
+    res["designs_in_kernel_step"] = [[*d, n] for d, n in
+                                     kernel_designs.items()]
     # against the JAX package's step: the port preprocesses the lines itself
     # (standardized frames within 1e-4 of JAX's), so loss rtol 1e-4, each
     # line's loss 1e-3 + 1e-3 relative, the global gradient norm rtol 2e-3
@@ -1284,6 +1369,7 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
                 f"versions: {res}")
     require(golden_ok, f"{name} f32 train step differs from the JAX golden: "
                        f"{golden}")
+    return dict(launches=kernel_counts, designs=kernel_designs)
 
 
 def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
@@ -1917,13 +2003,14 @@ def check_bilstm(rnn, feat, dtype_name: str):
     tol = 2e-2 if dtype_name == "bfloat16" else 1e-4
     T, _, B, G = xw.shape
     bytes_moved, ops = lstm_sizes(xw, [got])
-    b_ms, b_by = bound_ms(bytes_moved, ops, dtype_name)
+    b_ms, b_by, peak_text = rnn_bound(bytes_moved, ops, dtype_name)
     res = dict(
         kernel="bilstm", dtype=dtype_name, T=T, B=B, H=G // 4,
         max_abs_err=err, tolerance=f"{tol} abs", ok=err <= tol,
         kernel_ms=time_ms(kernel), kernel_device_ms=device_ms(kernel),
         plain_ms=time_ms(lambda: bg.bilstm_plain(xw, u)),
-        bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
+        bound_ms=b_ms, bound_by=b_by, bound_peak=peak_text,
+        bytes=bytes_moved, ops=ops,
         library="torch.nn.LSTM bidirectional (cuDNN) on the layer input; "
                 "its time includes the input projection",
         **design_times("lstm", xw, u, None, uk, False, want),
@@ -1965,7 +2052,7 @@ def check_bilstm_train(state, batch, dtype_name: str):
                          2e-2 if bf16 else 0.0)
     T, _, B, G = xw.shape
     bytes_moved, ops = lstm_sizes(xw, [hs, st])
-    b_ms, b_by = bound_ms(bytes_moved, ops, dtype_name)
+    b_ms, b_by, peak_text = rnn_bound(bytes_moved, ops, dtype_name)
     # yardstick only: the port never calls torch.nn.LSTM
     lstm = torch_lstm_from(rnn, rnn.dtype).train()
     feat_g = feat.detach().to(rnn.dtype).requires_grad_(True)
@@ -1985,7 +2072,8 @@ def check_bilstm_train(state, batch, dtype_name: str):
         library_device_ms=device_ms(lambda: lstm(feat_g)),
         library="torch.nn.LSTM bidirectional (cuDNN), training-mode "
                 "forward on the layer input; includes the input projection",
-        bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
+        bound_ms=b_ms, bound_by=b_by, bound_peak=peak_text,
+        bytes=bytes_moved, ops=ops,
         **design_times("lstm", xw, u, None, uk, True, p_hs),
     )
     emit("kernel_check", **res)
@@ -2052,6 +2140,50 @@ def phase_lstm_goldens(g, lg):
             f"{LSTM_NAME}: probabilities differ from JAX's: {res}")
 
 
+# ---- phase 23: fonts-small served in its shipped f32 ----
+
+F32_SERVE_KERNELS = {"fused_stem": 1, "bigru": 2}
+
+
+def phase_f32_small(g, card: str):
+    """Phase 23: ``fonts-small`` (n_units 128) in f32, as it ships. K2 at
+    its serving shape (B 256, bucket 128, T 32) and K3 at its training
+    shape (B 128) on the path's own tensors against their plain versions,
+    with the old ``"f32"`` design and ``nn.GRU`` in f32 on the same inputs
+    (``check_bigru``, ``check_bigru_train``); then the serving path counted
+    at B 256, bucket 128: each ``predict`` must launch K1 once (on
+    ``"conv9"``) and K2 twice, every K2 on ``PATH_DESIGN``'s design.
+    Returns the two checks and the counted run's launches."""
+    import torch
+    from crnn_ocr_torch import load_pretrained
+
+    lines = golden_lines(g, SMALL_KEY)
+    lines = (lines * (BATCH // len(lines) + 1))[:BATCH]
+    with torch.inference_mode():
+        pred = load_pretrained(SMALL_NAME, device="cuda")
+        m = pred.model
+        require(m.dtype == torch.float32,
+                f"{SMALL_NAME} ships f32, loaded {m.dtype}")
+        x, _ = pred.preprocess(lines, SMALL_BUCKET)
+        feat = m.frame_features(m.backbone(m.stem(x)))
+        k2 = check_bigru(m, feat, "float32")
+    _, _, state, _, batch = train_setup(g, "float32", 0.0, SMALL_NAME,
+                                        SMALL_KEY, SMALL_BUCKET)
+    k3 = check_bigru_train(state, batch, "float32")
+    counts = phase_throughput(card, SMALL_NAME, lines, F32_SERVE_KERNELS,
+                              SMALL_BUCKET, "serve_f32")
+    return k2, k3, counts
+
+
+def f32_fields(c: dict) -> dict:
+    """An f32 recurrence check's numbers for the kernels line."""
+    return {k: c[k] for k in (
+        "T", "B", "H", "max_abs_err", "kernel_device_ms", "kernel_ms",
+        "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+        "bound_by", "bound_peak", "design", "cluster", "rows", "old_f32_ms",
+        "old_f32_max_abs_err", "resources") if k in c}
+
+
 def main() -> int:
     try:
         import torch
@@ -2080,10 +2212,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
 
     phase_build(card)
-
-    # phase 2: kernels against their plain versions on the main path's data
     g = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
                              "greedy_goldens.npz"))
+    # phase 2: kernels against their plain versions on the main path's data
     lines = golden_lines(g, "hard")
     lines = (lines * (BATCH // len(lines) + 1))[:BATCH]
     checks = []
@@ -2138,10 +2269,11 @@ def main() -> int:
     # package's own XLA and fused stems give per-parameter gradient norms
     # 1.7e-3 apart on this batch (tools/gen_torch_goldens.py, both stems),
     # the port's CPU step is 3.1e-3 from the golden; so 5e-3 here
-    phase_train_parity(g, SMALL_NAME, SMALL_KEY,
-                       {k[6:]: gold[k] for k in gold.files
-                        if k.startswith("small/")},
-                       TRAIN_KERNELS, SMALL_BUCKET, norm_rtol=5e-3)
+    small_step = phase_train_parity(
+        g, SMALL_NAME, SMALL_KEY,
+        {k[6:]: gold[k] for k in gold.files if k.startswith("small/")},
+        TRAIN_KERNELS, SMALL_BUCKET, norm_rtol=5e-3,
+        rnn_design=PATH_DESIGN["bigru_train"])
     small = phase_train(g, card, SMALL_NAME, SMALL_KEY, TRAIN_KERNELS,
                         SMALL_BUCKET)
     for k in ("stem_stats", "stem_bwd_partials", "stem_bwd_final"):
@@ -2163,6 +2295,25 @@ def main() -> int:
     train = phase_train(g, card, LSTM_NAME, "hard", LSTM_TRAIN_KERNELS)
     counts["bilstm_train"] = train["bilstm_train"]
     designs["bilstm_train"] = train["design"]
+
+    # phase 23: fonts-small served in its shipped f32
+    k2_f32, k3_f32, f32_serve = phase_f32_small(g, card)
+    (k3_design, k3_n), = small_step["designs"].items()
+    f32_rows = {
+        "bigru": dict(f32_fields(k2_f32), launches=f32_serve["bigru"],
+                      design_launches=f32_serve["design"][1],
+                      ms_per_step=k2_f32["kernel_device_ms"] / k2_f32["T"],
+                      path="fonts-small serving, phase 23"),
+        "bigru_train": dict(f32_fields(k3_f32),
+                            launches=small_step["launches"]["bigru_train"],
+                            design_launches=k3_n,
+                            ms_per_step=(k3_f32["kernel_device_ms"]
+                                         / k3_f32["T"]),
+                            path="fonts-small f32 train step, phase 16"),
+    }
+    require(f32_serve["design"][0].name == k2_f32["design"]
+            and k3_design.name == k3_f32["design"],
+            "the f32 rows were timed on another design than their runs ran")
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
@@ -2221,6 +2372,12 @@ def main() -> int:
         ))
         if name == "fused_stem":  # phase 4's launches by design
             kernels[-1]["design_launches"] = stem_design_launches
+        if name in f32_rows:  # fonts-small's f32 path (phases 16, 23)
+            kernels[-1]["f32"] = f32_rows[name]
+        if name.startswith("bi"):  # f32 at this row's own path shape
+            kernels[-1]["f32_path_shape"] = f32_fields(next(
+                o for o in checks
+                if o["kernel"] == name and o["dtype"] == "float32"))
         if name in designs:  # the recurrences: T dependent steps
             d, n = designs[name]
             require((c["design"], c["cluster"], c["rows"]) == tuple(d),

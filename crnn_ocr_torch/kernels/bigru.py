@@ -14,12 +14,14 @@ U[d]`` (plus the GRU's recurrent bias ``b_rec[d]``) and the gate math, with
 the state carried in f32 whatever the compute dtype: h, and for the LSTM
 also c, as the Pallas kernels carry them (``bigru.py:63-73, 343-345``).
 The CUDA kernels are in ``csrc/bigru.cu``, the cell a template parameter
-of each: bf16 on the tensor cores, f32 on the CUDA cores (its header has
-the designs and the H100 bounds, bytes-bound plus 64 dependent steps).
-:func:`design_for` picks the design from the shape alone: up to 256
-padded units K2-K5 keep U resident in a cluster's shared memory, wider
-bf16 shapes stream it from L2. ``bigru_plain`` and ``bilstm_plain`` are the
-same functions as Python loops over T.
+of each (its header has the designs and the H100 bounds, bytes-bound plus
+the T dependent steps). :func:`design_for` picks the design from the shape
+alone: up to 256 padded units K2-K5 in bf16, and K2 and K3 in f32, keep U
+resident in a cluster's shared memory (bf16 products on the tensor cores;
+f32 ones as 3xTF32 on the tensor cores); wider bf16 shapes stream U from
+L2; the f32 LSTM and wider f32 GRUs read it from L2 on the CUDA cores.
+``bigru_plain`` and ``bilstm_plain`` are the same functions as Python loops
+over T.
 
 ``bigru`` and ``bilstm`` dispatch on the device of ``xw`` and on nothing
 else: a CPU tensor goes through the plain version, a CUDA tensor through
@@ -59,30 +61,38 @@ STASH = {"gru": 4, "lstm": 5}  # the training stash's width, in units of H
 
 # The resident design keeps U in the shared memory of a cluster of at most
 # RESIDENT_MAX_CLUSTER CTAs, each owning at most RESIDENT_UNITS units of
-# every gate (one M-tile). Every (cell, stash) pair runs it, as
+# every gate (one M-tile). Every (cell, stash) pair runs it in bf16, as
 # csrc/bigru.cu::resident takes them: K2 (the GRU, serving), K3 (the GRU,
-# training), K4 (the LSTM, serving), K5 (the LSTM, training).
+# training), K4 (the LSTM, serving), K5 (the LSTM, training); in f32 (the
+# product as 3xTF32 on the tensor cores) the GRU (K2, K3) up to
+# F32_RESIDENT_UNITS padded units. The dtype picks the instance.
 RESIDENT_UNITS = 64
 RESIDENT_MAX_CLUSTER = 4
 RESIDENT_KERNELS = (("gru", False), ("gru", True), ("lstm", False),
                     ("lstm", True))
 RESIDENT_ROWS = (8, 16, 32)  # batch rows a cluster, the instances compiled
-# The CTAs the H100 holds at once per resident instance, (cell, stash,
-# padded units, rows): cudaOccupancyMaxActiveClusters times the cluster
-# size, as tools/time_rnn_designs.py measured them (PERF.md), the same with
-# and without the stash. A grid past it runs in two waves and loses (K4 at
-# B 256: 16 rows in two waves 20 % slower than 32 in one). design_for takes
-# the fewest rows whose grid fits, since at one wave fewer rows were
-# measured faster; a width not in the table, or a batch that no measured
-# instance holds in one wave, takes 16 rows.
+F32_RESIDENT_UNITS = 256
+F32_RESIDENT_ROWS = (8, 16)  # two f32 h buffers of 32 rows do not fit at 256
+# The CTAs the H100 holds at once per resident instance, (dtype, cell,
+# stash, padded units, rows): cudaOccupancyMaxActiveClusters times the
+# cluster size, as tools/time_rnn_designs.py measured them (PERF.md), the
+# same with and without the stash. A grid past it runs in two waves and
+# loses (K4 at B 256: 16 rows in two waves 20 % slower than 32 in one).
+# design_for takes the fewest rows whose grid fits, since at one wave fewer
+# rows were measured faster; a width not in the table, or a batch that no
+# measured instance holds in one wave, takes 16 rows. In f32 at 128 units
+# the card holds two CTAs an SM, at 256 one (U's slice alone takes 192 KB).
 WAVE_CTAS = {
-    (cell, stash, hp, rows): ctas
-    for cell, hp, caps in (("gru", 256, (248, 248, 120)),
-                           ("lstm", 256, (120, 120, 120)),
-                           ("gru", 128, (528, 528, 264)),
-                           ("lstm", 128, (396, 396, 264)))
+    (dtype, cell, stash, hp, rows): ctas
+    for dtype, rows_of, cell, hp, caps in (
+        (torch.bfloat16, RESIDENT_ROWS, "gru", 256, (248, 248, 120)),
+        (torch.bfloat16, RESIDENT_ROWS, "lstm", 256, (120, 120, 120)),
+        (torch.bfloat16, RESIDENT_ROWS, "gru", 128, (528, 528, 264)),
+        (torch.bfloat16, RESIDENT_ROWS, "lstm", 128, (396, 396, 264)),
+        (torch.float32, F32_RESIDENT_ROWS, "gru", 256, (120, 120)),
+        (torch.float32, F32_RESIDENT_ROWS, "gru", 128, (264, 264)))
     for stash in (False, True)
-    for rows, ctas in zip(RESIDENT_ROWS, caps)
+    for rows, ctas in zip(rows_of, caps)
 }
 # launches per Design, counted where K2-K5 launch (the comparisons'
 # launches included); the per-kernel counts above are the path's
@@ -91,29 +101,47 @@ design_launches: collections.Counter = collections.Counter()
 
 class Design(NamedTuple):
     """Which kernel design runs a recurrence: ``"resident"`` (U in a
-    cluster's shared memory, ``cluster`` CTAs of ``rows`` batch rows),
-    ``"streamed"`` (U streamed from L2 by blocks of 16 rows) or ``"f32"``
-    (CUDA cores)."""
+    cluster's shared memory, ``cluster`` CTAs of ``rows`` batch rows; bf16
+    products on the tensor cores, f32 ones as 3xTF32 on them),
+    ``"streamed"`` (bf16, U streamed from L2 by blocks of 16 rows) or
+    ``"f32"`` (U read from L2 by the CUDA cores)."""
 
     name: str
     cluster: int = 0
     rows: int = 0
 
 
+def _resident(cell: str, H: int, dtype) -> bool:
+    """Whether a recurrence of ``H`` units may run the resident design: in
+    bf16 every cell (up to 256 padded units, else it streams), in f32 the
+    GRU up to F32_RESIDENT_UNITS padded units."""
+    return dtype == torch.bfloat16 or (
+        cell == "gru" and -(-H // 16) * 16 <= F32_RESIDENT_UNITS)
+
+
+def resident_rows(dtype) -> tuple:
+    """The rows a cluster of the resident instances compiled for ``dtype``."""
+    return RESIDENT_ROWS if dtype == torch.bfloat16 else F32_RESIDENT_ROWS
+
+
 def design_for(cell: str, stash: bool, H: int, B: int, dtype) -> Design:
     """The design for a recurrence of ``H`` units at batch ``B``, a pure
     function of the shape: bf16 K2-K5 take the resident design whenever
     the padded units fit 4 CTAs of 64 (H <= 256), each CTA an even number
-    of units; the cluster is the fewest CTAs that hold them, and the rows a
-    cluster the fewest of ``RESIDENT_ROWS`` whose grid ``WAVE_CTAS`` says
-    the card holds in one wave, else 16."""
-    if dtype != torch.bfloat16:
+    of units, and so does the f32 GRU (K2, K3) up to F32_RESIDENT_UNITS;
+    the cluster is the fewest CTAs that hold them, and the rows a cluster
+    the fewest of the instances' rows whose grid ``WAVE_CTAS`` says the
+    card holds in one wave, else 16. Wider bf16 shapes stream U; the f32
+    LSTM and wider f32 GRUs take the ``"f32"`` design."""
+    if not _resident(cell, H, dtype):
         return Design("f32")
-    hp = _padded_units(H, dtype)
+    hp = _padded_units(H, dtype, cell)
     for c in range(-(-hp // RESIDENT_UNITS), RESIDENT_MAX_CLUSTER + 1):
         if hp % c == 0 and (hp // c) % 2 == 0:
-            rows = next((r for r in RESIDENT_ROWS if -(-B // r) * 2 * c
-                         <= WAVE_CTAS.get((cell, stash, hp, r), 0)), 16)
+            rows = next((r for r in resident_rows(dtype)
+                         if -(-B // r) * 2 * c
+                         <= WAVE_CTAS.get((dtype, cell, stash, hp, r), 0)),
+                        16)
             return Design("resident", c, rows)
     return Design("streamed", 0, 16)
 
@@ -218,13 +246,17 @@ def mma_operand(u):
     return ut.permute(0, 1, 2, 4, 3, 5).reshape(D, G, H).contiguous()
 
 
-def _padded_units(H: int, dtype) -> int:
-    """Hidden units per gate the kernel runs: the bf16 kernel's mma tiles
-    take a multiple of 16. A padded unit sees zero input and weights (and
-    bias), so its state stays 0: for the GRU z = 1/2 and hh = 0; for the
-    LSTM i = f = o = 1/2 and g = 0, so c stays 0 and h = tanh(0) / 2 = 0.
-    It adds nothing to the real units' products."""
-    return -(-H // 16) * 16 if dtype == torch.bfloat16 else H
+def _padded_units(H: int, dtype, cell: str) -> int:
+    """Hidden units per gate the shape's design runs: the tensor-core
+    designs (every bf16 one, the f32 GRU's resident one) take a multiple of
+    16 (mma tiles, core matrices); the ``"f32"`` design any H. A padded unit
+    sees zero input and weights (and bias), so its state stays 0: for the
+    GRU z = 1/2 and hh = 0; for the LSTM i = f = o = 1/2 and g = 0, so c
+    stays 0 and h = tanh(0) / 2 = 0. It adds nothing to the real units'
+    products."""
+    if _resident(cell, H, dtype):
+        return -(-H // 16) * 16
+    return H
 
 
 def _pad_gates(x, H: int, hp: int):
@@ -235,18 +267,24 @@ def _pad_gates(x, H: int, hp: int):
 
 
 def kernel_weights(u):
-    """U (2, H, nH) -> the operand the card's kernel reads: for bf16, the
-    units padded to a multiple of 16 and the layout of :func:`mma_operand`;
-    for f32, U itself. It depends on the weights only, so a caller that
-    runs them often builds it once (``BiRNN`` does when its weights are
-    loaded) and passes it to :func:`bigru` or :func:`bilstm`."""
-    if u.dtype != torch.bfloat16:
+    """U (2, H, nH) -> the operand the card's kernel reads (n = 3 for the
+    GRU, 4 for the LSTM): for bf16, the units padded to a multiple of 16 and
+    the layout of :func:`mma_operand`; for the f32 GRU's resident design,
+    the units padded the same way and U[d] transposed, (2, 3 hp, hp) as
+    [d][n][k]; for the ``"f32"`` design, U itself. It depends on the weights
+    only, so a caller that runs them often builds it once (``BiRNN`` does
+    when its weights are loaded) and passes it to :func:`bigru` or
+    :func:`bilstm`."""
+    H, G = u.shape[1], u.shape[2]
+    cell = "lstm" if G == 4 * H else "gru"
+    if not _resident(cell, H, u.dtype):
         return u.contiguous()
-    H = u.shape[1]
-    hp = _padded_units(H, u.dtype)
+    hp = _padded_units(H, u.dtype, cell)
     if hp != H:
         u = F.pad(_pad_gates(u, H, hp), (0, 0, 0, hp - H))
-    return mma_operand(u)
+    if u.dtype == torch.bfloat16:
+        return mma_operand(u)
+    return u.transpose(1, 2).contiguous()
 
 
 def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
@@ -256,7 +294,8 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
     device without a kernel, and for a launch the card refuses (a resident
     cluster that cannot be scheduled): no other design stands in.
     ``design``: :func:`design_for`'s, unless a caller that compares designs
-    on the same inputs names another."""
+    on the same inputs names another (then ``u_kernel`` None, built here
+    for that design)."""
     T, B, H = _check(xw, u, rec_bias, cell)
     if design is None:
         design = design_for(cell, stash, H, B, xw.dtype)
@@ -268,16 +307,23 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
     dev = xw.device
     if u.device != dev or (rec_bias is not None and rec_bias.device != dev):
         raise RuntimeError(f"{name}: every operand must be on one device")
-    n, sw = GATES[cell], STASH[cell]
     bf16 = xw.dtype == torch.bfloat16
-    hp = _padded_units(H, xw.dtype)
+    takes = {"resident": _resident(cell, H, xw.dtype), "streamed": bf16,
+             "f32": not bf16}
+    if not takes.get(design.name):
+        raise ValueError(f"{name}: the {design.name} design does not take "
+                         f"{xw.dtype}")
+    n, sw = GATES[cell], STASH[cell]
+    # every design but "f32" runs units padded to a multiple of 16
+    hp = H if design.name == "f32" else -(-H // 16) * 16
     if u_kernel is None:
-        u_kernel = kernel_weights(u)
-    want = (2, n * hp, hp) if bf16 else (2, H, n * H)
+        u_kernel = u.contiguous() if design.name == "f32" else (
+            kernel_weights(u))
+    want = (2, H, n * H) if design.name == "f32" else (2, n * hp, hp)
     if (tuple(u_kernel.shape) != want or u_kernel.dtype != xw.dtype
             or u_kernel.device != dev or not u_kernel.is_contiguous()):
-        raise ValueError(f"{name}: u_kernel must be kernel_weights(u), "
-                         f"{want} {xw.dtype} on {dev}; got "
+        raise ValueError(f"{name}: u_kernel must be {design.name}'s "
+                         f"operand, {want} {xw.dtype} on {dev}; got "
                          f"{tuple(u_kernel.shape)} {u_kernel.dtype} on "
                          f"{u_kernel.device}")
     from crnn_ocr_torch.kernels import _build
@@ -293,9 +339,6 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
     hs = torch.empty((T, 2, B, hp), dtype=xw.dtype, device=dev)
     gates = (torch.empty((T, 2, B, sw * hp), dtype=torch.float32, device=dev)
              if stash else None)
-    if (design.name == "f32") == bf16:
-        raise ValueError(f"{name}: the {design.name} design does not take "
-                         f"{xw.dtype}")
     lib = _build.load("bigru")
     ptrs = [t.data_ptr() for t in operands]
     out = [hs.data_ptr(), gates.data_ptr() if stash else None]
@@ -304,13 +347,14 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
         if design.name == "resident":
             fn = lib.crnn_birnn_resident
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+            fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [
                 ctypes.c_int] * 5 + [ctypes.c_void_p]
             if cell == "lstm":
                 ptrs.append(None)  # no recurrent bias
             # the training instance (K3, K5) when the stash pointer is set
-            err = fn(int(cell == "lstm"), *ptrs, *out, T, B, hp,
-                     design.cluster, design.rows, stream)
+            # the element size picks the bf16 or the f32 (3xTF32) instance
+            err = fn(int(cell == "lstm"), xw.element_size(), *ptrs, *out, T,
+                     B, hp, design.cluster, design.rows, stream)
         else:
             fn = getattr(lib, f"crnn_bi{cell}_{'bf16' if bf16 else 'f32'}")
             fn.restype = ctypes.c_int

@@ -26,8 +26,9 @@
 // stash, whether it has a recurrent bias and its per-unit step. Three
 // designs; kernels/bigru.py::design_for picks one from the shape alone:
 //
-// * resident (bf16 K2-K5, H <= 256 after padding), birnn_resident_kernel:
-//   U stays in shared memory for all T steps. Each
+// * resident (bf16 K2-K5 and f32 K2-K3, H <= 256 after padding),
+//   birnn_resident_kernel, its operand types and product a policy
+//   (ResBf16, ResTf32): U stays in shared memory for all T steps. Each
 //   (direction, tile of R batch rows) is a cluster of C <= 4 CTAs; CTA c
 //   owns the units [c H/C, (c+1) H/C) of every gate, so its U slice (at
 //   H = 256, C = 4: 96 KB for the GRU, 128 KB for the LSTM) is loaded once,
@@ -55,6 +56,21 @@
 //   cycles at 128 B a cycle) and the cluster barrier waits for the slowest
 //   CTA: the design is bound by this latency per step, not by the bytes of
 //   xw and the outputs.
+//   In f32 (ResTf32) U's slice and h are f32, 4 k a 16-byte core row, and
+//   the product is 3xTF32 on mma.sync.m16n8k8 from the same ldmatrix
+//   fragments: every operand split hi + lo as it is loaded, hi.hi + hi.lo
+//   + lo.hi (one TF32 product errs by ~5e-4 of the terms' magnitudes,
+//   tests/test_torch_rnn_f32.py, and a gate keeps f32's ~1e-7). Shared
+//   memory: U's slice 3 x 64 x H x 4 bytes (96 KB at H = 128, 192 KB at
+//   H = 256) plus two f32 h buffers of R x H (at H = 256 and R = 16, 32 KB:
+//   224 KB of the 227). So R is 8 or 16; at H = 128 the card holds two
+//   CTAs an SM (264 in a wave), at H = 256 one (120, in clusters of 4), and
+//   K2 at B = 256 runs 128 CTAs of 16 rows in two waves. On the H100 a step
+//   takes ~3.1 us at H = 128 on 8 rows whatever the batch: about half of
+//   it the product (~20 % of the TF32 peak) and half the h exchange, the
+//   barrier and the cell math (a variant without the product, timing only,
+//   1.5-1.9 us). FMAs on the CUDA cores from the same layouts measured 10 %
+//   slower at H = 128 and 25-40 % at H = 256 (PERF.md).
 // * streamed (bf16 shapes above 4 x 64 units), birnn_mma_kernel: the
 //   work is split by (direction, tile of batch rows), never by hidden
 //   columns, so no block needs another block's state and the time loop
@@ -74,10 +90,11 @@
 //   8-byte shared load per lane. At H = 256 the LSTM's ring (8 warps x 6
 //   stages x 4 gates x 4 tiles x 256 B = 192 KB) and the two A buffers
 //   (16.5 KB) take 208.5 KB.
-// * f32, birnn_f32_kernel, split as the streamed design: a block has H
-//   threads; thread j owns column j of every gate for kBT rows and walks k
-//   over H with CUDA-core FMAs, U[d][k][j] read from global memory, round(h)
-//   (here h itself) in shared memory as [H][kBT].
+// * f32 (the LSTM, K4 and K5, and GRUs above 256 units),
+//   birnn_f32_kernel, split as the streamed design: a block has H threads;
+//   thread j owns column j of every gate for kBT rows and walks k over H
+//   with CUDA-core FMAs, U[d][k][j] read from global memory (L2) every
+//   step, h in shared memory as [H][kBT]: ~35 us a step at H = 256.
 //
 // K3 and K5 are the kernels instantiated with kStash = true, chosen by a
 // non-null gates pointer: the serving instances (kStash = false) compute
@@ -95,7 +112,12 @@
 //   -> 25.4 us; 17.2 GFLOP -> 17.4 us. K5 at the training path: xw 33.6 MB
 //   + U 1.0 MB + hs 8.4 MB + stash 83.9 MB = 126.9 MB -> 37.9 us; 8.6 GFLOP
 //   -> 8.7 us.
-// All four are bytes-bound, the stash above all, plus 64 dependent steps.
+// * f32 K2 at fonts-small's serving path (T=32, B=256, H=128): xw 25.2 MB
+//   + U 0.4 MB + hs 8.4 MB = 34.0 MB -> 10.1 us; 1.64 GFLOP -> 9.9 us as
+//   3xTF32 (three TF32 products each, at 495 TFLOP/s), 24.4 us by FMAs on
+//   the CUDA cores (67 TFLOP/s). K3 at its training path (B=128): xw 12.6
+//   MB + U 0.4 MB + hs 4.2 MB + gates 16.8 MB = 34.0 MB -> 10.1 us.
+// All are bytes-bound, the stash above all, plus T dependent steps.
 // In the streamed design each block re-reads its direction's U from L2
 // every step, which bounds it near 3.4 us (GRU) and 4.5 us (LSTM) per
 // step; the resident design reads U from global memory once, and its step
@@ -499,6 +521,11 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
   asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
                : "memory");
 }
+__device__ __forceinline__ void st_cluster(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
                                         uint32_t& r2, uint32_t& r3,
@@ -522,6 +549,24 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+__device__ __forceinline__ void mma1688(float* c, const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo exactly: hi is x with its low 13 mantissa bits cleared (a
+// TF32 value), lo = x - hi, |lo| < 2^-10 |x|. The tensor cores read a TF32
+// operand's top 19 bits, so lo enters a product as its own truncation (the
+// split of csrc/fused_stem.cu's K8 and K10).
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(hi)));
+}
 
 // The unit of the CTA's slice that row m of a gate's M-tile holds: the
 // accumulator rows m and m + 8 of one thread (m = 16 warp + lane / 4) are
@@ -531,95 +576,225 @@ __device__ __forceinline__ int res_unit(int m) {
   return 16 * (m >> 4) + 2 * (m & 7) + ((m >> 3) & 1);
 }
 
-// gates^T (NG M-tiles of 64 units, R rows) = U_slice^T . round(h)^T on
-// mma.sync.m16n8k16, its fragments loaded with ldmatrix from the resident
-// layouts: warp w takes M rows 16w..16w+15 of every gate tile; acc[q][4 jn
-// + v] holds (M row 16w + lane / 4 + 8 (v / 2), batch row 8 jn + 2 (lane %
-// 4) + v % 2).
-template <int R, int NG>
-__device__ __forceinline__ void product_mma(float (&acc)[NG][R / 2],
-                                            uint32_t a_addr, uint32_t b_addr,
-                                            int H, uint32_t tile_bytes,
-                                            int warp, int lane) {
-  constexpr int NJ = R / 8;
-  const int kc = H / 8;
-  const int mi = lane >> 3, r8 = lane & 7;  // this lane's ldmatrix row
-  // A: matrix mi is (rows + 8 if mi & 1, k half mi >> 1) of the warp's rows
-  const uint32_t a_lane =
-      a_addr + ((2 * warp + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
-  // B: matrix mi is (8-row tile mi >> 1 of a pair, k half mi & 1)
-  const uint32_t b_lane =
-      b_addr + (((mi >> 1) % NJ) * kc + (mi & 1)) * 128 + r8 * 16;
-  for (int kk = 0; kk < H / 16; ++kk) {
-    uint32_t b[NJ][2];
-    if constexpr (NJ == 1) {
-      ldsm_x2(b[0][0], b[0][1], b_lane + kk * 256);
-    } else {
+// B's fragments (round(h)^T, NJ 8-row tiles of batch rows) of one k-step
+// from the lane's ldmatrix row address: matrix mi of an x4 is (tile mi / 2
+// of a pair, k half mi % 2); one x2 when NJ = 1.
+template <int NJ>
+__device__ __forceinline__ void load_b(uint32_t (&b)[NJ][2], uint32_t addr,
+                                       int kc) {
+  if constexpr (NJ == 1) {
+    ldsm_x2(b[0][0], b[0][1], addr);
+  } else {
 #pragma unroll
-      for (int p = 0; p < NJ / 2; ++p)  // tiles 2p and 2p + 1
-        ldsm_x4(b[2 * p][0], b[2 * p][1], b[2 * p + 1][0], b[2 * p + 1][1],
-                b_lane + 2 * p * kc * 128 + kk * 256);
-    }
-#pragma unroll
-    for (int q = 0; q < NG; ++q) {
-      uint32_t a[4];
-      ldsm_x4(a[0], a[1], a[2], a[3], a_lane + q * tile_bytes + kk * 256);
-#pragma unroll
-      for (int jn = 0; jn < NJ; ++jn)
-        mma16816(&acc[q][4 * jn], a, b[jn][0], b[jn][1]);
-    }
+    for (int p = 0; p < NJ / 2; ++p)  // tiles 2p and 2p + 1
+      ldsm_x4(b[2 * p][0], b[2 * p][1], b[2 * p + 1][0], b[2 * p + 1][1],
+              addr + 2 * p * kc * 128);
   }
 }
 
-// xw (T, 2, B, NG H), hs (T, 2, B, H) bf16; ut (2, NG H, H) bf16 as
-// birnn_mma_kernel reads it; gates (T, 2, B, kStash H) f32 when kStash.
-// Grid (C x tiles of R rows, 2 directions), clusters of C CTAs along x;
-// CTA `rank` owns the units [rank upc, (rank + 1) upc) of every gate.
-// Shared memory: U's slice as NG M-tiles of 64 rows x H (K-major core
-// matrices: (row, k) at ((row / 8) (H / 8) + k / 8) 128 + (row % 8) 16 +
-// (k % 8) 2), then two h buffers of R rows x H in the same layout.
-template <class Cell, int R, bool kStash>
+// The resident design's operand types and products. Shared memory holds U's
+// slice (NG M-tiles of 64 rows x H) and round(h) (R rows x H, twice) as
+// K-major core matrices of 8 rows x 16 bytes: (row, k) at ((row / 8) kc +
+// k / E) 128 + (row % 8) 16 + (k % E) sizeof(T), E = 16 / sizeof(T)
+// elements a core row and kc = H / E. A thread moves its two adjacent units
+// of xw, h and hs as one Pair. The products fill acc[q][4 jn + v] with
+// (M row 16 warp + lane / 4 + 8 (v / 2), batch row 8 jn + 2 (lane % 4) +
+// v % 2) of gates^T = U_slice^T . round(h)^T: gate q's units are M-tile q,
+// the batch rows N, so the thread that holds (unit, row) of one gate holds
+// it in every gate.
+
+// bf16 (K2-K5): mma.sync.m16n8k16, its fragments loaded with ldmatrix.
+struct ResBf16 {
+  using T = __nv_bfloat16;
+  using Pair = uint32_t;
+  __device__ static float first(Pair p) { return bf16_lo(p); }
+  __device__ static float second(Pair p) { return bf16_hi(p); }
+  __device__ static Pair pack(float a, float b) { return pack_bf16(a, b); }
+  __device__ static Pair load(const T* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ static void store(T* p, Pair v) {
+    *reinterpret_cast<uint32_t*>(p) = v;
+  }
+
+  // U's slice, once, from ut (birnn_mma_kernel's operand): 32 bytes of ut
+  // (one 16-block of k, permuted) become the two core-matrix rows of k 0-7
+  // and 8-15; rows past upc stay 0
+  template <int NG>
+  __device__ static void load_u(unsigned char* sA, const T* utd, int H,
+                                int rank, int upc, int tid) {
+    const int nk = H / 16, kc = H / 8;
+    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 2;
+#pragma unroll 4
+    for (int i = tid; i < NG * kResUnits * nk; i += kResThreads) {
+      const int kb = i % nk, m = (i / nk) % kResUnits,
+                q = i / (nk * kResUnits);
+      const int jl = res_unit(m);
+      uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+      if (jl < upc) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            utd + (size_t)(q * H + rank * upc + jl) * H + kb * 16);
+        const uint4 v0 = __ldg(src), v1 = __ldg(src + 1);
+        lo = make_uint4(v0.x, v0.z, v1.x, v1.z);
+        hi = make_uint4(v0.y, v0.w, v1.y, v1.w);
+      }
+      unsigned char* dst =
+          sA + q * tile_bytes + ((m >> 3) * kc + 2 * kb) * 128 + (m & 7) * 16;
+      *reinterpret_cast<uint4*>(dst) = lo;
+      *reinterpret_cast<uint4*>(dst + 128) = hi;
+    }
+  }
+
+  // warp w takes M rows 16w..16w+15 of every gate tile; matrix mi of A's
+  // ldmatrix is (rows + 8 if mi & 1, k half mi >> 1) of the warp's rows
+  template <int R, int NG>
+  __device__ static void product(float (&acc)[NG][R / 2],
+                                 const unsigned char* sA,
+                                 const unsigned char* sH, int H, int warp,
+                                 int lane) {
+    constexpr int NJ = R / 8;
+    const int kc = H / 8;
+    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 2;
+    const int mi = lane >> 3, r8 = lane & 7;  // this lane's ldmatrix row
+    const uint32_t a_lane = smem_addr(sA) +
+        ((2 * warp + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
+    const uint32_t b_lane =
+        smem_addr(sH) + (((mi >> 1) % NJ) * kc + (mi & 1)) * 128 + r8 * 16;
+    for (int kk = 0; kk < H / 16; ++kk) {
+      uint32_t b[NJ][2];
+      load_b<NJ>(b, b_lane + kk * 256, kc);
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        uint32_t a[4];
+        ldsm_x4(a[0], a[1], a[2], a[3], a_lane + q * tile_bytes + kk * 256);
+#pragma unroll
+        for (int jn = 0; jn < NJ; ++jn)
+          mma16816(&acc[q][4 * jn], a, b[jn][0], b[jn][1]);
+      }
+    }
+  }
+};
+
+// f32 (K2, K3): U and h in f32, U read from kernel_weights' (2, NG H, H)
+// f32 operand, U[d] transposed ([n][k]), 16 bytes (4 k) a core row. The
+// product runs on mma.sync.m16n8k8 in TF32 on the same ldmatrix fragments
+// as bf16's (a 16-byte core row is 4 f32, so lane (g, t)'s 32-bit word of
+// matrix row g is element (g, t) of a TF32 fragment), every operand split
+// hi + lo as it is loaded (split_tf32) and three products a k-step: hi.hi
+// into acc, lo.hi + hi.lo into a second accumulator (shorter dependent
+// chains), added at the end. The dropped lo.lo and the truncation of lo
+// leave less than 3 x 2^-20 of |u h| a term (tests/test_torch_rnn_f32.py
+// models the split).
+struct ResTf32 {
+  using T = float;
+  using Pair = float2;
+  __device__ static float first(Pair p) { return p.x; }
+  __device__ static float second(Pair p) { return p.y; }
+  __device__ static Pair pack(float a, float b) { return make_float2(a, b); }
+  __device__ static Pair load(const T* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  __device__ static void store(T* p, Pair v) {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+
+  template <int NG>
+  __device__ static void load_u(unsigned char* sA, const T* utd, int H,
+                                int rank, int upc, int tid) {
+    const int kc = H / 4;
+    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 4;
+#pragma unroll 4
+    for (int i = tid; i < NG * kResUnits * kc; i += kResThreads) {
+      const int kb = i % kc, m = (i / kc) % kResUnits,
+                q = i / (kc * kResUnits);
+      const int jl = res_unit(m);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (jl < upc)
+        v = __ldg(reinterpret_cast<const float4*>(
+            utd + (size_t)(q * H + rank * upc + jl) * H + kb * 4));
+      *reinterpret_cast<float4*>(sA + q * tile_bytes +
+                                 ((m >> 3) * kc + kb) * 128 + (m & 7) * 16) =
+          v;
+    }
+  }
+
+  template <int R, int NG>
+  __device__ static void product(float (&acc)[NG][R / 2],
+                                 const unsigned char* sA,
+                                 const unsigned char* sH, int H, int warp,
+                                 int lane) {
+    constexpr int NJ = R / 8;
+    const int kc = H / 4;
+    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 4;
+    const int mi = lane >> 3, r8 = lane & 7;
+    const uint32_t a_lane = smem_addr(sA) +
+        ((2 * warp + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
+    const uint32_t b_lane =
+        smem_addr(sH) + (((mi >> 1) % NJ) * kc + (mi & 1)) * 128 + r8 * 16;
+    float cross[NG][R / 2];  // the lo.hi and hi.lo products
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int v = 0; v < R / 2; ++v) cross[q][v] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < H / 8; ++kk) {
+      uint32_t b[NJ][2], bh[NJ][2], bl[NJ][2];
+      load_b<NJ>(b, b_lane + kk * 256, kc);
+#pragma unroll
+      for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          split_tf32(b[jn][i], bh[jn][i], bl[jn][i]);
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        uint32_t a[4], ah[4], al[4];
+        ldsm_x4(a[0], a[1], a[2], a[3], a_lane + q * tile_bytes + kk * 256);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+#pragma unroll
+        for (int jn = 0; jn < NJ; ++jn) {
+          mma1688(&cross[q][4 * jn], al, bh[jn]);
+          mma1688(&cross[q][4 * jn], ah, bl[jn]);
+          mma1688(&acc[q][4 * jn], ah, bh[jn]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int v = 0; v < R / 2; ++v) acc[q][v] += cross[q][v];
+  }
+};
+
+// xw (T, 2, B, NG H), hs (T, 2, B, H) in Ops::T; ut (2, NG H, H) as Ops
+// reads it; gates (T, 2, B, kStash H) f32 when kStash. Grid (C x tiles of R
+// rows, 2 directions), clusters of C CTAs along x; CTA `rank` owns the units
+// [rank upc, (rank + 1) upc) of every gate. Shared memory: U's slice as NG
+// M-tiles of 64 rows x H, then two h buffers of R rows x H, in Ops' layout.
+template <class Cell, int R, bool kStash, class Ops>
 __global__ void __launch_bounds__(kResThreads, 1)
-birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
-                      const __nv_bfloat16* __restrict__ ut,
+birnn_resident_kernel(const typename Ops::T* __restrict__ xw,
+                      const typename Ops::T* __restrict__ ut,
                       const float* __restrict__ brec,
-                      __nv_bfloat16* __restrict__ hs,
+                      typename Ops::T* __restrict__ hs,
                       float* __restrict__ gates, int steps, int B, int H,
                       int upc) {
+  using T = typename Ops::T;
+  using Pair = typename Ops::Pair;
   constexpr int NG = Cell::kGates;
   constexpr int NJ = R / 8;  // 8-row tiles of the batch (mma N = 8)
+  constexpr int E = 16 / (int)sizeof(T);  // elements a core-matrix row
   extern __shared__ __align__(128) unsigned char res_smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const uint32_t rank = cluster_rank(), csize = cluster_size();
   const int d = blockIdx.y, b0 = (blockIdx.x / csize) * R;
-  const int G = NG * H, kc = H / 8, nk = H / 16;
-  const uint32_t tile_bytes = (uint32_t)kResUnits * H * 2;
-  const uint32_t hbuf_bytes = (uint32_t)R * H * 2;
+  const int G = NG * H, kc = H / E;
+  const uint32_t hbuf_bytes = (uint32_t)R * H * sizeof(T);
   unsigned char* sA = res_smem;
-  unsigned char* sH = res_smem + NG * tile_bytes;
-  const uint32_t sA_addr = smem_addr(sA), sH_addr = smem_addr(sH);
+  unsigned char* sH = res_smem + (size_t)NG * kResUnits * H * sizeof(T);
 
-  // U's slice, once: 32 bytes of ut (one 16-block of k, permuted) become
-  // the two core-matrix rows of k 0-7 and 8-15; rows past upc stay 0
-  const __nv_bfloat16* utd = ut + (size_t)d * G * H;
-#pragma unroll 4
-  for (int i = tid; i < NG * kResUnits * nk; i += kResThreads) {
-    const int kb = i % nk, m = (i / nk) % kResUnits, q = i / (nk * kResUnits);
-    const int jl = res_unit(m);
-    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
-    if (jl < upc) {
-      const uint4* src = reinterpret_cast<const uint4*>(
-          utd + (size_t)(q * H + rank * upc + jl) * H + kb * 16);
-      const uint4 v0 = __ldg(src), v1 = __ldg(src + 1);
-      lo = make_uint4(v0.x, v0.z, v1.x, v1.z);
-      hi = make_uint4(v0.y, v0.w, v1.y, v1.w);
-    }
-    unsigned char* dst =
-        sA + q * tile_bytes + ((m >> 3) * kc + 2 * kb) * 128 + (m & 7) * 16;
-    *reinterpret_cast<uint4*>(dst) = lo;
-    *reinterpret_cast<uint4*>(dst + 128) = hi;
-  }
+  Ops::template load_u<NG>(sA, ut + (size_t)d * G * H, H, rank, upc, tid);
   for (int i = tid; i < (int)(hbuf_bytes / 16); i += kResThreads)
     reinterpret_cast<uint4*>(sH)[i] = make_uint4(0, 0, 0, 0);  // h = 0
 
@@ -637,21 +812,20 @@ birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
   uint32_t peer[4];  // the h buffers' base in each CTA of the cluster
 #pragma unroll
   for (int r = 0; r < 4; ++r)
-    peer[r] = r < (int)csize ? map_rank(sH_addr, r) : 0u;
-  const uint32_t h_at = (j >> 3) * 128 + (j & 7) * 2;  // + row's offset
+    peer[r] = r < (int)csize ? map_rank(smem_addr(sH), r) : 0u;
+  // + the row's offset
+  const uint32_t h_at = (j / E) * 128 + (j % E) * (uint32_t)sizeof(T);
 
-  auto load_x = [&](int t, uint32_t (&x)[NJ][2][NG]) {
+  auto load_x = [&](int t, Pair (&x)[NJ][2][NG]) {
 #pragma unroll
     for (int jn = 0; jn < NJ; ++jn)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int b = b0 + 8 * jn + 2 * t4 + e;
-        const __nv_bfloat16* p = xw + (((size_t)t * 2 + d) * B + b) * G + j;
+        const T* p = xw + (((size_t)t * 2 + d) * B + b) * G + j;
 #pragma unroll
         for (int q = 0; q < NG; ++q)
-          x[jn][e][q] = on && b < B ? __ldg(reinterpret_cast<
-                                          const unsigned int*>(p + q * H))
-                                    : 0u;
+          x[jn][e][q] = on && b < B ? Ops::load(p + q * H) : Pair{};
       }
   };
 
@@ -664,7 +838,7 @@ birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
       for (int i = 0; i < 2; ++i) h[jn][e][i] = c[jn][e][i] = 0.f;
   // xw one step ahead, in registers: each step's loads are issued a whole
   // step before its cell math reads them
-  uint32_t xc[NJ][2][NG], xn[NJ][2][NG];
+  Pair xc[NJ][2][NG], xn[NJ][2][NG];
   if (steps > 0) load_x(0, xc);
   cluster_arrive();  // every CTA runs, its U slice and h = 0 in place
   cluster_wait();
@@ -677,12 +851,11 @@ birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
     for (int q = 0; q < NG; ++q)
 #pragma unroll
       for (int v = 0; v < R / 2; ++v) acc[q][v] = 0.f;
-    product_mma<R, NG>(acc, sA_addr, sH_addr + cur, H, tile_bytes, warp,
-                       lane);
+    Ops::template product<R, NG>(acc, sA, sH + cur, H, warp, lane);
 
     // the cell step in registers; the new round(h) into every CTA's next
     // buffer (its own included), then the cluster barrier's arrive
-    uint32_t hv[NJ][2];
+    Pair hv[NJ][2];
     float st[NJ][2][2][Cell::kStash];
 #pragma unroll
     for (int jn = 0; jn < NJ; ++jn)
@@ -693,12 +866,12 @@ birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
           float x[NG], a[NG];
 #pragma unroll
           for (int q = 0; q < NG; ++q) {
-            x[q] = i ? bf16_hi(xc[jn][e][q]) : bf16_lo(xc[jn][e][q]);
+            x[q] = i ? Ops::second(xc[jn][e][q]) : Ops::first(xc[jn][e][q]);
             a[q] = acc[q][4 * jn + 2 * i + e] + bias[q][i];
           }
           Cell::step(h[jn][e][i], c[jn][e][i], x, a, st[jn][e][i]);
         }
-        hv[jn][e] = pack_bf16(h[jn][e][0], h[jn][e][1]);
+        hv[jn][e] = Ops::pack(h[jn][e][0], h[jn][e][1]);
         if (on) {
           const int n = 8 * jn + 2 * t4 + e;
           const uint32_t o = nxt + h_at + (n >> 3) * kc * 128 + (n & 7) * 16;
@@ -717,7 +890,7 @@ birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
         const int b = b0 + 8 * jn + 2 * t4 + e;
         if (on && b < B) {
           const size_t row = ((size_t)t * 2 + d) * B + b;
-          *reinterpret_cast<uint32_t*>(hs + row * H + j) = hv[jn][e];
+          Ops::store(hs + row * H + j, hv[jn][e]);
           if constexpr (kStash) {
             float* gt = gates + row * Cell::kStash * H + j;
 #pragma unroll
@@ -740,20 +913,21 @@ birnn_resident_kernel(const __nv_bfloat16* __restrict__ xw,
   }
 }
 
-size_t resident_smem(int gates, int R, int H) {
-  return (size_t)gates * kResUnits * H * 2 + 2 * (size_t)R * H * 2;
+size_t resident_smem(int gates, int R, int H, int elem_bytes) {
+  return ((size_t)gates * kResUnits + 2 * (size_t)R) * H * elem_bytes;
 }
 
 // Launch, or with info != null fill info = {dynamic shared memory bytes,
 // the most clusters that can be resident at once, registers per thread,
 // local memory bytes per thread} and launch nothing. A cluster that cannot
 // be scheduled is refused with cudaErrorInvalidConfiguration.
-template <class Cell, int R, bool kStash>
+template <class Cell, int R, bool kStash, class Ops>
 cudaError_t launch_resident(const void* xw, const void* ut, const void* brec,
                             void* hs, void* gates, int steps, int B, int H,
                             int C, cudaStream_t stream, int* info) {
-  const auto kernel = birnn_resident_kernel<Cell, R, kStash>;
-  const size_t smem = resident_smem(Cell::kGates, R, H);
+  using T = typename Ops::T;
+  const auto kernel = birnn_resident_kernel<Cell, R, kStash, Ops>;
+  const size_t smem = resident_smem(Cell::kGates, R, H, sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -793,52 +967,71 @@ cudaError_t launch_resident(const void* xw, const void* ut, const void* brec,
     return cudaSuccess;
   }
   if (clusters == 0) return cudaErrorInvalidConfiguration;
-  e = cudaLaunchKernelEx(&cfg, kernel,
-                         static_cast<const __nv_bfloat16*>(xw),
-                         static_cast<const __nv_bfloat16*>(ut),
-                         static_cast<const float*>(brec),
-                         static_cast<__nv_bfloat16*>(hs),
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(xw),
+                         static_cast<const T*>(ut),
+                         static_cast<const float*>(brec), static_cast<T*>(hs),
                          static_cast<float*>(gates), steps, B, H, H / C);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <class Cell, bool kStash>
+// R 8, 16 or 32 batch rows a cluster; the f32 instances 8 or 16 (at 256
+// units two f32 h buffers of 32 rows would not fit beside U's slice).
+template <class Cell, bool kStash, class Ops>
 int run_resident(const void* xw, const void* ut, const void* brec, void* hs,
                  void* gates, int steps, int B, int H, int C, int R,
                  void* stream, int* info) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R == 8)
-    return (int)launch_resident<Cell, 8, kStash>(xw, ut, brec, hs, gates,
-                                                 steps, B, H, C, s, info);
+    return (int)launch_resident<Cell, 8, kStash, Ops>(
+        xw, ut, brec, hs, gates, steps, B, H, C, s, info);
   if (R == 16)
-    return (int)launch_resident<Cell, 16, kStash>(xw, ut, brec, hs, gates,
-                                                  steps, B, H, C, s, info);
-  if (R == 32)
-    return (int)launch_resident<Cell, 32, kStash>(xw, ut, brec, hs, gates,
-                                                  steps, B, H, C, s, info);
+    return (int)launch_resident<Cell, 16, kStash, Ops>(
+        xw, ut, brec, hs, gates, steps, B, H, C, s, info);
+  if constexpr (sizeof(typename Ops::T) == 2) {  // bf16 only
+    if (R == 32)
+      return (int)launch_resident<Cell, 32, kStash, Ops>(
+          xw, ut, brec, hs, gates, steps, B, H, C, s, info);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// Every (cell, stash) pair: the GRU without a stash (K2) and with one (K3),
-// the LSTM without (K4) and with (K5). H (padded units) % 16 == 0, split
-// over C <= 4 CTAs of at most 64 units each, an even number.
-int resident(bool lstm, bool stash, const void* xw, const void* ut,
+template <class Ops>
+int run_gru_resident(bool stash, const void* xw, const void* ut,
+                     const void* brec, void* hs, void* gates, int steps,
+                     int B, int H, int C, int R, void* stream, int* info) {
+  return stash ? run_resident<GruCell, true, Ops>(xw, ut, brec, hs, gates,
+                                                  steps, B, H, C, R, stream,
+                                                  info)
+               : run_resident<GruCell, false, Ops>(xw, ut, brec, hs, gates,
+                                                   steps, B, H, C, R, stream,
+                                                   info);
+}
+
+// Every (cell, stash) pair in bf16 (elem 2, the bytes of xw's elements):
+// the GRU without a stash (K2) and with one (K3), the LSTM without (K4) and
+// with (K5); the GRU in f32 (elem 4, 3xTF32 on the tensor cores). H
+// (padded units) % 16 == 0, split over C <= 4 CTAs of at most 64 units
+// each, an even number.
+int resident(bool lstm, int elem, bool stash, const void* xw, const void* ut,
              const void* brec, void* hs, void* gates, int steps, int B, int H,
              int C, int R, void* stream, int* info) {
   if (H % 16 || C < 1 || C > 4 || H % C || (H / C) % 2 || H / C > kResUnits)
     return (int)cudaErrorInvalidValue;
-  if (lstm)
-    return stash ? run_resident<LstmCell, true>(xw, ut, brec, hs, gates,
-                                                steps, B, H, C, R, stream,
-                                                info)
-                 : run_resident<LstmCell, false>(xw, ut, brec, hs, gates,
-                                                 steps, B, H, C, R, stream,
-                                                 info);
-  return stash ? run_resident<GruCell, true>(xw, ut, brec, hs, gates, steps,
-                                             B, H, C, R, stream, info)
-               : run_resident<GruCell, false>(xw, ut, brec, hs, gates, steps,
-                                              B, H, C, R, stream, info);
+  if (elem == 2) {
+    if (lstm)
+      return stash ? run_resident<LstmCell, true, ResBf16>(
+                         xw, ut, brec, hs, gates, steps, B, H, C, R, stream,
+                         info)
+                   : run_resident<LstmCell, false, ResBf16>(
+                         xw, ut, brec, hs, gates, steps, B, H, C, R, stream,
+                         info);
+    return run_gru_resident<ResBf16>(stash, xw, ut, brec, hs, gates, steps, B,
+                                     H, C, R, stream, info);
+  }
+  if (lstm || elem != 4) return (int)cudaErrorInvalidValue;  // f32: the GRU
+  return run_gru_resident<ResTf32>(stash, xw, ut, brec, hs, gates, steps, B,
+                                   H, C, R, stream, info);
 }
 
 cudaError_t set_smem(const void* fn, size_t smem) {
@@ -946,24 +1139,27 @@ extern "C" int crnn_bilstm_bf16(const void* xw, const void* ut, void* hs,
 // K2 or K3 (lstm = 0, brec the (2, 3H) f32 recurrent bias), K4 or K5
 // (lstm = 1, brec null) on the resident design: the training instance (K3,
 // K5) when gates is not null, which then receives the stash (T, 2, B, 4H or
-// 5H) f32. C CTAs a cluster, R (8, 16 or 32) batch rows a cluster. xw, ut,
-// hs as crnn_bigru_bf16 takes them.
-extern "C" int crnn_birnn_resident(int lstm, const void* xw, const void* ut,
-                                   const void* brec, void* hs, void* gates,
-                                   int steps, int B, int H, int C, int R,
-                                   void* stream) {
-  return resident(lstm, gates != nullptr, xw, ut, brec, hs, gates, steps, B,
-                  H, C, R, stream, nullptr);
+// 5H) f32. C CTAs a cluster, R (8, 16 or 32; f32 8 or 16) batch rows a
+// cluster. elem, the bytes of an element of xw, picks the instance: 2,
+// bf16, xw, ut, hs as crnn_bigru_bf16 takes them; 4, f32 (3xTF32), the GRU
+// only: xw, hs f32 as crnn_bigru_f32 takes them, ut (2, 3H, H) f32 U[d]
+// transposed.
+extern "C" int crnn_birnn_resident(int lstm, int elem, const void* xw,
+                                   const void* ut, const void* brec, void* hs,
+                                   void* gates, int steps, int B, int H,
+                                   int C, int R, void* stream) {
+  return resident(lstm, elem, gates != nullptr, xw, ut, brec, hs, gates,
+                  steps, B, H, C, R, stream, nullptr);
 }
 
-// The resources of the resident instance (lstm, stash, R) at H units over C
-// CTAs, launching nothing: info[4] = {dynamic shared memory bytes, most
-// clusters resident at once, registers per thread, local memory bytes per
-// thread}.
-extern "C" int crnn_birnn_resident_info(int lstm, int stash, int H, int C,
-                                        int R, int* info) {
-  return resident(lstm, stash, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  0, 1, H, C, R, nullptr, info);
+// The resources of the resident instance (lstm, elem, stash, R) at H
+// units over C CTAs, launching nothing: info[4] = {dynamic shared memory
+// bytes, most clusters resident at once, registers per thread, local memory
+// bytes per thread}.
+extern "C" int crnn_birnn_resident_info(int lstm, int elem, int stash,
+                                        int H, int C, int R, int* info) {
+  return resident(lstm, elem, stash, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, 0, 1, H, C, R, nullptr, info);
 }
 
 extern "C" const char* crnn_error_string(int err) {

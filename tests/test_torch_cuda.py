@@ -109,20 +109,24 @@ def test_stem_mma_design_within_one_ulp_of_conv9(card, shape):
                 .all()), float((mma - conv9).abs().max())
 
 
-def _design_name(dtype, H):
+def _design_name(dtype, H, cell="gru"):
     """The design the card tests expect: the resident one for K2-K5 in bf16
-    up to 256 units, the streamed one beyond, f32 on the CUDA cores."""
+    up to 256 units, the streamed one beyond; in f32 the resident one (its
+    3xTF32 instance) for the GRU up to 256 units, else (and for the LSTM)
+    U read from L2 by the CUDA cores."""
     if dtype == "float32":
-        return "f32"
+        return "resident" if cell == "gru" and H <= 256 else "f32"
     return "resident" if H <= 256 else "streamed"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (5, 96), (3, 1024),
-                                 (4, 40),  # bf16 pads 40 units to 48
+                                 (4, 40),  # pads 40 units to 48
                                  (256, 256),  # fonts-hard's serving batch
-                                 (3, 128)])
+                                 (3, 128),
+                                 (256, 128),  # fonts-small's serving batch
+                                 (128, 128)])
 def test_bigru_kernel_matches_plain(card, dtype, B, H):
     """K2 against bigru_plain, on the design its shape selects."""
     dt = DTYPES[dtype]
@@ -168,7 +172,9 @@ def test_predictor_on_card_reads_golden_texts(card, name, key):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (128, 256), (3, 1024),
-                                 (4, 40)])  # bf16 pads 40 units to 48
+                                 (4, 40),  # pads 40 units to 48
+                                 (128, 128),  # fonts-small's training batch
+                                 (256, 128), (5, 96)])
 def test_bigru_train_kernel_matches_plain(card, dtype, B, H):
     """K3: hs and the gate stash, against bigru_train_plain, on the design
     its shape selects."""
@@ -215,7 +221,7 @@ def test_bilstm_kernel_matches_plain(card, dtype, B, H):
     shapes), on the design its shape selects."""
     xw, u, atol = _lstm_case(15, B, H, dtype)
     design = tbg.design_for("lstm", False, H, B, DTYPES[dtype])
-    assert design.name == _design_name(dtype, H)
+    assert design.name == _design_name(dtype, H, "lstm")
     n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
     ran = dict(tbg.design_launches)
     got = tbg.bilstm(xw.to(card), u.to(card))
@@ -237,7 +243,7 @@ def test_bilstm_train_kernel_matches_plain(card, dtype, B, H):
     bilstm_train_plain, on the design its shape selects."""
     xw, u, atol = _lstm_case(16, B, H, dtype)
     design = tbg.design_for("lstm", True, H, B, DTYPES[dtype])
-    assert design.name == _design_name(dtype, H)
+    assert design.name == _design_name(dtype, H, "lstm")
     n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
     ran = dict(tbg.design_launches)
     hs, st = tbg.bilstm_train(xw.to(card), u.to(card))
@@ -277,7 +283,7 @@ def test_k3_and_k4_run_the_resident_design_equal_to_the_streamed(card):
                               ("gru", True, 128, d3)):
         # the table never claims more CTAs than the card reports holding
         held = resident_resources(cell, stash, 256, d)["max_active_clusters"]
-        wave = tbg.WAVE_CTAS[(cell, stash, 256, d.rows)]
+        wave = tbg.WAVE_CTAS[(torch.bfloat16, cell, stash, 256, d.rows)]
         assert -(-B // d.rows) * 2 * d.cluster <= wave <= held * d.cluster
     xw, u, gxw, gu, gb_c = (t.to(card) for t in (xw, u, gxw, gu, gb))
     before = dict(tbg.design_launches)

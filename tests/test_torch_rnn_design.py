@@ -17,6 +17,7 @@ def _res(cluster, rows):
 
 
 STREAMED = tbg.Design("streamed", 0, 16)
+OLD_F32 = tbg.Design("f32")
 
 
 @pytest.mark.parametrize("cell,stash,H,B,dtype,want", [
@@ -50,12 +51,14 @@ STREAMED = tbg.Design("streamed", 0, 16)
     ("gru", False, 240, 8, BF16, _res(4, 16)),
     # no 3-CTA split of 160 units: 4 CTAs of 40
     ("lstm", True, 160, 8, BF16, _res(4, 16)),
-    # more than 4 x 64 units, or f32: the streamed and f32 designs
+    # more than 4 x 64 units, or the f32 LSTM: the streamed and f32 designs
     ("gru", False, 1024, 3, BF16, STREAMED),
     ("gru", False, 272, 256, BF16, STREAMED),
     ("lstm", True, 1024, 3, BF16, STREAMED),
-    ("gru", False, 256, 256, F32, tbg.Design("f32")),
-    ("lstm", True, 256, 128, F32, tbg.Design("f32")),
+    # the f32 GRU at 256 units: 4 CTAs of 64, 16 rows (8 rows would take
+    # 256 CTAs; one f32 CTA an SM, so B 256 runs two waves either way)
+    ("gru", False, 256, 256, F32, _res(4, 16)),
+    ("lstm", True, 256, 128, F32, OLD_F32),
     # K3 and K4 on the resident design too: K3 fine-tuning fonts-hard and
     # fonts-small on 8 rows, K4 serving fonts-hard-lstm at B 256 on 32 rows
     # (64 CTAs, one wave; 16 rows would take 128, two waves)
@@ -78,7 +81,27 @@ STREAMED = tbg.Design("streamed", 0, 16)
     # the streamed design above 4 x 64 units, f32 on the CUDA cores
     ("gru", True, 1024, 128, BF16, STREAMED),
     ("lstm", False, 1024, 256, BF16, STREAMED),
-    ("lstm", False, 256, 256, F32, tbg.Design("f32")),
+    ("lstm", False, 256, 256, F32, OLD_F32),
+    # the f32 GRU (K2, K3) on its resident design: fonts-small's serving
+    # (B 256) and training (B 128) shapes on 8 rows, 2 CTAs of 64 units
+    ("gru", False, 128, 256, F32, _res(2, 8)),
+    ("gru", True, 128, 128, F32, _res(2, 8)),
+    ("gru", False, 128, 128, F32, _res(2, 8)),
+    ("gru", True, 128, 256, F32, _res(2, 8)),
+    # the card tests' f32 shapes: 96 units in 2 CTAs of 48, 40 padded to 48
+    # in one CTA (16 rows: widths not measured), 256 at a ragged batch
+    ("gru", False, 96, 5, F32, _res(2, 16)),
+    ("gru", True, 96, 5, F32, _res(2, 16)),
+    ("gru", False, 40, 4, F32, _res(1, 16)),
+    ("gru", True, 40, 4, F32, _res(1, 16)),
+    ("gru", False, 256, 13, F32, _res(4, 8)),
+    ("gru", True, 256, 128, F32, _res(4, 16)),  # 8 rows: 128 CTAs of 120
+    # K3 at fonts-hard's training shape; f32 past 256 units, and the f32
+    # LSTM at any width, on the old design
+    ("gru", True, 272, 128, F32, OLD_F32),
+    ("gru", False, 1024, 3, F32, OLD_F32),
+    ("lstm", False, 128, 256, F32, OLD_F32),
+    ("lstm", True, 40, 4, F32, OLD_F32),
 ])
 def test_design_for_shape(cell, stash, H, B, dtype, want):
     assert tbg.design_for(cell, stash, H, B, dtype) == want
@@ -105,10 +128,10 @@ def test_every_resident_design_fits_the_card(cell, stash):
             smem = tbg.GATES[cell] * 64 * hp * 2 + 2 * d.rows * hp * 2
             assert smem <= 232448
             fits = [r for r in tbg.RESIDENT_ROWS if -(-B // r) * 2 * d.cluster
-                    <= tbg.WAVE_CTAS.get((cell, stash, hp, r), 0)]
+                    <= tbg.WAVE_CTAS.get((BF16, cell, stash, hp, r), 0)]
             if fits:
                 assert d.rows == fits[0]
-                wave = tbg.WAVE_CTAS[(cell, stash, hp, d.rows)]
+                wave = tbg.WAVE_CTAS[(BF16, cell, stash, hp, d.rows)]
                 assert -(-B // d.rows) * 2 * d.cluster <= wave
                 assert wave <= 132 * (233472 // (smem + 1024))
             else:
@@ -163,3 +186,88 @@ def test_launch_on_cpu_raises_and_wrappers_take_plain_versions():
     assert tbg.design_launches == before
     with pytest.raises(RuntimeError, match="no kernel"):
         tbg._launch("gru", xw, u, b, None, False)
+
+
+@pytest.mark.parametrize("stash", (False, True))
+def test_every_f32_resident_design_fits_the_card(stash):
+    """The f32 GRU (K2, K3) for every H up to 256 and a range of batches:
+    the resident design (its f32 instance), at most 4 CTAs of at most 64 units, an even
+    number each, all units covered; the f32 U slice (three 64-row M-tiles)
+    and two f32 h buffers fit the 227 KB of shared memory a CTA may hold;
+    the rows the fewest of 8 and 16 whose grid fits the measured capacity
+    of their instance, 16 when none does; no capacity above what 132 SMs
+    could hold. Past 256 units, and for the f32 LSTM at any width, the old
+    ``"f32"`` design."""
+    for H in range(1, 257):
+        hp = -(-H // 16) * 16
+        for B in (1, 3, 13, 64, 128, 200, 256, 1000):
+            d = tbg.design_for("gru", stash, H, B, F32)
+            assert d.name == RES
+            upc = hp // d.cluster
+            assert 1 <= d.cluster <= 4 and upc * d.cluster == hp
+            assert upc % 2 == 0 and upc <= tbg.RESIDENT_UNITS
+            assert d.rows in tbg.F32_RESIDENT_ROWS
+            smem = 3 * 64 * hp * 4 + 2 * d.rows * hp * 4
+            assert smem <= 232448
+            fits = [r for r in tbg.F32_RESIDENT_ROWS
+                    if -(-B // r) * 2 * d.cluster
+                    <= tbg.WAVE_CTAS.get((F32, "gru", stash, hp, r), 0)]
+            if fits:
+                assert d.rows == fits[0]
+                wave = tbg.WAVE_CTAS[(F32, "gru", stash, hp, d.rows)]
+                assert wave <= 132 * (233472 // (smem + 1024))
+            else:
+                assert d.rows == 16
+    for H in (257, 300, 1024):
+        assert tbg.design_for("gru", stash, H, 8, F32) == OLD_F32
+    for H in (8, 128, 256):
+        assert tbg.design_for("lstm", stash, H, 8, F32) == OLD_F32
+
+
+@pytest.mark.parametrize("cell,H", [("gru", 40), ("gru", 96), ("gru", 128),
+                                    ("gru", 256), ("gru", 300),
+                                    ("lstm", 128)])
+def test_f32_kernel_weights_round_trip(cell, H):
+    """kernel_weights in f32: for the GRU's resident design U padded to a
+    multiple of 16 units and transposed, (2, 3 hp, hp) as [d][n][k], whose
+    transpose gives U back with zeros in the padding; past 256 units, and
+    for the LSTM, U itself (the old design's operand)."""
+    n = tbg.GATES[cell]
+    u = torch.randn(2, H, n * H, generator=torch.Generator().manual_seed(H))
+    uk = tbg.kernel_weights(u)
+    assert uk.dtype == F32 and uk.is_contiguous()
+    if tbg.design_for(cell, False, H, 8, F32) == OLD_F32:
+        assert torch.equal(uk, u)
+        return
+    hp = -(-H // 16) * 16
+    assert tuple(uk.shape) == (2, n * hp, hp)
+    back = uk.transpose(1, 2).reshape(2, hp, n, hp)
+    assert torch.equal(back[:, :H, :, :H].reshape(2, H, n * H), u)
+    assert not back[:, H:].any() and not back[..., H:].any()
+
+
+def test_resident_ptxas_keys_the_f32_instances():
+    """chip_smoke.resident_ptxas on the f32 instances' names (the operand
+    policy as the kernel's last template argument): keyed by the dtype
+    after the kernel, and the bf16 policy's names as the bf16 keys."""
+    import chip_smoke
+
+    lines, want = [], {}
+    for i, (ops, dtype, stash, rows) in enumerate((
+            ("7ResBf16", "bfloat16", False, 16),
+            ("7ResTf32", "float32", False, 8),
+            ("7ResTf32", "float32", True, 16),
+            ("7ResBf16", "bfloat16", True, 32))):
+        name = (f"_ZN12_GLOBAL__N_121birnn_resident_kernelINS_7GruCellELi"
+                f"{rows}ELb{int(stash)}ENS_{ops}EEEvPKNT2_1TES5_PKfPS4_Pf"
+                f"iiii")
+        lines += [f"ptxas info    : Compiling entry function '{name}' for "
+                  f"'sm_90a'",
+                  f"ptxas info    : Used {90 + i} registers, used 1 "
+                  f"barriers, 384 bytes cmem[0]"]
+        want[chip_smoke.ptxas_key("gru", stash, rows, dtype)] = dict(
+            registers=90 + i)
+    got = chip_smoke.resident_ptxas("\n".join(lines))
+    assert got == want
+    assert sorted(got) == ["bigru R16", "bigru float32 R8",
+                           "bigru_train R32", "bigru_train float32 R16"]

@@ -13,6 +13,16 @@ memory, from which ``kernels/bigru.py::WAVE_CTAS`` is read. Each time is
 the mean of 20 back-to-back launches between two CUDA events, after 3
 warm-up launches, in two rounds; every resident design's hs (and stash) is
 held to the streamed design's (``max_abs_diff``, 0 when bit for bit equal).
+
+The f32 GRU (K2, K3) at ``fonts-small``'s width (H 128, T 32) at B 256,
+128, 64 and 16, and at ``fonts-hard``'s (H 256, T 64) at B 256 and 128:
+the resident design's f32 instance (3xTF32 on the tensor cores) at 8 and
+16 rows, and the old ``"f32"`` design, each timed by its device
+time (``chip_smoke.device_ms``: the profiler's kernel durations, since one
+call of the resident design takes less than the host needs to launch it)
+and held to the plain version on the card (``max_abs_err``), with the same
+capacity fields (the f32 entries of ``kernels/bigru.py::WAVE_CTAS``).
+
 Prints the card's ``name, power.limit``, then one JSON line per
 measurement. Needs a CUDA card; builds ``csrc/bigru.cu`` at first use.
 """
@@ -39,6 +49,13 @@ CASES = (("gru", False, 256, 256), ("gru", False, 256, 240),
          ("gru", True, 128, 128),
          ("lstm", False, 256, 256), ("lstm", False, 256, 128),
          ("lstm", False, 128, 128))
+# the f32 GRU: (stash, H, B, T)
+F32_CASES = ((False, 128, 256, 32), (True, 128, 128, 32),
+             (False, 128, 128, 32), (True, 128, 256, 32),
+             (False, 128, 64, 32), (True, 128, 64, 32),
+             (False, 128, 16, 32), (True, 128, 16, 32),
+             (False, 256, 256, 64), (True, 256, 128, 64),
+             (False, 256, 128, 64), (True, 256, 256, 64))
 
 
 def event_ms(fn, reps: int = 20) -> float:
@@ -57,11 +74,63 @@ def event_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(z) / reps
 
 
+def resident_fields(cell, stash, H, B, d, dtype_name="bfloat16") -> dict:
+    from chip_smoke import resident_resources
+
+    res = resident_resources(cell, stash, -(-H // 16) * 16, d, dtype_name)
+    return dict(ctas=-(-B // d.rows) * 2 * d.cluster,
+                smem_bytes=res["smem_bytes"],
+                max_active_clusters=res["max_active_clusters"],
+                wave_ctas=res["max_active_clusters"] * d.cluster,
+                registers=res["runtime_registers"],
+                local_bytes=res["local_bytes"], ptxas=res["ptxas"])
+
+
+def time_f32() -> None:
+    """The f32 GRU's designs (F32_CASES x the resident design's rows, and
+    the old ``"f32"`` design) on seeded inputs, in two rounds."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import device_ms
+    from crnn_ocr_torch.kernels import bigru as bg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for stash, H, B, T in F32_CASES:
+        rng = np.random.default_rng(2)
+        xw = torch.from_numpy(rng.normal(size=(T, 2, B, 3 * H))
+                              .astype(np.float32)).cuda()
+        u = torch.from_numpy((rng.normal(size=(2, H, 3 * H)) / np.sqrt(H))
+                             .astype(np.float32)).cuda()
+        rb = torch.from_numpy((rng.normal(size=(2, 3 * H)) * 0.1)
+                              .astype(np.float32)).cuda()
+        want = (bg.bigru_train_plain if stash else bg.bigru_plain)(xw, u, rb)
+        want = want if stash else (want, None)
+        chosen = bg.design_for("gru", stash, H, B, torch.float32)
+        designs = [chosen._replace(rows=r) for r in bg.F32_RESIDENT_ROWS]
+        designs.append(bg.Design("f32"))
+        for rnd in range(2):
+            for d in designs:
+                def run(d=d):
+                    return bg._launch("gru", xw, u, rb, None, stash, d)
+
+                got = run()
+                out = dict(cell="gru", dtype="float32", stash=stash, B=B,
+                           H=H, T=T, design=d._asdict(), chosen=d == chosen,
+                           ms=device_ms(run), round=rnd,
+                           max_abs_err=max(
+                               float((a - b).abs().max())
+                               for a, b in zip(got, want) if a is not None))
+                if d.name != "f32":
+                    out.update(resident_fields("gru", stash, H, B, d,
+                                               "float32"))
+                print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
 
-    from chip_smoke import resident_resources
     from crnn_ocr_torch.kernels import bigru as bg
 
     if not torch.cuda.is_available():
@@ -70,6 +139,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    time_f32()
     T = 64
     for cell, stash, H, B in CASES:
         rng = np.random.default_rng(1)
@@ -97,13 +167,7 @@ def main() -> int:
                     out["max_abs_diff"] = max(
                         float((a - b).float().abs().max())
                         for a, b in zip(run(), want) if a is not None)
-                    out["ctas"] = -(-B // d.rows) * 2 * d.cluster
-                    res = resident_resources(cell, stash, H, d)
-                    out["smem_bytes"] = res["smem_bytes"]
-                    out["max_active_clusters"] = res["max_active_clusters"]
-                    out["wave_ctas"] = res["max_active_clusters"] * d.cluster
-                    out["registers"] = res["runtime_registers"]
-                    out["local_bytes"] = res["local_bytes"]
+                    out.update(resident_fields(cell, stash, H, B, d))
                 print(json.dumps(out), flush=True)
     return 0
 
