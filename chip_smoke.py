@@ -124,7 +124,9 @@ golden lines:
     and f32, TF32 off; K4 also timed on K5's inputs (the stash's cost);
     ``nn.LSTM`` (bidirectional, the weights carried over, the input
     projection included) as the yardstick; K4 and K5 with their designs
-    and the same yardsticks as K2 in phase 2 (K3 with its own in phase 6).
+    and the same yardsticks as K2 in phase 2 (K3 with its own in phase 6):
+    in f32 the resident design's 32-unit tile in clusters of 8, beside the
+    old ``"f32"`` design on the same inputs.
 19. Golden texts (``crnn_ocr_torch/testdata/lstm_goldens.npz``, written by
     ``tools/gen_torch_goldens.py --lstm``): the seeded layers' digest; f32
     texts equal to the JAX predictor's, scores within rtol 1e-4; bf16 texts
@@ -140,13 +142,14 @@ golden lines:
     versions in phases 15-17, and their ulp differences flip block1's
     max-pool near-ties behind this model's large gradients; the step
     against the all-plain one is reported beside it), and against the JAX
-    step (``lstm_goldens.npz``, ``train/``).
+    step (``lstm_goldens.npz``, ``train/``); its two K5 launches must run
+    on the resident design (its f32 instance).
 22. Fine-tuning ``fonts-hard-lstm`` counted, as phase 8: each step must
     launch K5 twice (on the resident design), K6 and K7 once, K8, K1 (on
     ``"conv9"``), K9 and K10 once, K3 and K4 never; the loss must fall.
 
 Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
-128, bucket 128):
+128, bucket 128; then ``fonts-hard-lstm`` in f32):
 
 23. K2 at its serving shape (B 256) and K3 at its training shape (B 128)
     on the path's own tensors against their plain versions, TF32 off, with
@@ -155,8 +158,14 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     served counted, as phase 4, at B 256, bucket 128: each ``predict`` must
     launch K1 once (on ``"conv9"``) and K2 twice, every K2 on the resident
     design (its f32 instance); lines/s, the p50, the stages and a trace.
+24. ``fonts-hard-lstm`` served in f32 counted, as phase 4, at B 256, bucket
+    256: each ``predict`` must launch K1 once (on ``"conv9"``) and K4
+    twice, every K4 on the resident design (its f32 instance, clusters of
+    8); lines/s, the p50, the stages and a trace (to compare with a parent,
+    run this phase from a copy of this script in the parent's tree, its
+    ``PATH_DESIGN["bilstm"]`` set to the parent's ``"f32"``).
 
-Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23) requires each
+Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24) requires each
 recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
 for all of them, and each K1 launch on the design ``STEM_PATH_DESIGN``
@@ -186,9 +195,11 @@ launches on that design) and ``ms_per_step`` (``ms`` over the T steps),
 ``streamed_ms`` (the streamed design's device time on the same inputs),
 ``streamed_equal`` (its outputs equal to the path design's bit for bit)
 and ``resources``. Every recurrence row adds ``f32_path_shape`` (its f32
-check at its own path's shape, phases 2, 6 and 18) and K2's and K3's an
-``f32`` entry (phase 23's check at ``fonts-small``'s shape, with the
-launches of phase 23's counted run and of phase 16's step); every bound
+check at its own path's shape, phases 2, 6 and 18) and an ``f32`` entry:
+K2's and K3's phase 23's check at ``fonts-small``'s shape, with the
+launches of phase 23's counted run and of phase 16's step; K4's and K5's
+phase 18's f32 check, with the launches of phase 24's counted run and of
+phase 21's step. Every bound
 names its peak (``bound_peak``): bf16 MMA, or f32 FMA on the CUDA cores,
 and for every f32 recurrence (K2-K5, whatever design runs it) 3 x TF32 on
 the tensor cores, the fastest pipe that multiplies at f32's accuracy.
@@ -443,7 +454,8 @@ def require_launches(counts: dict, want: dict, what: str) -> None:
 
 # the design each recurrence kernel runs on the counted paths (bf16, 256
 # units, or 128 for fonts-small's K3), and on the f32 paths (fonts-small
-# served as shipped, phase 23; its f32 train step, phase 16)
+# served as shipped, phase 23; its f32 train step, phase 16;
+# fonts-hard-lstm served in f32, phase 24; its f32 train step, phase 21)
 PATH_DESIGN = {"bigru": "resident", "bilstm_train": "resident",
                "bigru_train": "resident", "bilstm": "resident"}
 
@@ -537,12 +549,13 @@ def resident_ptxas(report: str) -> dict:
 
     def key_of(name):
         k = re.search(r"birnn_resident_kernelI\S*?(Gru|Lstm)CellELi(\d+)"
-                      r"ELb([01])E(?:NS_\d+(Res\w+?)E)?", name)
+                      r"ELb([01])E(?:NS_\d+(Res\w+?)E)?(?:Li(\d+)E)?", name)
         if not k:
             return None
         return ptxas_key(k.group(1).lower(), k.group(3) == "1",
                          int(k.group(2)),
-                         "float32" if k.group(4) == "ResTf32" else "bfloat16")
+                         "float32" if k.group(4) == "ResTf32" else "bfloat16",
+                         int(k.group(5) or 64))
 
     return ptxas_instances(report, key_of)
 
@@ -584,13 +597,16 @@ def stem_fwd_ptxas(report: str) -> dict:
 
 
 def ptxas_key(cell: str, stash: bool, rows: int,
-              dtype_name: str = "bfloat16") -> str:
-    """``"bigru R8"``, ``"bilstm_train R32"``, ``"bigru float32 R8"``: the
-    kernel a resident instance serves (K2-K5 by cell and stash), its dtype
-    when not bf16 (the f32 instances' operand policy is ``ResTf32``), and
-    its rows."""
+              dtype_name: str = "bfloat16", units: int = 64) -> str:
+    """``"bigru R8"``, ``"bilstm_train R32"``, ``"bigru float32 R8"``,
+    ``"bilstm float32 R16 U32"``: the kernel a resident instance serves
+    (K2-K5 by cell and stash), its dtype when not bf16 (the f32 instances'
+    operand policy is ``ResTf32``), its rows, and its tile when not 64
+    units (the f32 LSTM's 32-unit tile, the kernel's last template
+    argument)."""
     tag = "" if dtype_name == "bfloat16" else f" {dtype_name}"
-    return f"bi{cell}{'_train' if stash else ''}{tag} R{rows}"
+    tile = "" if units == 64 else f" U{units}"
+    return f"bi{cell}{'_train' if stash else ''}{tag} R{rows}{tile}"
 
 
 def phase_build(card: str):
@@ -633,7 +649,9 @@ def resident_resources(cell: str, stash: bool, H: int, design,
     has ptxas's)."""
     import ctypes
 
+    import torch
     from crnn_ocr_torch.kernels import _build
+    from crnn_ocr_torch.kernels import bigru as bg
 
     lib = _build.load("bigru")
     fn = lib.crnn_birnn_resident_info
@@ -647,8 +665,9 @@ def resident_resources(cell: str, stash: bool, H: int, design,
                  "resident info")
     return dict(smem_bytes=info[0], max_active_clusters=info[1],
                 runtime_registers=info[2], local_bytes=info[3],
-                ptxas=RESIDENT_PTXAS.get(ptxas_key(cell, stash, design.rows,
-                                                   dtype_name)))
+                ptxas=RESIDENT_PTXAS.get(ptxas_key(
+                    cell, stash, design.rows, dtype_name, bg.resident_tile(
+                        cell, H, getattr(torch, dtype_name))[0])))
 
 
 def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
@@ -686,7 +705,7 @@ def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
         out["streamed_equal"] = all(torch.equal(a, b) for a, b in
                                     zip(ours, theirs) if a is not None)
     out[f"{key}_ms"] = device_ms(yardstick)
-    hp = bg._padded_units(H, xw.dtype, cell)
+    hp = bg._padded_units(H, xw.dtype)
     res = resident_resources(cell, stash, hp, d, str(xw.dtype)[6:])
     # one wave: the grid within the CTAs the card holds at once
     res["ctas"] = -(-B // d.rows) * 2 * d.cluster
@@ -698,7 +717,7 @@ def design_times(cell: str, xw, u, rb, uk, stash: bool, plain) -> dict:
     fits_one = any(
         -(-B // r) * 2 * d.cluster
         <= bg.WAVE_CTAS.get((xw.dtype, cell, stash, hp, r), 0)
-        for r in bg.resident_rows(xw.dtype))
+        for r in bg.resident_rows(xw.dtype, cell))
     require(res["one_wave"] or not (bf16 or fits_one),
             f"{cell} {d}: {res['ctas']} CTAs, the card holds "
             f"{res['wave_ctas']} at once")
@@ -917,20 +936,22 @@ def phase_goldens(g, f32_models, bf16_model, bf16_max_off: int = 1):
 
 
 def phase_throughput(card: str, name: str, lines, want: dict,
-                     bucket: int = BUCKET, path: str = "serve"):
+                     bucket: int = BUCKET, path: str = "serve",
+                     dtype: str = None):
     """The main path, counted: ``REPS`` timed ``predict`` calls of ``name``
-    (as shipped) on ``lines`` at ``bucket`` with the launch counts set to 0
-    just before them and read just after; ``want``: each kernel's launches
-    per call; ``path``: ``"serve"`` (bf16: K1 on ``"mma"``, the
-    recurrences on ``PATH_DESIGN``'s designs) or ``"serve_f32"`` (K1 on
-    ``"conv9"``, K2 on ``PATH_DESIGN``'s, its f32 instance). Returns the
-    counts and, under ``"design"``, ``read_design``'s."""
+    (as shipped, or in ``dtype``) on ``lines`` at ``bucket`` with the
+    launch counts set to 0 just before them and read just after; ``want``:
+    each kernel's launches per call; ``path``: ``"serve"`` (bf16: K1 on
+    ``"mma"``, the recurrences on ``PATH_DESIGN``'s designs) or
+    ``"serve_f32"`` (K1 on ``"conv9"``, K2 or K4 on ``PATH_DESIGN``'s, its
+    f32 instance). Returns the counts and, under ``"design"``,
+    ``read_design``'s."""
     import torch
     from crnn_ocr_torch import load_pretrained
     from crnn_ocr_torch.kernels import bigru, fused_stem
 
     reps = 20
-    pred = load_pretrained(name, device="cuda")
+    pred = load_pretrained(name, device="cuda", dtype=dtype)
     for _ in range(3):
         pred.predict(lines, bucket=bucket)
     torch.cuda.synchronize()
@@ -2288,10 +2309,11 @@ def main() -> int:
     # the stem's kernels in both steps: with the plain stem as well, block1's
     # weight gradients differed by 9e-4 of their largest on the H100
     # (stem_kernels_alone reports what the stem's kernels change alone)
-    phase_train_parity(g, LSTM_NAME, "hard",
-                       {k[6:]: lg[k] for k in lg.files
-                        if k.startswith("train/")}, LSTM_TRAIN_KERNELS,
-                       plain_stem=False)
+    lstm_step = phase_train_parity(
+        g, LSTM_NAME, "hard",
+        {k[6:]: lg[k] for k in lg.files if k.startswith("train/")},
+        LSTM_TRAIN_KERNELS, plain_stem=False,
+        rnn_design=PATH_DESIGN["bilstm_train"])
     train = phase_train(g, card, LSTM_NAME, "hard", LSTM_TRAIN_KERNELS)
     counts["bilstm_train"] = train["bilstm_train"]
     designs["bilstm_train"] = train["design"]
@@ -2314,6 +2336,33 @@ def main() -> int:
     require(f32_serve["design"][0].name == k2_f32["design"]
             and k3_design.name == k3_f32["design"],
             "the f32 rows were timed on another design than their runs ran")
+
+    # phase 24: fonts-hard-lstm served in f32; K4's and K5's f32 rows are
+    # phase 18's checks at these paths' shapes, with phase 24's and phase
+    # 21's launches
+    lstm_serve = phase_throughput(card, LSTM_NAME, lines, LSTM_SERVE_KERNELS,
+                                  BUCKET, "serve_f32", dtype="float32")
+    (k5_design, k5_n), = lstm_step["designs"].items()
+    k4_f32, k5_f32 = (next(c for c in checks if c["kernel"] == k
+                           and c["dtype"] == "float32")
+                      for k in ("bilstm", "bilstm_train"))
+    f32_rows["bilstm"] = dict(
+        f32_fields(k4_f32), launches=lstm_serve["bilstm"],
+        design_launches=lstm_serve["design"][1],
+        ms_per_step=k4_f32["kernel_device_ms"] / k4_f32["T"],
+        path=f"{LSTM_NAME} f32 serving, phase 24")
+    f32_rows["bilstm_train"] = dict(
+        f32_fields(k5_f32), launches=lstm_step["launches"]["bilstm_train"],
+        design_launches=k5_n,
+        ms_per_step=k5_f32["kernel_device_ms"] / k5_f32["T"],
+        path=f"{LSTM_NAME} f32 train step, phase 21")
+    require(tuple(lstm_serve["design"][0]) == (k4_f32["design"],
+                                               k4_f32["cluster"],
+                                               k4_f32["rows"])
+            and tuple(k5_design) == (k5_f32["design"], k5_f32["cluster"],
+                                     k5_f32["rows"]),
+            "the f32 LSTM rows were timed on another design than their runs "
+            "ran")
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
@@ -2372,7 +2421,7 @@ def main() -> int:
         ))
         if name == "fused_stem":  # phase 4's launches by design
             kernels[-1]["design_launches"] = stem_design_launches
-        if name in f32_rows:  # fonts-small's f32 path (phases 16, 23)
+        if name in f32_rows:  # the f32 paths (phases 16, 23; 21, 24)
             kernels[-1]["f32"] = f32_rows[name]
         if name.startswith("bi"):  # f32 at this row's own path shape
             kernels[-1]["f32_path_shape"] = f32_fields(next(

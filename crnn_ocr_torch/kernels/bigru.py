@@ -16,10 +16,11 @@ also c, as the Pallas kernels carry them (``bigru.py:63-73, 343-345``).
 The CUDA kernels are in ``csrc/bigru.cu``, the cell a template parameter
 of each (its header has the designs and the H100 bounds, bytes-bound plus
 the T dependent steps). :func:`design_for` picks the design from the shape
-alone: up to 256 padded units K2-K5 in bf16, and K2 and K3 in f32, keep U
-resident in a cluster's shared memory (bf16 products on the tensor cores;
-f32 ones as 3xTF32 on the tensor cores); wider bf16 shapes stream U from
-L2; the f32 LSTM and wider f32 GRUs read it from L2 on the CUDA cores.
+alone: up to 256 padded units K2-K5, in bf16 and in f32, keep U resident
+in a cluster's shared memory (bf16 products on the tensor cores; f32 ones
+as 3xTF32 on the tensor cores; the f32 LSTM past 128 units in clusters of
+up to 8 CTAs of 32 units); wider bf16 shapes stream U from L2; wider f32
+ones read it from L2 on the CUDA cores.
 ``bigru_plain`` and ``bilstm_plain`` are the same functions as Python loops
 over T.
 
@@ -59,20 +60,25 @@ MAX_UNITS = 1024  # one thread per hidden unit in a block
 GATES = {"gru": 3, "lstm": 4}
 STASH = {"gru": 4, "lstm": 5}  # the training stash's width, in units of H
 
-# The resident design keeps U in the shared memory of a cluster of at most
-# RESIDENT_MAX_CLUSTER CTAs, each owning at most RESIDENT_UNITS units of
-# every gate (one M-tile). Every (cell, stash) pair runs it in bf16, as
+# The resident design keeps U in the shared memory of a cluster of CTAs,
+# each owning at most a tile of units of every gate (:func:`resident_tile`):
+# RESIDENT_UNITS (one M-tile of 64 rows on 4 warps) in at most 4 CTAs, or,
+# for the f32 LSTM past 128 padded units (whose 64-unit f32 slice would not
+# fit), LSTM_F32_UNITS (two M-tiles of 16, K split over 2 warps each, 4 at
+# 16 rows) in at most 8, the portable maximum. Every (cell, stash) pair
+# runs it, as
 # csrc/bigru.cu::resident takes them: K2 (the GRU, serving), K3 (the GRU,
-# training), K4 (the LSTM, serving), K5 (the LSTM, training); in f32 (the
-# product as 3xTF32 on the tensor cores) the GRU (K2, K3) up to
-# F32_RESIDENT_UNITS padded units. The dtype picks the instance.
+# training), K4 (the LSTM, serving), K5 (the LSTM, training); in bf16 up to
+# 256 padded units (4 x 64), in f32 (the product as 3xTF32 on the tensor
+# cores) up to F32_RESIDENT_UNITS. The dtype picks the instance.
 RESIDENT_UNITS = 64
-RESIDENT_MAX_CLUSTER = 4
+LSTM_F32_UNITS = 32
 RESIDENT_KERNELS = (("gru", False), ("gru", True), ("lstm", False),
                     ("lstm", True))
 RESIDENT_ROWS = (8, 16, 32)  # batch rows a cluster, the instances compiled
 F32_RESIDENT_UNITS = 256
-F32_RESIDENT_ROWS = (8, 16)  # two f32 h buffers of 32 rows do not fit at 256
+F32_RESIDENT_ROWS = (8, 16)  # the f32 GRU: two f32 h buffers of 32 rows do
+# not fit beside its 192 KB slice at 256 units; the f32 LSTM has all three
 # The CTAs the H100 holds at once per resident instance, (dtype, cell,
 # stash, padded units, rows): cudaOccupancyMaxActiveClusters times the
 # cluster size, as tools/time_rnn_designs.py measured them (PERF.md), the
@@ -81,7 +87,11 @@ F32_RESIDENT_ROWS = (8, 16)  # two f32 h buffers of 32 rows do not fit at 256
 # design_for takes the fewest rows whose grid fits, since at one wave fewer
 # rows were measured faster; a width not in the table, or a batch that no
 # measured instance holds in one wave, takes 16 rows. In f32 at 128 units
-# the card holds two CTAs an SM, at 256 one (U's slice alone takes 192 KB).
+# the GRU holds two CTAs an SM, at 256 one (U's slice alone takes 192 KB);
+# the f32 LSTM one at both (128 KB slices: 64 units at 128, 32 at 256),
+# and at 256 its clusters of 8 fit 15 at once, not 16 (120 CTAs): K5 at B
+# 128 fits one wave on 32 rows (64 CTAs), K4 at B 256 on none (16 rows,
+# three waves, measured faster than 32 rows' two).
 WAVE_CTAS = {
     (dtype, cell, stash, hp, rows): ctas
     for dtype, rows_of, cell, hp, caps in (
@@ -90,7 +100,9 @@ WAVE_CTAS = {
         (torch.bfloat16, RESIDENT_ROWS, "gru", 128, (528, 528, 264)),
         (torch.bfloat16, RESIDENT_ROWS, "lstm", 128, (396, 396, 264)),
         (torch.float32, F32_RESIDENT_ROWS, "gru", 256, (120, 120)),
-        (torch.float32, F32_RESIDENT_ROWS, "gru", 128, (264, 264)))
+        (torch.float32, F32_RESIDENT_ROWS, "gru", 128, (264, 264)),
+        (torch.float32, RESIDENT_ROWS, "lstm", 256, (120, 120, 120)),
+        (torch.float32, RESIDENT_ROWS, "lstm", 128, (132, 132, 132)))
     for stash in (False, True)
     for rows, ctas in zip(rows_of, caps)
 }
@@ -111,34 +123,48 @@ class Design(NamedTuple):
     rows: int = 0
 
 
-def _resident(cell: str, H: int, dtype) -> bool:
+def _resident(H: int, dtype) -> bool:
     """Whether a recurrence of ``H`` units may run the resident design: in
-    bf16 every cell (up to 256 padded units, else it streams), in f32 the
-    GRU up to F32_RESIDENT_UNITS padded units."""
-    return dtype == torch.bfloat16 or (
-        cell == "gru" and -(-H // 16) * 16 <= F32_RESIDENT_UNITS)
+    bf16 every shape (up to 256 padded units, else it streams), in f32 up
+    to F32_RESIDENT_UNITS padded units."""
+    return dtype == torch.bfloat16 or -(-H // 16) * 16 <= F32_RESIDENT_UNITS
 
 
-def resident_rows(dtype) -> tuple:
-    """The rows a cluster of the resident instances compiled for ``dtype``."""
-    return RESIDENT_ROWS if dtype == torch.bfloat16 else F32_RESIDENT_ROWS
+def resident_tile(cell: str, hp: int, dtype) -> tuple:
+    """The resident instance's tile at ``hp`` padded units: (the units of
+    each gate a CTA owns at most, the most CTAs a cluster). 32 units in up
+    to 8 CTAs for the f32 LSTM past 128 units (4 x 64 x 256 x 4 bytes, 256
+    KB, would not fit a CTA), else 64 in up to 4."""
+    if dtype == torch.float32 and cell == "lstm" and hp > 128:
+        return LSTM_F32_UNITS, 8
+    return RESIDENT_UNITS, 4
+
+
+def resident_rows(dtype, cell: str) -> tuple:
+    """The rows a cluster of the resident instances compiled for ``dtype``
+    and ``cell``."""
+    if dtype == torch.float32 and cell == "gru":
+        return F32_RESIDENT_ROWS
+    return RESIDENT_ROWS
 
 
 def design_for(cell: str, stash: bool, H: int, B: int, dtype) -> Design:
     """The design for a recurrence of ``H`` units at batch ``B``, a pure
-    function of the shape: bf16 K2-K5 take the resident design whenever
-    the padded units fit 4 CTAs of 64 (H <= 256), each CTA an even number
-    of units, and so does the f32 GRU (K2, K3) up to F32_RESIDENT_UNITS;
-    the cluster is the fewest CTAs that hold them, and the rows a cluster
-    the fewest of the instances' rows whose grid ``WAVE_CTAS`` says the
-    card holds in one wave, else 16. Wider bf16 shapes stream U; the f32
-    LSTM and wider f32 GRUs take the ``"f32"`` design."""
-    if not _resident(cell, H, dtype):
+    function of the shape: every (cell, stash) pair in bf16 up to 256
+    padded units, and in f32 up to F32_RESIDENT_UNITS, takes the resident
+    design; the cluster is the fewest CTAs that hold the padded units, an
+    even number each within the instance's tile (:func:`resident_tile`:
+    4 CTAs of 64, or for the f32 LSTM past 128 units 8 of 32), and the rows
+    a cluster the fewest of the instance's rows whose grid ``WAVE_CTAS``
+    says the card holds in one wave, else 16. Wider bf16 shapes stream U;
+    wider f32 ones take the ``"f32"`` design."""
+    if not _resident(H, dtype):
         return Design("f32")
-    hp = _padded_units(H, dtype, cell)
-    for c in range(-(-hp // RESIDENT_UNITS), RESIDENT_MAX_CLUSTER + 1):
+    hp = _padded_units(H, dtype)
+    units, max_cluster = resident_tile(cell, hp, dtype)
+    for c in range(-(-hp // units), max_cluster + 1):
         if hp % c == 0 and (hp // c) % 2 == 0:
-            rows = next((r for r in resident_rows(dtype)
+            rows = next((r for r in resident_rows(dtype, cell)
                          if -(-B // r) * 2 * c
                          <= WAVE_CTAS.get((dtype, cell, stash, hp, r), 0)),
                         16)
@@ -246,15 +272,15 @@ def mma_operand(u):
     return ut.permute(0, 1, 2, 4, 3, 5).reshape(D, G, H).contiguous()
 
 
-def _padded_units(H: int, dtype, cell: str) -> int:
+def _padded_units(H: int, dtype) -> int:
     """Hidden units per gate the shape's design runs: the tensor-core
-    designs (every bf16 one, the f32 GRU's resident one) take a multiple of
+    designs (every bf16 one, the f32 resident one) take a multiple of
     16 (mma tiles, core matrices); the ``"f32"`` design any H. A padded unit
     sees zero input and weights (and bias), so its state stays 0: for the
     GRU z = 1/2 and hh = 0; for the LSTM i = f = o = 1/2 and g = 0, so c
     stays 0 and h = tanh(0) / 2 = 0. It adds nothing to the real units'
     products."""
-    if _resident(cell, H, dtype):
+    if _resident(H, dtype):
         return -(-H // 16) * 16
     return H
 
@@ -269,17 +295,17 @@ def _pad_gates(x, H: int, hp: int):
 def kernel_weights(u):
     """U (2, H, nH) -> the operand the card's kernel reads (n = 3 for the
     GRU, 4 for the LSTM): for bf16, the units padded to a multiple of 16 and
-    the layout of :func:`mma_operand`; for the f32 GRU's resident design,
-    the units padded the same way and U[d] transposed, (2, 3 hp, hp) as
+    the layout of :func:`mma_operand`; for the f32 resident design, the
+    units padded the same way and U[d] transposed, (2, n hp, hp) as
     [d][n][k]; for the ``"f32"`` design, U itself. It depends on the weights
     only, so a caller that runs them often builds it once (``BiRNN`` does
     when its weights are loaded) and passes it to :func:`bigru` or
     :func:`bilstm`."""
     H, G = u.shape[1], u.shape[2]
     cell = "lstm" if G == 4 * H else "gru"
-    if not _resident(cell, H, u.dtype):
+    if not _resident(H, u.dtype):
         return u.contiguous()
-    hp = _padded_units(H, u.dtype, cell)
+    hp = _padded_units(H, u.dtype)
     if hp != H:
         u = F.pad(_pad_gates(u, H, hp), (0, 0, 0, hp - H))
     if u.dtype == torch.bfloat16:
@@ -308,7 +334,7 @@ def _launch(cell: str, xw, u, rec_bias, u_kernel, stash: bool,
     if u.device != dev or (rec_bias is not None and rec_bias.device != dev):
         raise RuntimeError(f"{name}: every operand must be on one device")
     bf16 = xw.dtype == torch.bfloat16
-    takes = {"resident": _resident(cell, H, xw.dtype), "streamed": bf16,
+    takes = {"resident": _resident(H, xw.dtype), "streamed": bf16,
              "f32": not bf16}
     if not takes.get(design.name):
         raise ValueError(f"{name}: the {design.name} design does not take "

@@ -26,42 +26,45 @@
 // stash, whether it has a recurrent bias and its per-unit step. Three
 // designs; kernels/bigru.py::design_for picks one from the shape alone:
 //
-// * resident (bf16 K2-K5 and f32 K2-K3, H <= 256 after padding),
+// * resident (K2-K5 in bf16 and in f32, H <= 256 after padding),
 //   birnn_resident_kernel, its operand types and product a policy
 //   (ResBf16, ResTf32): U stays in shared memory for all T steps. Each
-//   (direction, tile of R batch rows) is a cluster of C <= 4 CTAs; CTA c
-//   owns the units [c H/C, (c+1) H/C) of every gate, so its U slice (at
-//   H = 256, C = 4: 96 KB for the GRU, 128 KB for the LSTM) is loaded once,
-//   rearranged from kernel_weights' operand into K-major core matrices, and
-//   the cell step stays in the CTA's registers (h, and c, in f32). Each
-//   CTA keeps the whole round(h), R x H bf16, twice (this step's, the
-//   next's): after its cell step it writes its units of the new h into
-//   every CTA's next buffer with st.shared::cluster, then one cluster
-//   barrier (arrive after the writes, wait at the step's end) replaces
-//   __syncthreads. The product runs with the operands swapped, gates^T =
-//   U_slice^T . round(h)^T: gate q's units are M-tile q, the batch rows N,
-//   so the thread that holds (unit, row) of one gate holds it in every
-//   gate. The product is mma.sync.m16n8k16, its fragments loaded with
-//   ldmatrix from the resident K-major core matrices (wgmma.m64nRk16 on
-//   the same layouts measured 13-19 % slower on the H100 at the main-path
-//   shapes; PERF.md). M rows are ordered so that a thread's two rows are
-//   adjacent units: xw, h, hs and the stash move two units at a time. xw
-//   is loaded into registers one step ahead. R is 8, 16 or 32, the fewest
-//   whose grid the card holds in one wave (kernels/bigru.py::design_for,
-//   from measured capacities): at H = 256, K2 at B = 256 runs 128 CTAs of
-//   16 rows, K3 at B = 128 128 CTAs of 8, K4 at B = 256 64 CTAs of 32 (16
-//   rows would take 128 CTAs, two waves of the 120 the card holds) and K5
-//   at B = 128 64 CTAs of 16. Per step and CTA the tensor cores read the U
-//   slice from shared memory once (128 KB for the LSTM at H = 256, ~1000
-//   cycles at 128 B a cycle) and the cluster barrier waits for the slowest
-//   CTA: the design is bound by this latency per step, not by the bytes of
-//   xw and the outputs.
+//   (direction, tile of R batch rows) is a cluster of C CTAs; CTA c owns
+//   the units [c H/C, (c+1) H/C) of every gate, at most a tile of kUnits:
+//   64 in C <= 4 (every instance but one), or 32 in C <= 8, the portable
+//   maximum (the f32 LSTM past 128 padded units). Its U slice (at H = 256,
+//   C = 4: 96 KB for the bf16 GRU, 128 KB for the bf16 LSTM; C = 8: 128 KB
+//   for the f32 LSTM) is loaded once, rearranged from kernel_weights'
+//   operand into K-major core matrices, and the cell step stays in the
+//   CTA's registers (h, and c, in f32). Each CTA keeps the whole round(h),
+//   R x H, twice (this step's, the next's): after its cell step it writes
+//   its units of the new h into every CTA's next buffer with
+//   st.shared::cluster, then one cluster barrier (arrive after the writes,
+//   wait at the step's end) replaces __syncthreads. The product runs with
+//   the operands swapped, gates^T = U_slice^T . round(h)^T: gate q's units
+//   are M-tile q, the batch rows N, so the thread that holds (unit, row)
+//   of one gate holds it in every gate. The product is mma.sync.m16n8k16,
+//   its fragments loaded with ldmatrix from the resident K-major core
+//   matrices (wgmma.m64nRk16 on the same layouts measured 13-19 % slower
+//   on the H100 at the main-path shapes; PERF.md). M rows are ordered so
+//   that a thread's two rows are adjacent units: xw, h, hs and the stash
+//   move two units at a time. xw is loaded into registers one step ahead
+//   (where that fits in registers; else at the step's start, before the
+//   product). R is 8, 16 or 32, the fewest whose grid the card holds in
+//   one wave (kernels/bigru.py::design_for, from measured capacities): in
+//   bf16 at H = 256, K2 at B = 256 runs 128 CTAs of 16 rows, K3 at B = 128 128
+//   CTAs of 8, K4 at B = 256 64 CTAs of 32 (16 rows would take 128 CTAs,
+//   two waves of the 120 the card holds) and K5 at B = 128 64 CTAs of 16.
+//   Per step and CTA the tensor cores read the U slice from shared memory
+//   once (128 KB for the LSTM at H = 256, ~1000 cycles at 128 B a cycle)
+//   and the cluster barrier waits for the slowest CTA: the design is bound
+//   by this latency per step, not by the bytes of xw and the outputs.
 //   In f32 (ResTf32) U's slice and h are f32, 4 k a 16-byte core row, and
 //   the product is 3xTF32 on mma.sync.m16n8k8 from the same ldmatrix
 //   fragments: every operand split hi + lo as it is loaded, hi.hi + hi.lo
 //   + lo.hi (one TF32 product errs by ~5e-4 of the terms' magnitudes,
-//   tests/test_torch_rnn_f32.py, and a gate keeps f32's ~1e-7). Shared
-//   memory: U's slice 3 x 64 x H x 4 bytes (96 KB at H = 128, 192 KB at
+//   tests/test_torch_rnn_f32.py, and a gate keeps f32's ~1e-7). The f32
+//   GRU's slice is 3 x 64 x H x 4 bytes (96 KB at H = 128, 192 KB at
 //   H = 256) plus two f32 h buffers of R x H (at H = 256 and R = 16, 32 KB:
 //   224 KB of the 227). So R is 8 or 16; at H = 128 the card holds two
 //   CTAs an SM (264 in a wave), at H = 256 one (120, in clusters of 4), and
@@ -71,6 +74,21 @@
 //   barrier and the cell math (a variant without the product, timing only,
 //   1.5-1.9 us). FMAs on the CUDA cores from the same layouts measured 10 %
 //   slower at H = 128 and 25-40 % at H = 256 (PERF.md).
+//   The f32 LSTM's slice on the 64-unit tile would be 4 x 64 x 256 x 4 =
+//   256 KB at H = 256: past 128 padded units it takes the 32-unit tile, C
+//   = 8 at H = 256 (128 KB), two M-tiles of 16 units. To keep every warp
+//   multiplying, K is split over the warps of each M-tile: 2 parts (4
+//   warps) at 8 and 32 rows, 4 parts (8 warps) at 16. Each warp forms its
+//   K part's 3xTF32 partial for all R rows, then owns a share of the rows
+//   (its slots: 8-row tile and row parity); it hands the other slots'
+//   partials to their owners through shared memory (f32, 4 gates x 32
+//   units x R rows a part), adds those it is handed in K order after one
+//   __syncthreads, and does its rows' cell step, exchange and stores. At
+//   H = 256: 128 KB slice + 2 x 32 KB h + 16 KB partials at R = 32 (208
+//   KB); at R = 16 with 4 parts 128 + 32 + 24. One CTA an SM; the card
+//   holds 15 clusters of 8 (120 CTAs), so K5 at B = 128 runs 64 CTAs of 32
+//   rows in one wave (~8 us a step) and K4 at B = 256 256 CTAs of 16 rows
+//   in three waves (measured faster than 32 rows' two; PERF.md).
 // * streamed (bf16 shapes above 4 x 64 units), birnn_mma_kernel: the
 //   work is split by (direction, tile of batch rows), never by hidden
 //   columns, so no block needs another block's state and the time loop
@@ -90,8 +108,8 @@
 //   8-byte shared load per lane. At H = 256 the LSTM's ring (8 warps x 6
 //   stages x 4 gates x 4 tiles x 256 B = 192 KB) and the two A buffers
 //   (16.5 KB) take 208.5 KB.
-// * f32 (the LSTM, K4 and K5, and GRUs above 256 units),
-//   birnn_f32_kernel, split as the streamed design: a block has H threads;
+// * f32 (f32 shapes above 256 units), birnn_f32_kernel, split as the
+//   streamed design: a block has H threads;
 //   thread j owns column j of every gate for kBT rows and walks k over H
 //   with CUDA-core FMAs, U[d][k][j] read from global memory (L2) every
 //   step, h in shared memory as [H][kBT]: ~35 us a step at H = 256.
@@ -112,12 +130,16 @@
 //   -> 25.4 us; 17.2 GFLOP -> 17.4 us. K5 at the training path: xw 33.6 MB
 //   + U 1.0 MB + hs 8.4 MB + stash 83.9 MB = 126.9 MB -> 37.9 us; 8.6 GFLOP
 //   -> 8.7 us.
+// * f32 K4 at fonts-hard-lstm's serving path (B=256): 170 MB -> 50.7 us;
+//   17.2 GFLOP -> 104 us as 3xTF32. K5 at its training path (B=128): xw
+//   67.1 MB + U 2.1 MB + hs 16.8 MB + stash 83.9 MB = 170 MB -> 50.7 us;
+//   8.6 GFLOP -> 52.6 us as 3xTF32: both operations-bound.
 // * f32 K2 at fonts-small's serving path (T=32, B=256, H=128): xw 25.2 MB
 //   + U 0.4 MB + hs 8.4 MB = 34.0 MB -> 10.1 us; 1.64 GFLOP -> 9.9 us as
 //   3xTF32 (three TF32 products each, at 495 TFLOP/s), 24.4 us by FMAs on
 //   the CUDA cores (67 TFLOP/s). K3 at its training path (B=128): xw 12.6
 //   MB + U 0.4 MB + hs 4.2 MB + gates 16.8 MB = 34.0 MB -> 10.1 us.
-// All are bytes-bound, the stash above all, plus T dependent steps.
+// All others are bytes-bound, the stash above all, plus T dependent steps.
 // In the streamed design each block re-reads its direction's U from L2
 // every step, which bounds it near 3.4 us (GRU) and 4.5 us (LSTM) per
 // step; the resident design reads U from global memory once, and its step
@@ -130,6 +152,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -485,9 +508,23 @@ birnn_mma_kernel(const __nv_bfloat16* __restrict__ xw,
 
 // ---- the resident design (K2-K5): U in a cluster's shared memory ----
 
-constexpr int kResThreads = 128;  // four warps per CTA
-constexpr int kResUnits = 64;     // units of each gate a CTA owns at most:
-                                  // one M-tile, 16 rows a warp
+// An instance's tile: the units of each gate a CTA owns at most (units,
+// one M-tile of 16 rows per 16) and the warps that split K for each M-tile.
+// 64 units on 4 warps (every bf16 instance, the f32 GRU, the f32 LSTM up to
+// 128 padded units); 32 units (the f32 LSTM past 128, whose 64-unit f32
+// slice would not fit) on 2 M-tiles x 4 K parts at 16 rows and x 2 K halves
+// at 8 and 32 (8 rows have too few row slots for 4 parts, and at 32 the 3
+// partials' buffer would not fit: PERF.md).
+__host__ __device__ constexpr int res_split(int units, int R) {
+  return units == 64 ? 1 : R == 16 ? 4 : 2;
+}
+__host__ __device__ constexpr int res_threads(int units, int R) {
+  return 32 * (units / 16) * res_split(units, R);
+}
+// the most CTAs a cluster: 8 is the portable maximum
+__host__ __device__ constexpr int res_max_cluster(int units) {
+  return units == 64 ? 4 : 8;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -593,20 +630,21 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[NJ][2], uint32_t addr,
 }
 
 // The resident design's operand types and products. Shared memory holds U's
-// slice (NG M-tiles of 64 rows x H) and round(h) (R rows x H, twice) as
+// slice (NG M-tiles of kUnits rows x H) and round(h) (R rows x H, twice) as
 // K-major core matrices of 8 rows x 16 bytes: (row, k) at ((row / 8) kc +
 // k / E) 128 + (row % 8) 16 + (k % E) sizeof(T), E = 16 / sizeof(T)
 // elements a core row and kc = H / E. A thread moves its two adjacent units
 // of xw, h and hs as one Pair. The products fill acc[q][4 jn + v] with
-// (M row 16 warp + lane / 4 + 8 (v / 2), batch row 8 jn + 2 (lane % 4) +
-// v % 2) of gates^T = U_slice^T . round(h)^T: gate q's units are M-tile q,
-// the batch rows N, so the thread that holds (unit, row) of one gate holds
-// it in every gate.
+// (M row 16 mt + lane / 4 + 8 (v / 2), batch row 8 jn + 2 (lane % 4) +
+// v % 2) of gates^T = U_slice^T . round(h)^T over the k-steps [kk0, kk1)
+// (kK k a step): gate q's units are M-tile q, the batch rows N, so the
+// thread that holds (unit, row) of one gate holds it in every gate.
 
 // bf16 (K2-K5): mma.sync.m16n8k16, its fragments loaded with ldmatrix.
 struct ResBf16 {
   using T = __nv_bfloat16;
   using Pair = uint32_t;
+  static constexpr int kK = 16;
   __device__ static float first(Pair p) { return bf16_lo(p); }
   __device__ static float second(Pair p) { return bf16_hi(p); }
   __device__ static Pair pack(float a, float b) { return pack_bf16(a, b); }
@@ -620,15 +658,14 @@ struct ResBf16 {
   // U's slice, once, from ut (birnn_mma_kernel's operand): 32 bytes of ut
   // (one 16-block of k, permuted) become the two core-matrix rows of k 0-7
   // and 8-15; rows past upc stay 0
-  template <int NG>
+  template <int NG, int kUnits, int kThreads>
   __device__ static void load_u(unsigned char* sA, const T* utd, int H,
                                 int rank, int upc, int tid) {
     const int nk = H / 16, kc = H / 8;
-    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 2;
+    const uint32_t tile_bytes = (uint32_t)kUnits * H * 2;
 #pragma unroll 4
-    for (int i = tid; i < NG * kResUnits * nk; i += kResThreads) {
-      const int kb = i % nk, m = (i / nk) % kResUnits,
-                q = i / (nk * kResUnits);
+    for (int i = tid; i < NG * kUnits * nk; i += kThreads) {
+      const int kb = i % nk, m = (i / nk) % kUnits, q = i / (nk * kUnits);
       const int jl = res_unit(m);
       uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
       if (jl < upc) {
@@ -645,22 +682,22 @@ struct ResBf16 {
     }
   }
 
-  // warp w takes M rows 16w..16w+15 of every gate tile; matrix mi of A's
-  // ldmatrix is (rows + 8 if mi & 1, k half mi >> 1) of the warp's rows
-  template <int R, int NG>
+  // M-tile mt takes M rows 16mt..16mt+15 of every gate tile; matrix mi of
+  // A's ldmatrix is (rows + 8 if mi & 1, k half mi >> 1) of the tile's rows
+  template <int R, int NG, int kUnits>
   __device__ static void product(float (&acc)[NG][R / 2],
                                  const unsigned char* sA,
-                                 const unsigned char* sH, int H, int warp,
-                                 int lane) {
+                                 const unsigned char* sH, int H, int mt,
+                                 int lane, int kk0, int kk1) {
     constexpr int NJ = R / 8;
     const int kc = H / 8;
-    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 2;
+    const uint32_t tile_bytes = (uint32_t)kUnits * H * 2;
     const int mi = lane >> 3, r8 = lane & 7;  // this lane's ldmatrix row
     const uint32_t a_lane = smem_addr(sA) +
-        ((2 * warp + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
+        ((2 * mt + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
     const uint32_t b_lane =
         smem_addr(sH) + (((mi >> 1) % NJ) * kc + (mi & 1)) * 128 + r8 * 16;
-    for (int kk = 0; kk < H / 16; ++kk) {
+    for (int kk = kk0; kk < kk1; ++kk) {
       uint32_t b[NJ][2];
       load_b<NJ>(b, b_lane + kk * 256, kc);
 #pragma unroll
@@ -688,6 +725,7 @@ struct ResBf16 {
 struct ResTf32 {
   using T = float;
   using Pair = float2;
+  static constexpr int kK = 8;
   __device__ static float first(Pair p) { return p.x; }
   __device__ static float second(Pair p) { return p.y; }
   __device__ static Pair pack(float a, float b) { return make_float2(a, b); }
@@ -698,15 +736,14 @@ struct ResTf32 {
     *reinterpret_cast<float2*>(p) = v;
   }
 
-  template <int NG>
+  template <int NG, int kUnits, int kThreads>
   __device__ static void load_u(unsigned char* sA, const T* utd, int H,
                                 int rank, int upc, int tid) {
     const int kc = H / 4;
-    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 4;
+    const uint32_t tile_bytes = (uint32_t)kUnits * H * 4;
 #pragma unroll 4
-    for (int i = tid; i < NG * kResUnits * kc; i += kResThreads) {
-      const int kb = i % kc, m = (i / kc) % kResUnits,
-                q = i / (kc * kResUnits);
+    for (int i = tid; i < NG * kUnits * kc; i += kThreads) {
+      const int kb = i % kc, m = (i / kc) % kUnits, q = i / (kc * kUnits);
       const int jl = res_unit(m);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (jl < upc)
@@ -718,17 +755,17 @@ struct ResTf32 {
     }
   }
 
-  template <int R, int NG>
+  template <int R, int NG, int kUnits>
   __device__ static void product(float (&acc)[NG][R / 2],
                                  const unsigned char* sA,
-                                 const unsigned char* sH, int H, int warp,
-                                 int lane) {
+                                 const unsigned char* sH, int H, int mt,
+                                 int lane, int kk0, int kk1) {
     constexpr int NJ = R / 8;
     const int kc = H / 4;
-    const uint32_t tile_bytes = (uint32_t)kResUnits * H * 4;
+    const uint32_t tile_bytes = (uint32_t)kUnits * H * 4;
     const int mi = lane >> 3, r8 = lane & 7;
     const uint32_t a_lane = smem_addr(sA) +
-        ((2 * warp + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
+        ((2 * mt + (mi & 1)) * kc + (mi >> 1)) * 128 + r8 * 16;
     const uint32_t b_lane =
         smem_addr(sH) + (((mi >> 1) % NJ) * kc + (mi & 1)) * 128 + r8 * 16;
     float cross[NG][R / 2];  // the lo.hi and hi.lo products
@@ -737,7 +774,7 @@ struct ResTf32 {
 #pragma unroll
       for (int v = 0; v < R / 2; ++v) cross[q][v] = 0.f;
 #pragma unroll 2
-    for (int kk = 0; kk < H / 8; ++kk) {
+    for (int kk = kk0; kk < kk1; ++kk) {
       uint32_t b[NJ][2], bh[NJ][2], bl[NJ][2];
       load_b<NJ>(b, b_lane + kk * 256, kc);
 #pragma unroll
@@ -766,13 +803,34 @@ struct ResTf32 {
   }
 };
 
+// Call f(std::integral_constant<int, p>) for the runtime p in [0, N): code
+// that indexes registers by a warp's K part, with the part a constant.
+template <int N, class F>
+__device__ __forceinline__ void with_part(int p, F&& f) {
+  if constexpr (N == 1) {
+    f(std::integral_constant<int, 0>{});
+  } else {
+    if (p == N - 1)
+      f(std::integral_constant<int, N - 1>{});
+    else
+      with_part<N - 1>(p, f);
+  }
+}
+
 // xw (T, 2, B, NG H), hs (T, 2, B, H) in Ops::T; ut (2, NG H, H) as Ops
 // reads it; gates (T, 2, B, kStash H) f32 when kStash. Grid (C x tiles of R
 // rows, 2 directions), clusters of C CTAs along x; CTA `rank` owns the units
 // [rank upc, (rank + 1) upc) of every gate. Shared memory: U's slice as NG
-// M-tiles of 64 rows x H, then two h buffers of R rows x H, in Ops' layout.
-template <class Cell, int R, bool kStash, class Ops>
-__global__ void __launch_bounds__(kResThreads, 1)
+// M-tiles of kUnits rows x H, then two h buffers of R rows x H, in Ops'
+// layout, then (K split over kSplit warps) the partial products each K
+// part hands to the others. Warp w multiplies M-tile w % kTiles over the
+// k-steps of its K part p = w / kTiles, for all R rows; then it owns the
+// rows of its slots [p kSlots, (p + 1) kSlots) (slot s: the rows 8 (s / 2)
+// + 2 (lane % 4) + s % 2 of its lanes): it hands the other slots' partials
+// to their owners, adds the ones it is handed in K order, and does those
+// rows' cell step, h exchange and stores.
+template <class Cell, int R, bool kStash, class Ops, int kUnits>
+__global__ void __launch_bounds__(res_threads(kUnits, R), 1)
 birnn_resident_kernel(const typename Ops::T* __restrict__ xw,
                       const typename Ops::T* __restrict__ ut,
                       const float* __restrict__ brec,
@@ -784,157 +842,231 @@ birnn_resident_kernel(const typename Ops::T* __restrict__ xw,
   constexpr int NG = Cell::kGates;
   constexpr int NJ = R / 8;  // 8-row tiles of the batch (mma N = 8)
   constexpr int E = 16 / (int)sizeof(T);  // elements a core-matrix row
+  constexpr int kTiles = kUnits / 16, kSplit = res_split(kUnits, R);
+  constexpr int kThreads = res_threads(kUnits, R);
+  constexpr int kPeers = res_max_cluster(kUnits);
+  constexpr int kSlots = 2 * NJ / kSplit;  // row slots a thread owns
+  static_assert(kSlots * kSplit == 2 * NJ, "the rows split over the K parts");
+  // xw a whole step ahead in registers while one step's takes at most 32 of
+  // them and the accumulators (f32: and the cross products) at most 64
+  constexpr bool kAhead = kSlots * NG * sizeof(Pair) <= 128 &&
+                          NG * R / 2 * (sizeof(T) == 4 ? 2 : 1) <= 64;
   extern __shared__ __align__(128) unsigned char res_smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  // M-tile, K part (with no K split, warp and 0: the addresses fold)
+  const int mt = kSplit == 1 ? warp : warp % kTiles;
+  const int kp = kSplit == 1 ? 0 : warp / kTiles;
   const uint32_t rank = cluster_rank(), csize = cluster_size();
   const int d = blockIdx.y, b0 = (blockIdx.x / csize) * R;
   const int G = NG * H, kc = H / E;
   const uint32_t hbuf_bytes = (uint32_t)R * H * sizeof(T);
   unsigned char* sA = res_smem;
-  unsigned char* sH = res_smem + (size_t)NG * kResUnits * H * sizeof(T);
+  unsigned char* sH = res_smem + (size_t)NG * kUnits * H * sizeof(T);
+  // the partials handed over: [writer][slot][q][i][M-tile][lane], f32,
+  // writer w < kSplit - 1 the slot's K parts but its owner, in order
+  float* red = reinterpret_cast<float*>(sH + 2 * hbuf_bytes) + mt * 32 + lane;
+  auto red_at = [](int w, int slot, int q, int i) {
+    return (((w * 2 * NJ + slot) * NG + q) * 2 + i) * kTiles * 32;
+  };
+  const int nk = H / Ops::kK;
+  const int kk0 = kSplit == 1 ? 0 : kp * nk / kSplit;
+  const int kk1 = kSplit == 1 ? nk : (kp + 1) * nk / kSplit;
 
-  Ops::template load_u<NG>(sA, ut + (size_t)d * G * H, H, rank, upc, tid);
-  for (int i = tid; i < (int)(hbuf_bytes / 16); i += kResThreads)
+  Ops::template load_u<NG, kUnits, kThreads>(sA, ut + (size_t)d * G * H, H,
+                                             rank, upc, tid);
+  for (int i = tid; i < (int)(hbuf_bytes / 16); i += kThreads)
     reinterpret_cast<uint4*>(sH)[i] = make_uint4(0, 0, 0, 0);  // h = 0
 
   // this thread's units u0 and u0 + 1 of the slice (j, j + 1 of the layer)
-  // and rows 8 jn + 2 t4 + e of the tile
-  const int u0 = 16 * warp + 2 * g;
+  // and, in its slots, rows 8 (slot / 2) + 2 t4 + slot % 2 of the tile
+  const int u0 = 16 * mt + 2 * g;
   const bool on = u0 < upc;
   const int j = rank * upc + u0;
+  auto row_of = [&](int s) {
+    const int slot = kp * kSlots + s;
+    return 8 * (slot >> 1) + 2 * t4 + (slot & 1);
+  };
   float bias[NG][2];
 #pragma unroll
   for (int q = 0; q < NG; ++q)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       bias[q][i] = Cell::kRecBias && on ? brec[d * G + q * H + j + i] : 0.f;
-  uint32_t peer[4];  // the h buffers' base in each CTA of the cluster
+  uint32_t peer[kPeers];  // the h buffers' base in each CTA of the cluster
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < kPeers; ++r)
     peer[r] = r < (int)csize ? map_rank(smem_addr(sH), r) : 0u;
   // + the row's offset
   const uint32_t h_at = (j / E) * 128 + (j % E) * (uint32_t)sizeof(T);
 
-  auto load_x = [&](int t, Pair (&x)[NJ][2][NG]) {
+  auto load_x = [&](int t, Pair (&x)[kSlots][NG]) {
 #pragma unroll
-    for (int jn = 0; jn < NJ; ++jn)
+    for (int s = 0; s < kSlots; ++s) {
+      const int b = b0 + row_of(s);
+      const T* p = xw + (((size_t)t * 2 + d) * B + b) * G + j;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int b = b0 + 8 * jn + 2 * t4 + e;
-        const T* p = xw + (((size_t)t * 2 + d) * B + b) * G + j;
-#pragma unroll
-        for (int q = 0; q < NG; ++q)
-          x[jn][e][q] = on && b < B ? Ops::load(p + q * H) : Pair{};
-      }
+      for (int q = 0; q < NG; ++q)
+        x[s][q] = on && b < B ? Ops::load(p + q * H) : Pair{};
+    }
   };
 
-  float h[NJ][2][2], c[NJ][2][2];  // [jn][e][i]: row 8jn+2t4+e, unit u0+i
+  float h[kSlots][2], c[kSlots][2];  // [slot][i]: unit u0 + i
 #pragma unroll
-  for (int jn = 0; jn < NJ; ++jn)
+  for (int s = 0; s < kSlots; ++s)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) h[jn][e][i] = c[jn][e][i] = 0.f;
+    for (int i = 0; i < 2; ++i) h[s][i] = c[s][i] = 0.f;
   // xw one step ahead, in registers: each step's loads are issued a whole
-  // step before its cell math reads them
-  Pair xc[NJ][2][NG], xn[NJ][2][NG];
-  if (steps > 0) load_x(0, xc);
+  // step before its cell math reads them (else at the step's start, before
+  // the product)
+  Pair xc[kSlots][NG], xn[kSlots][NG];
+  if (kAhead && steps > 0) load_x(0, xc);
   cluster_arrive();  // every CTA runs, its U slice and h = 0 in place
   cluster_wait();
 
   for (int t = 0; t < steps; ++t) {
     const uint32_t cur = (t & 1) * hbuf_bytes, nxt = ((t + 1) & 1) * hbuf_bytes;
-    if (t + 1 < steps) load_x(t + 1, xn);
+    if (!kAhead)
+      load_x(t, xc);
+    else if (t + 1 < steps)
+      load_x(t + 1, xn);
     float acc[NG][R / 2];
 #pragma unroll
     for (int q = 0; q < NG; ++q)
 #pragma unroll
       for (int v = 0; v < R / 2; ++v) acc[q][v] = 0.f;
-    Ops::template product<R, NG>(acc, sA, sH + cur, H, warp, lane);
+    Ops::template product<R, NG, kUnits>(acc, sA, sH + cur, H, mt, lane, kk0,
+                                         kk1);
+
+    // the full products of the thread's slots, tot[slot][i][q]: with a K
+    // split, the other slots' partials go to their owners first
+    float tot[kSlots][2][NG];
+    if constexpr (kSplit > 1) {
+      with_part<kSplit>(kp, [&](auto part) {
+        constexpr int p = decltype(part)::value;
+#pragma unroll
+        for (int slot = 0; slot < 2 * NJ; ++slot) {
+          const int owner = slot / kSlots;
+          if (owner == p) continue;
+#pragma unroll
+          for (int q = 0; q < NG; ++q)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              red[red_at(p < owner ? p : p - 1, slot, q, i)] =
+                  acc[q][4 * (slot >> 1) + 2 * i + (slot & 1)];
+        }
+      });
+      __syncthreads();
+    }
+    with_part<kSplit>(kp, [&](auto part) {
+      constexpr int p = decltype(part)::value;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int slot = p * kSlots + s;
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float v = 0.f;
+#pragma unroll
+            for (int k = 0; k < kSplit; ++k) {  // K order
+              const float a = k == p
+                  ? acc[q][4 * (slot >> 1) + 2 * i + (slot & 1)]
+                  : red[red_at(k < p ? k : k - 1, slot, q, i)];
+              v = k == 0 ? a : v + a;
+            }
+            tot[s][i][q] = v;
+          }
+      }
+    });
 
     // the cell step in registers; the new round(h) into every CTA's next
     // buffer (its own included), then the cluster barrier's arrive
-    Pair hv[NJ][2];
-    float st[NJ][2][2][Cell::kStash];
+    Pair hv[kSlots];
+    float st[kSlots][2][Cell::kStash];
 #pragma unroll
-    for (int jn = 0; jn < NJ; ++jn)
+    for (int s = 0; s < kSlots; ++s) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int i = 0; i < 2; ++i) {
+        float x[NG], a[NG];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float x[NG], a[NG];
-#pragma unroll
-          for (int q = 0; q < NG; ++q) {
-            x[q] = i ? Ops::second(xc[jn][e][q]) : Ops::first(xc[jn][e][q]);
-            a[q] = acc[q][4 * jn + 2 * i + e] + bias[q][i];
-          }
-          Cell::step(h[jn][e][i], c[jn][e][i], x, a, st[jn][e][i]);
+        for (int q = 0; q < NG; ++q) {
+          x[q] = i ? Ops::second(xc[s][q]) : Ops::first(xc[s][q]);
+          a[q] = tot[s][i][q] + bias[q][i];
         }
-        hv[jn][e] = Ops::pack(h[jn][e][0], h[jn][e][1]);
-        if (on) {
-          const int n = 8 * jn + 2 * t4 + e;
-          const uint32_t o = nxt + h_at + (n >> 3) * kc * 128 + (n & 7) * 16;
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            if (r < (int)csize) st_cluster(peer[r] + o, hv[jn][e]);
-        }
+        Cell::step(h[s][i], c[s][i], x, a, st[s][i]);
       }
+      hv[s] = Ops::pack(h[s][0], h[s][1]);
+      if (on) {
+        const int n = row_of(s);
+        const uint32_t o = nxt + h_at + (n >> 3) * kc * 128 + (n & 7) * 16;
+#pragma unroll
+        for (int r = 0; r < kPeers; ++r)
+          if (r < (int)csize) st_cluster(peer[r] + o, hv[s]);
+      }
+    }
     cluster_arrive();
 
     // the step's outputs go out while the peers catch up
 #pragma unroll
-    for (int jn = 0; jn < NJ; ++jn)
+    for (int s = 0; s < kSlots; ++s) {
+      const int b = b0 + row_of(s);
+      if (on && b < B) {
+        const size_t row = ((size_t)t * 2 + d) * B + b;
+        Ops::store(hs + row * H + j, hv[s]);
+        if constexpr (kStash) {
+          float* gt = gates + row * Cell::kStash * H + j;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int b = b0 + 8 * jn + 2 * t4 + e;
-        if (on && b < B) {
-          const size_t row = ((size_t)t * 2 + d) * B + b;
-          Ops::store(hs + row * H + j, hv[jn][e]);
-          if constexpr (kStash) {
-            float* gt = gates + row * Cell::kStash * H + j;
-#pragma unroll
-            for (int s = 0; s < Cell::kStash; ++s)
-              *reinterpret_cast<float2*>(gt + s * H) =
-                  make_float2(st[jn][e][0][s], st[jn][e][1][s]);
-          }
+          for (int k = 0; k < Cell::kStash; ++k)
+            *reinterpret_cast<float2*>(gt + k * H) =
+                make_float2(st[s][0][k], st[s][1][k]);
         }
       }
+    }
+    if (kAhead) {
 #pragma unroll
-    for (int jn = 0; jn < NJ; ++jn)
+      for (int s = 0; s < kSlots; ++s)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int q = 0; q < NG; ++q) xc[jn][e][q] = xn[jn][e][q];
+        for (int q = 0; q < NG; ++q) xc[s][q] = xn[s][q];
+    }
     // h(t + 1) has landed everywhere; nobody reads h(t) any more, so the
-    // next step may overwrite it. After the last step this wait also keeps
-    // every CTA alive until no peer writes into its shared memory.
+    // next step may overwrite it (and every handed partial has been read).
+    // After the last step this wait also keeps every CTA alive until no
+    // peer writes into its shared memory.
     cluster_wait();
   }
 }
 
-size_t resident_smem(int gates, int R, int H, int elem_bytes) {
-  return ((size_t)gates * kResUnits + 2 * (size_t)R) * H * elem_bytes;
+// the units a CTA owns at most: 32 for the f32 LSTM past 128 padded units
+// (4 gates x 64 x 256 x 4 bytes would be 256 KB), else 64
+constexpr int res_units(int gates, int elem, int H) {
+  return gates == 4 && elem == 4 && H > 128 ? 32 : 64;
+}
+
+size_t resident_smem(int gates, int R, int H, int elem_bytes, int units) {
+  return ((size_t)gates * units + 2 * (size_t)R) * H * elem_bytes +
+         (size_t)(res_split(units, R) - 1) * gates * units * R * 4;
 }
 
 // Launch, or with info != null fill info = {dynamic shared memory bytes,
 // the most clusters that can be resident at once, registers per thread,
 // local memory bytes per thread} and launch nothing. A cluster that cannot
 // be scheduled is refused with cudaErrorInvalidConfiguration.
-template <class Cell, int R, bool kStash, class Ops>
+template <class Cell, int R, bool kStash, class Ops, int kUnits>
 cudaError_t launch_resident(const void* xw, const void* ut, const void* brec,
                             void* hs, void* gates, int steps, int B, int H,
                             int C, cudaStream_t stream, int* info) {
   using T = typename Ops::T;
-  const auto kernel = birnn_resident_kernel<Cell, R, kStash, Ops>;
-  const size_t smem = resident_smem(Cell::kGates, R, H, sizeof(T));
+  const auto kernel = birnn_resident_kernel<Cell, R, kStash, Ops, kUnits>;
+  const size_t smem =
+      resident_smem(Cell::kGates, R, H, sizeof(T), kUnits);
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * ((B + R - 1) / R), 2);
-  cfg.blockDim = dim3(kResThreads);
+  cfg.blockDim = dim3(res_threads(kUnits, R));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
@@ -948,7 +1080,7 @@ cudaError_t launch_resident(const void* xw, const void* ut, const void* brec,
   // host-bound: it is kept, key and answer in one word so that concurrent
   // launches read them together
   static std::atomic<uint64_t> known{0};
-  const uint64_t key = ((uint64_t)smem * 8 + C) << 32;
+  const uint64_t key = ((uint64_t)smem * 16 + C) << 32;
   const uint64_t seen = known.load(std::memory_order_relaxed);
   int clusters = (int)(uint32_t)seen;
   if ((seen & ~0xffffffffull) != key) {
@@ -975,63 +1107,64 @@ cudaError_t launch_resident(const void* xw, const void* ut, const void* brec,
   return cudaGetLastError();
 }
 
-// R 8, 16 or 32 batch rows a cluster; the f32 instances 8 or 16 (at 256
-// units two f32 h buffers of 32 rows would not fit beside U's slice).
-template <class Cell, bool kStash, class Ops>
+// R 8, 16 or 32 batch rows a cluster; the f32 GRU 8 or 16 (at 256 units
+// two f32 h buffers of 32 rows would not fit beside its U slice).
+template <class Cell, bool kStash, class Ops, int kUnits>
 int run_resident(const void* xw, const void* ut, const void* brec, void* hs,
                  void* gates, int steps, int B, int H, int C, int R,
                  void* stream, int* info) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R == 8)
-    return (int)launch_resident<Cell, 8, kStash, Ops>(
+    return (int)launch_resident<Cell, 8, kStash, Ops, kUnits>(
         xw, ut, brec, hs, gates, steps, B, H, C, s, info);
   if (R == 16)
-    return (int)launch_resident<Cell, 16, kStash, Ops>(
+    return (int)launch_resident<Cell, 16, kStash, Ops, kUnits>(
         xw, ut, brec, hs, gates, steps, B, H, C, s, info);
-  if constexpr (sizeof(typename Ops::T) == 2) {  // bf16 only
+  if constexpr (sizeof(typename Ops::T) == 2 || Cell::kGates == 4) {
     if (R == 32)
-      return (int)launch_resident<Cell, 32, kStash, Ops>(
+      return (int)launch_resident<Cell, 32, kStash, Ops, kUnits>(
           xw, ut, brec, hs, gates, steps, B, H, C, s, info);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <class Ops>
-int run_gru_resident(bool stash, const void* xw, const void* ut,
-                     const void* brec, void* hs, void* gates, int steps,
-                     int B, int H, int C, int R, void* stream, int* info) {
-  return stash ? run_resident<GruCell, true, Ops>(xw, ut, brec, hs, gates,
-                                                  steps, B, H, C, R, stream,
-                                                  info)
-               : run_resident<GruCell, false, Ops>(xw, ut, brec, hs, gates,
-                                                   steps, B, H, C, R, stream,
-                                                   info);
+template <class Cell, class Ops, int kUnits = 64>
+int run_cell(bool stash, const void* xw, const void* ut, const void* brec,
+             void* hs, void* gates, int steps, int B, int H, int C, int R,
+             void* stream, int* info) {
+  return stash ? run_resident<Cell, true, Ops, kUnits>(
+                     xw, ut, brec, hs, gates, steps, B, H, C, R, stream, info)
+               : run_resident<Cell, false, Ops, kUnits>(
+                     xw, ut, brec, hs, gates, steps, B, H, C, R, stream,
+                     info);
 }
 
 // Every (cell, stash) pair in bf16 (elem 2, the bytes of xw's elements):
 // the GRU without a stash (K2) and with one (K3), the LSTM without (K4) and
-// with (K5); the GRU in f32 (elem 4, 3xTF32 on the tensor cores). H
-// (padded units) % 16 == 0, split over C <= 4 CTAs of at most 64 units
-// each, an even number.
+// with (K5); the same four in f32 (elem 4, 3xTF32 on the tensor cores). H
+// (padded units) % 16 == 0, split over C CTAs of at most res_units units
+// each, an even number: C <= 4 of 64, or for the f32 LSTM past 128 units C
+// <= 8 of 32.
 int resident(bool lstm, int elem, bool stash, const void* xw, const void* ut,
              const void* brec, void* hs, void* gates, int steps, int B, int H,
              int C, int R, void* stream, int* info) {
-  if (H % 16 || C < 1 || C > 4 || H % C || (H / C) % 2 || H / C > kResUnits)
+  const int units = res_units(lstm ? 4 : 3, elem, H);
+  if (H % 16 || C < 1 || C > res_max_cluster(units) || H % C ||
+      (H / C) % 2 || H / C > units || (elem != 2 && elem != 4))
     return (int)cudaErrorInvalidValue;
-  if (elem == 2) {
-    if (lstm)
-      return stash ? run_resident<LstmCell, true, ResBf16>(
-                         xw, ut, brec, hs, gates, steps, B, H, C, R, stream,
-                         info)
-                   : run_resident<LstmCell, false, ResBf16>(
-                         xw, ut, brec, hs, gates, steps, B, H, C, R, stream,
-                         info);
-    return run_gru_resident<ResBf16>(stash, xw, ut, brec, hs, gates, steps, B,
-                                     H, C, R, stream, info);
-  }
-  if (lstm || elem != 4) return (int)cudaErrorInvalidValue;  // f32: the GRU
-  return run_gru_resident<ResTf32>(stash, xw, ut, brec, hs, gates, steps, B,
-                                   H, C, R, stream, info);
+  if (elem == 2)
+    return lstm ? run_cell<LstmCell, ResBf16>(stash, xw, ut, brec, hs, gates,
+                                              steps, B, H, C, R, stream, info)
+                : run_cell<GruCell, ResBf16>(stash, xw, ut, brec, hs, gates,
+                                             steps, B, H, C, R, stream, info);
+  if (!lstm)
+    return run_cell<GruCell, ResTf32>(stash, xw, ut, brec, hs, gates, steps,
+                                      B, H, C, R, stream, info);
+  return units == 32
+             ? run_cell<LstmCell, ResTf32, 32>(stash, xw, ut, brec, hs, gates,
+                                               steps, B, H, C, R, stream, info)
+             : run_cell<LstmCell, ResTf32>(stash, xw, ut, brec, hs, gates,
+                                           steps, B, H, C, R, stream, info);
 }
 
 cudaError_t set_smem(const void* fn, size_t smem) {
@@ -1139,11 +1272,12 @@ extern "C" int crnn_bilstm_bf16(const void* xw, const void* ut, void* hs,
 // K2 or K3 (lstm = 0, brec the (2, 3H) f32 recurrent bias), K4 or K5
 // (lstm = 1, brec null) on the resident design: the training instance (K3,
 // K5) when gates is not null, which then receives the stash (T, 2, B, 4H or
-// 5H) f32. C CTAs a cluster, R (8, 16 or 32; f32 8 or 16) batch rows a
-// cluster. elem, the bytes of an element of xw, picks the instance: 2,
-// bf16, xw, ut, hs as crnn_bigru_bf16 takes them; 4, f32 (3xTF32), the GRU
-// only: xw, hs f32 as crnn_bigru_f32 takes them, ut (2, 3H, H) f32 U[d]
-// transposed.
+// 5H) f32. C CTAs a cluster (at most 4; 8 for the f32 LSTM past 128
+// units), R (8, 16 or 32; the f32 GRU 8 or 16) batch rows a cluster. elem,
+// the bytes of an element of xw, picks the instance: 2, bf16, xw, ut, hs as
+// crnn_bigru_bf16 and crnn_bilstm_bf16 take them; 4, f32 (3xTF32): xw, hs
+// f32 as crnn_bigru_f32 and crnn_bilstm_f32 take them, ut (2, nH, H) f32
+// U[d] transposed.
 extern "C" int crnn_birnn_resident(int lstm, int elem, const void* xw,
                                    const void* ut, const void* brec, void* hs,
                                    void* gates, int steps, int B, int H,

@@ -109,14 +109,14 @@ def test_stem_mma_design_within_one_ulp_of_conv9(card, shape):
                 .all()), float((mma - conv9).abs().max())
 
 
-def _design_name(dtype, H, cell="gru"):
-    """The design the card tests expect: the resident one for K2-K5 in bf16
-    up to 256 units, the streamed one beyond; in f32 the resident one (its
-    3xTF32 instance) for the GRU up to 256 units, else (and for the LSTM)
-    U read from L2 by the CUDA cores."""
-    if dtype == "float32":
-        return "resident" if cell == "gru" and H <= 256 else "f32"
-    return "resident" if H <= 256 else "streamed"
+def _design_name(dtype, H):
+    """The design the card tests expect: the resident one for K2-K5 up to
+    256 units, in bf16 and in f32 (its 3xTF32 instance; the f32 LSTM past
+    128 units on the 32-unit tile in clusters of up to 8); beyond, the
+    streamed one in bf16 and U read from L2 by the CUDA cores in f32."""
+    if H <= 256:
+        return "resident"
+    return "f32" if dtype == "float32" else "streamed"
 
 
 @pytest.mark.cuda
@@ -215,13 +215,17 @@ def _lstm_case(seed, B, H, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,H", [(8, 128), (13, 256), (256, 256), (3, 1024),
-                                 (4, 40)])  # bf16 pads 40 units to 48
+                                 (4, 40),  # pads 40 units to 48
+                                 (128, 256), (5, 144)])
 def test_bilstm_kernel_matches_plain(card, dtype, B, H):
     """K4 against bilstm_plain (fonts-hard-lstm's serving batch among the
-    shapes), on the design its shape selects."""
+    shapes), on the design its shape selects. In f32, 48 padded units take
+    the 64-unit tile in one CTA (one of its four M-tiles idle), 128 two
+    CTAs of 64; 144 takes the 32-unit tile in 6 CTAs of 24 (the second
+    M-tile of each CTA a half one), 256 in 8 CTAs of 32."""
     xw, u, atol = _lstm_case(15, B, H, dtype)
     design = tbg.design_for("lstm", False, H, B, DTYPES[dtype])
-    assert design.name == _design_name(dtype, H, "lstm")
+    assert design.name == _design_name(dtype, H)
     n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
     ran = dict(tbg.design_launches)
     got = tbg.bilstm(xw.to(card), u.to(card))
@@ -237,13 +241,14 @@ def test_bilstm_kernel_matches_plain(card, dtype, B, H):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,H", [(8, 128), (13, 256),
                                  (128, 256),  # fonts-hard-lstm's training
-                                 (3, 1024), (4, 40), (3, 128)])
+                                 (3, 1024), (4, 40), (3, 128), (256, 256),
+                                 (5, 144)])
 def test_bilstm_train_kernel_matches_plain(card, dtype, B, H):
     """K5: hs and the stash [i | f | g | o | c], against
     bilstm_train_plain, on the design its shape selects."""
     xw, u, atol = _lstm_case(16, B, H, dtype)
     design = tbg.design_for("lstm", True, H, B, DTYPES[dtype])
-    assert design.name == _design_name(dtype, H, "lstm")
+    assert design.name == _design_name(dtype, H)
     n4, n5 = tbg.lstm_launches, tbg.lstm_train_launches
     ran = dict(tbg.design_launches)
     hs, st = tbg.bilstm_train(xw.to(card), u.to(card))
@@ -308,18 +313,58 @@ def test_k3_and_k4_run_the_resident_design_equal_to_the_streamed(card):
 
 
 @pytest.mark.cuda
+def test_f32_lstm_runs_the_resident_design_within_the_card_capacity(card):
+    """K5 f32 at fonts-hard-lstm's training shape (B 128, H 256) and K4 f32
+    at its serving shape (B 256) launch the resident design that
+    design_for names (clusters of 8 CTAs of 32 units); no WAVE_CTAS entry
+    of the instance claims more CTAs than the card reports holding; K5's
+    grid fits one wave (32 rows), and K4's fits none on any rows, so it
+    takes 16."""
+    from chip_smoke import resident_resources
+
+    for stash, B in ((True, 128), (False, 256)):
+        d = tbg.design_for("lstm", stash, 256, B, torch.float32)
+        assert d.name == "resident" and d.cluster == 8
+        fits = []
+        for rows in tbg.resident_rows(torch.float32, "lstm"):
+            held = resident_resources("lstm", stash, 256, d._replace(
+                rows=rows), "float32")["max_active_clusters"]
+            wave = tbg.WAVE_CTAS[(torch.float32, "lstm", stash, 256, rows)]
+            assert wave <= held * d.cluster
+            if -(-B // rows) * 2 * d.cluster <= wave:
+                fits.append(rows)
+        assert d.rows == (fits[0] if fits else 16)
+        assert bool(fits) == stash
+        xw, u, atol = _lstm_case(21, B, 256, "float32")
+        before = dict(tbg.design_launches)
+        out = (tbg.bilstm_train if stash else tbg.bilstm_infer)(
+            xw.to(card), u.to(card))
+        torch.cuda.synchronize()
+        assert (tbg.design_launches - collections.Counter(before)
+                == collections.Counter({d: 1}))
+        want = (tbg.bilstm_train_plain if stash else tbg.bilstm_plain)(xw, u)
+        for a, b in zip(out if stash else (out,), want if stash else (want,)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                       atol=atol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_bilstm_autograd_on_card_matches_cpu(card, dtype):
     """The BiLSTM's autograd Function (K5 forward, the plain analytic
     backward) on the card against the CPU: hs and the gradients of xw and
-    u."""
+    u; the card's K5 on the resident design in both dtypes."""
     xw, u, atol = _lstm_case(17, 16, 256, dtype)
     g = torch.from_numpy(np.random.default_rng(18).normal(
         size=(6, 2, 16, 256)).astype(np.float32))
     outs, grads = [], []
     for dev in ("cpu", card):
         ts = [t.clone().to(dev).requires_grad_(True) for t in (xw, u)]
+        ran = dict(tbg.design_launches)
         hs = tbg.bilstm(*ts)
+        new = tbg.design_launches - collections.Counter(ran)
+        assert [d.name for d in new] == (["resident"] if dev != "cpu"
+                                         else [])
         assert type(hs.grad_fn).__name__ == "_BiLSTMTrainBackward"
         (hs.float() * g.to(dev)).sum().backward()
         outs.append(hs.detach().float().cpu())

@@ -235,9 +235,10 @@ def test_birnn_lstm_matches_jax_birnn_f32():
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_birnn_lstm_rebuilds_kernel_weights_on_load(dtype):
     """The LSTM's cached kernel operand: 4 gates, rebuilt on load, not
-    saved; the bias is (2, 4H)."""
+    saved; the bias is (2, 4H). In both dtypes the resident design's
+    operand, 40 units padded to 48: (2, 4 x 48, 48)."""
     tdt = DTYPES[dtype][0]
-    H = 40  # bf16 pads 40 units to 48
+    H = 40  # padded to 48
     rnn = BiRNN(8, H, cell="lstm", dtype=tdt)
     shapes = {k: tuple(v.shape) for k, v in rnn.state_dict().items()}
     assert shapes == {"kernel": (2, 8, 4 * H), "bias": (2, 4 * H),
@@ -247,8 +248,7 @@ def test_birnn_lstm_rebuilds_kernel_weights_on_load(dtype):
     rnn.load_state_dict(sd)
     assert torch.equal(rnn.u_kernel,
                        tbg.kernel_weights(sd["recurrent_kernel"].to(tdt)))
-    assert tuple(rnn.u_kernel.shape) == (
-        (2, 4 * 48, 48) if tdt == torch.bfloat16 else (2, H, 4 * H))
+    assert tuple(rnn.u_kernel.shape) == (2, 4 * 48, 48)
     with pytest.raises(ValueError, match="rnn_cell"):
         BiRNN(8, H, cell="rnn")
 

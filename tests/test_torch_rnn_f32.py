@@ -17,15 +17,25 @@ models that split in PyTorch and runs it through the GRU recurrence at
   plain version to.
 
 A plain TF32 product (hi.hi alone) misses the first bound by two orders of
-magnitude, which the last test shows.
+magnitude, which ``test_plain_tf32_misses_the_bound`` shows.
+
+The f32 LSTM past 128 units (``fonts-hard-lstm``'s H 256) splits K over
+the warps of each M-tile: each K part forms its own 3xTF32 partial (hi.hi
+in one accumulator, lo.hi + hi.lo in another, added), and the owner of a
+row adds the parts' partials in f32 in K order. The LSTM tests run that
+through the LSTM recurrence of ``bigru._lstm_recurrence`` at H 256, T 8,
+with 2 K parts (32 rows a cluster) and 4 (16 rows): within 1e-6 of
+``bilstm_plain``, and within 1e-5 of the JAX package's f32 K4
+(``bilstm_pallas_raw``) in interpret mode at a narrow width.
 """
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from crnn_ocr_torch.kernels import bigru as tbg
-from crnn_ocr_tpu.kernels.bigru import bigru_pallas_raw
+from crnn_ocr_tpu.kernels.bigru import bigru_pallas_raw, bilstm_pallas_raw
 
 H, T, B = 128, 8, 8  # fonts-small's n_units
 
@@ -119,3 +129,73 @@ def test_plain_tf32_misses_the_bound():
     xw, u, b = (torch.from_numpy(a) for a in _inputs())
     _, worst = gru_tf32x3(xw, u, b, terms=1)
     assert worst > 1e-4, worst
+
+
+def product_split_k(h, u, parts: int):
+    """h (D, B, H) . u (D, H, G) as the f32 LSTM's kernel forms it on its
+    32-unit tile: K cut into ``parts`` equal ranges (the warps' K parts);
+    per part hi.hi and lo.hi + hi.lo each summed (in f64, rounded to f32:
+    the order of the tensor cores' f32 accumulation is left out) and added
+    in f32; then the parts' partials added in f32 in K order."""
+    (hh, hl), (uh, ul) = _split(h), _split(u)
+    f = torch.float64
+    H = h.shape[-1]
+    total = None
+    for k in range(parts):
+        ks = slice(k * H // parts, (k + 1) * H // parts)
+        acc = torch.bmm(hh[..., ks].to(f), uh[:, ks].to(f)).float()
+        cross = (torch.bmm(hh[..., ks].to(f), ul[:, ks].to(f))
+                 + torch.bmm(hl[..., ks].to(f), uh[:, ks].to(f))).float()
+        part = acc + cross
+        total = part if total is None else total + part
+    return total
+
+
+def _lstm_inputs(Hn, Bn, seed=12):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(T, 2, Bn, 4 * Hn)).astype(np.float32),
+            (rng.normal(size=(2, Hn, 4 * Hn)) / np.sqrt(Hn))
+            .astype(np.float32))
+
+
+def lstm_split_k(xw, u, parts: int):
+    """The LSTM recurrence of ``bigru._lstm_recurrence`` (gates i|f|c|o, h
+    and c in f32) with the modelled product: hs (T, 2, B, H), and per step
+    the product's largest error over the sum of its terms' magnitudes
+    against the exact product."""
+    Hn = u.shape[1]
+    h = torch.zeros((2, xw.shape[2], Hn))
+    c = torch.zeros_like(h)
+    out, worst = [], 0.0
+    for t in range(xw.shape[0]):
+        p = product_split_k(h, u, parts)
+        exact = torch.bmm(h.double(), u.double())
+        scale = torch.bmm(h.abs().double(), u.abs().double())
+        worst = max(worst, float(((p.double() - exact).abs()
+                                  / scale.clamp(min=1e-30)).max()))
+        gates = xw[t] + p
+        i = torch.sigmoid(gates[..., :Hn])
+        f = torch.sigmoid(gates[..., Hn:2 * Hn])
+        g = torch.tanh(gates[..., 2 * Hn:3 * Hn])
+        o = torch.sigmoid(gates[..., 3 * Hn:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        out.append(h)
+    return torch.stack(out), worst
+
+
+@pytest.mark.parametrize("parts", (2, 4))
+def test_lstm_split_k_recurrence_holds_to_the_plain_version(parts):
+    xw, u = (torch.from_numpy(a) for a in _lstm_inputs(256, B))
+    hs, worst = lstm_split_k(xw, u, parts)
+    assert worst <= 1e-6, worst
+    np.testing.assert_allclose(hs.numpy(), tbg.bilstm_plain(xw, u).numpy(),
+                               rtol=0, atol=1e-6)
+
+
+def test_lstm_split_k_recurrence_holds_to_jax_k4_interpret():
+    xw, u = _lstm_inputs(32, B)
+    want = bilstm_pallas_raw(jnp.asarray(xw), jnp.asarray(u), interpret=True)
+    hs, _ = lstm_split_k(*(torch.from_numpy(a) for a in (xw, u)), parts=2)
+    np.testing.assert_allclose(hs.numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=1e-5)

@@ -15,13 +15,18 @@ warm-up launches, in two rounds; every resident design's hs (and stash) is
 held to the streamed design's (``max_abs_diff``, 0 when bit for bit equal).
 
 The f32 GRU (K2, K3) at ``fonts-small``'s width (H 128, T 32) at B 256,
-128, 64 and 16, and at ``fonts-hard``'s (H 256, T 64) at B 256 and 128:
-the resident design's f32 instance (3xTF32 on the tensor cores) at 8 and
-16 rows, and the old ``"f32"`` design, each timed by its device
-time (``chip_smoke.device_ms``: the profiler's kernel durations, since one
-call of the resident design takes less than the host needs to launch it)
-and held to the plain version on the card (``max_abs_err``), with the same
-capacity fields (the f32 entries of ``kernels/bigru.py::WAVE_CTAS``).
+128, 64 and 16, and at ``fonts-hard``'s (H 256, T 64) at B 256 and 128;
+the f32 LSTM (K4, K5) at ``fonts-hard-lstm``'s (H 256, T 64: K5 at B 128,
+K4 at B 256 and 128) and at H 128, T 32 (the 64-unit tile): the resident
+design's f32 instance (3xTF32 on the tensor cores) at each of its rows (8
+and 16 for the GRU; 8, 16 and 32 for the LSTM), and the old ``"f32"``
+design, each timed by its device time (``chip_smoke.device_ms``: the
+profiler's kernel durations, since one call of the resident design takes
+less than the host needs to launch it) and held to the plain version on
+the card (``max_abs_err``), with the same capacity fields (the f32 entries
+of ``kernels/bigru.py::WAVE_CTAS``). A variant of ``csrc/bigru.cu`` (the
+K split over 8 warps, or no product at all, timing only) is timed by this
+script's copy in a copy of the tree whose ``.cu`` is edited.
 
 Prints the card's ``name, power.limit``, then one JSON line per
 measurement. Needs a CUDA card; builds ``csrc/bigru.cu`` at first use.
@@ -49,13 +54,17 @@ CASES = (("gru", False, 256, 256), ("gru", False, 256, 240),
          ("gru", True, 128, 128),
          ("lstm", False, 256, 256), ("lstm", False, 256, 128),
          ("lstm", False, 128, 128))
-# the f32 GRU: (stash, H, B, T)
-F32_CASES = ((False, 128, 256, 32), (True, 128, 128, 32),
-             (False, 128, 128, 32), (True, 128, 256, 32),
-             (False, 128, 64, 32), (True, 128, 64, 32),
-             (False, 128, 16, 32), (True, 128, 16, 32),
-             (False, 256, 256, 64), (True, 256, 128, 64),
-             (False, 256, 128, 64), (True, 256, 256, 64))
+# the f32 recurrences: (cell, stash, H, B, T)
+F32_CASES = tuple(("gru", *c) for c in (
+    (False, 128, 256, 32), (True, 128, 128, 32),
+    (False, 128, 128, 32), (True, 128, 256, 32),
+    (False, 128, 64, 32), (True, 128, 64, 32),
+    (False, 128, 16, 32), (True, 128, 16, 32),
+    (False, 256, 256, 64), (True, 256, 128, 64),
+    (False, 256, 128, 64), (True, 256, 256, 64))) + tuple(
+    ("lstm", *c) for c in (
+        (True, 256, 128, 64), (False, 256, 256, 64), (False, 256, 128, 64),
+        (True, 128, 128, 32), (False, 128, 256, 32)))
 
 
 def event_ms(fn, reps: int = 20) -> float:
@@ -87,8 +96,8 @@ def resident_fields(cell, stash, H, B, d, dtype_name="bfloat16") -> dict:
 
 
 def time_f32() -> None:
-    """The f32 GRU's designs (F32_CASES x the resident design's rows, and
-    the old ``"f32"`` design) on seeded inputs, in two rounds."""
+    """The f32 recurrences' designs (F32_CASES x the resident instance's
+    rows, and the old ``"f32"`` design) on seeded inputs, in two rounds."""
     import numpy as np
     import torch
 
@@ -96,33 +105,41 @@ def time_f32() -> None:
     from crnn_ocr_torch.kernels import bigru as bg
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    for stash, H, B, T in F32_CASES:
+    for cell, stash, H, B, T in F32_CASES:
         rng = np.random.default_rng(2)
-        xw = torch.from_numpy(rng.normal(size=(T, 2, B, 3 * H))
+        n = bg.GATES[cell]
+        xw = torch.from_numpy(rng.normal(size=(T, 2, B, n * H))
                               .astype(np.float32)).cuda()
-        u = torch.from_numpy((rng.normal(size=(2, H, 3 * H)) / np.sqrt(H))
+        u = torch.from_numpy((rng.normal(size=(2, H, n * H)) / np.sqrt(H))
                              .astype(np.float32)).cuda()
-        rb = torch.from_numpy((rng.normal(size=(2, 3 * H)) * 0.1)
-                              .astype(np.float32)).cuda()
-        want = (bg.bigru_train_plain if stash else bg.bigru_plain)(xw, u, rb)
+        rb = (torch.from_numpy((rng.normal(size=(2, n * H)) * 0.1)
+                               .astype(np.float32)).cuda()
+              if cell == "gru" else None)
+        if cell == "gru":
+            plain = bg.bigru_train_plain if stash else bg.bigru_plain
+            want = plain(xw, u, rb)
+        else:
+            plain = bg.bilstm_train_plain if stash else bg.bilstm_plain
+            want = plain(xw, u)
         want = want if stash else (want, None)
-        chosen = bg.design_for("gru", stash, H, B, torch.float32)
-        designs = [chosen._replace(rows=r) for r in bg.F32_RESIDENT_ROWS]
+        chosen = bg.design_for(cell, stash, H, B, torch.float32)
+        designs = [chosen._replace(rows=r)
+                   for r in bg.resident_rows(torch.float32, cell)]
         designs.append(bg.Design("f32"))
         for rnd in range(2):
             for d in designs:
                 def run(d=d):
-                    return bg._launch("gru", xw, u, rb, None, stash, d)
+                    return bg._launch(cell, xw, u, rb, None, stash, d)
 
                 got = run()
-                out = dict(cell="gru", dtype="float32", stash=stash, B=B,
+                out = dict(cell=cell, dtype="float32", stash=stash, B=B,
                            H=H, T=T, design=d._asdict(), chosen=d == chosen,
                            ms=device_ms(run), round=rnd,
                            max_abs_err=max(
                                float((a - b).abs().max())
                                for a, b in zip(got, want) if a is not None))
                 if d.name != "f32":
-                    out.update(resident_fields("gru", stash, H, B, d,
+                    out.update(resident_fields(cell, stash, H, B, d,
                                                "float32"))
                 print(json.dumps(out), flush=True)
 
