@@ -46,7 +46,15 @@ lines repeated, labels padded to 32):
 6. K3 (BiGRU forward with the gate stash), K6 and K7 (CTC alpha and beta)
    against their plain versions on the training path's own activations and
    log-probs, in bf16 and f32, TF32 off, with K2 timed on K3's inputs (the
-   stash's cost) and ``nn.GRU`` / ``F.ctc_loss`` as yardsticks.
+   stash's cost) and ``nn.GRU`` / ``F.ctc_loss`` as yardsticks. K6 and K7
+   run on the path's design (``ctc_loss.plan``: ``"pipelined"``) and on
+   ``"block"`` (the first design), both held to the plain versions; each
+   reports its ``design``, ``plan``, ``us_per_frame`` (device ms over the
+   T - 1 or T dependent frames), ``block_ms`` and ``block_equal`` (the old
+   design's device time on the same inputs, and its outputs bit for bit),
+   its ``ptxas`` report, and ``kernel_ms`` (CUDA events, one call through
+   the wrapper) beside ``kernel_ms_old_host_path`` (the same kernel through
+   the wrapper's earlier host path).
 7. One f32 train step (dropout 0) through the kernels against the same
    step through the plain versions on the card (loss, grad_norm, every
    parameter's gradient and every updated parameter; the backbone's
@@ -171,7 +179,8 @@ kernel (the resident design in either dtype), one design (cluster and rows)
 for all of them, and each K1 launch on the design ``STEM_PATH_DESIGN``
 names for the path: ``"mma"`` serving bf16 (the conv on the tensor cores),
 ``"conv9"`` serving f32 and in the training forward (K9 and K10 recompute
-its z bit for bit).
+its z bit for bit); every counted training run (phases 8, 13, 17, 22) also
+requires each K6 and K7 launch on the design ``CTC_PATH_DESIGN`` names.
 
 The last lines are the card's ``name, power.limit``, the kernels' JSON
 line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's, K11
@@ -188,7 +197,10 @@ and K9's and K10's ``library_ms`` is null (no single PyTorch call computes
 either), their ``pair_library_ms`` the plain stem's autograd backward,
 which computes both; K8's, K9's and K10's rows add their ``design`` and
 ``ptxas`` (phase 15), K1's its ``design`` and ``ptxas`` (phase 2) and
-``design_launches`` (phase 4's launches by design). The recurrences' rows
+``design_launches`` (phase 4's launches by design), K6's and K7's their
+``design``, ``design_launches`` (phase 8's launches by design) and phase
+6's ``plan``, ``us_per_frame``, ``block_ms``, ``block_equal``, ``ptxas``
+and ``kernel_ms_old_host_path``. The recurrences' rows
 add ``design``, ``cluster`` and
 ``rows`` as the counted run launched them, ``design_launches`` (that run's
 launches on that design) and ``ms_per_step`` (``ms`` over the T steps),
@@ -425,6 +437,7 @@ def reset_launches() -> None:
     bigru.lstm_launches = bigru.lstm_train_launches = 0
     bigru.design_launches.clear()
     ctc_loss.alpha_launches = ctc_loss.beta_launches = 0
+    ctc_loss.design_launches.clear()
     gs.launches = gs.bwd_launches = 0
     fst.stats_launches = fst.partials_launches = fst.final_launches = 0
 
@@ -484,6 +497,26 @@ def design_fields(design, n: int) -> dict:
                 design_launches=n)
 
 
+# the design K6 and K7 run on in the counted training runs (ctc_loss.plan's
+# at every shape it covers)
+CTC_PATH_DESIGN = {"ctc_alpha": "pipelined", "ctc_beta": "pipelined"}
+
+
+def read_ctc_design(counts: dict, what: str) -> dict:
+    """The counted run's K6 and K7 launches per design (``ctc_loss.
+    design_launches``, set to 0 by ``reset_launches``): every one on the
+    design ``CTC_PATH_DESIGN`` names. Returns ``{kernel: {design: n}}``."""
+    from crnn_ocr_torch.kernels import ctc_loss
+
+    ran = {k: {d: n for (kk, d), n in ctc_loss.design_launches.items()
+               if f"ctc_{kk}" == k and n} for k in CTC_PATH_DESIGN}
+    want = {k: ({d: counts[k]} if counts[k] else {})
+            for k, d in CTC_PATH_DESIGN.items()}
+    require(ran == want, f"{what}: K6/K7 launched {ran} by design; expected "
+                         f"{want}")
+    return ran
+
+
 # the design K1 runs on in the counted runs: bf16 serving on the tensor
 # cores, f32 serving and the training forward on conv9 (K9 and K10
 # recompute its z)
@@ -512,6 +545,7 @@ def golden_lines(g, key: str):
 RESIDENT_PTXAS: dict = {}  # phase 1's report per resident instance
 STEM_BWD_PTXAS: dict = {}  # and per K9/K10 instance
 STEM_FWD_PTXAS: dict = {}  # and per K1/K8 instance
+CTC_PTXAS: dict = {}  # and per K6/K7 instance
 
 
 def ptxas_instances(report: str, key_of) -> dict:
@@ -609,6 +643,41 @@ def ptxas_key(cell: str, stash: bool, rows: int,
     return f"bi{cell}{'_train' if stash else ''}{tag} R{rows}{tile}"
 
 
+def ctc_ptxas_key(name: str, plan) -> str:
+    """``"ctc_alpha pipelined"``, ``"ctc_beta block"``: the kernel (K6
+    alpha, K7 beta) and its design."""
+    return f"ctc_{name} {plan.design}"
+
+
+def ctc_ptxas(report: str) -> dict:
+    """ptxas's report per kernel of ``ctc_loss.cu``, keyed by
+    :func:`ctc_ptxas_key`."""
+    import re
+
+    def key_of(name):
+        k = re.search(r"ctc_(alpha|beta)_(pipelined_)?kernel", name)
+        if not k:
+            return None
+        return f"ctc_{k.group(1)} {'pipelined' if k.group(2) else 'block'}"
+
+    return ptxas_instances(report, key_of)
+
+
+def ctc_close(got, want):
+    """K6's or K7's output against its plain version: (max error where a
+    path exists, whether it is within 1e-4 + 1e-5 * |plain| there and
+    exactly NEG where the plain version is NEG). f32 log-sum-exps in
+    another order and precision (the MUFU's ex2/lg2 in log2 units, or
+    CUDA's expf/logf for ``"block"``, against PyTorch's), over up to T
+    dependent frames."""
+    from crnn_ocr_torch.kernels import ctc_loss as cl
+
+    live = want > cl.NEG / 2
+    err, ok = (_close(got[live], want[live], 1e-4, 1e-5) if bool(live.any())
+               else (0.0, True))
+    return err, ok and bool((got[~live] == want[~live]).all())
+
+
 def phase_build(card: str):
     import torch
     from crnn_ocr_torch.kernels import _build
@@ -630,6 +699,7 @@ def phase_build(card: str):
         "fused_stem", "")))
     STEM_FWD_PTXAS.update(stem_fwd_ptxas(_build.ptxas_reports.get(
         "fused_stem", "")))
+    CTC_PTXAS.update(ctc_ptxas(_build.ptxas_reports.get("ctc_loss", "")))
     require("fused_stem" not in built or len(STEM_BWD_PTXAS) == 4,
             f"ptxas reported {sorted(STEM_BWD_PTXAS)} of K9's and K10's 4 "
             f"instances")
@@ -638,7 +708,7 @@ def phase_build(card: str):
             f"instances")
     emit("build", seconds=round(secs, 3), built=built, ptxas=ptxas,
          resident_ptxas=RESIDENT_PTXAS, stem_bwd_ptxas=STEM_BWD_PTXAS,
-         stem_fwd_ptxas=STEM_FWD_PTXAS)
+         stem_fwd_ptxas=STEM_FWD_PTXAS, ctc_ptxas=CTC_PTXAS)
 
 
 def resident_resources(cell: str, stash: bool, H: int, design,
@@ -1141,9 +1211,38 @@ def check_bigru_train(state, batch, dtype_name: str):
     return res
 
 
+def old_host_launch(name, emits, flags, lens):
+    """K6 or K7 on the path's design through the wrapper's host path as it
+    was first written (the C entry's restype and argtypes set on every call,
+    always inside ``torch.cuda.device``), to time that path against the
+    wrapper's own; uncounted."""
+    import ctypes
+
+    import torch
+    from crnn_ocr_torch.kernels import _build
+    from crnn_ocr_torch.kernels import ctc_loss as cl
+
+    B, T, S = cl._check(emits, flags, lens)
+    p = cl.plan(B, T, S)
+    out = torch.empty_like(emits)
+    lib = _build.load("ctc_loss")
+    fn = getattr(lib, f"crnn_ctc_{name}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(emits.device):
+        err = fn(emits.data_ptr(), flags.data_ptr(), lens.data_ptr(),
+                 out.data_ptr(), B, T, S, cl.DESIGNS[p.design],
+                 p.warps, p.ring_frames, p.smem_bytes,
+                 torch.cuda.current_stream(emits.device).cuda_stream)
+    _build.check(lib, err, f"ctc {name}")
+    return out
+
+
 def check_ctc(state, batch, cfg, dtype_name: str):
-    """K6 and K7 on the training path's log-probs and labels, against
-    their plain versions; F.ctc_loss's forward and backward as yardsticks."""
+    """K6 and K7 on the training path's log-probs and labels, on the path's
+    design (``ctc_loss.plan``) and on ``"block"``, against their plain
+    versions; F.ctc_loss's forward and backward as yardsticks."""
     import torch
     import torch.nn.functional as F
     from crnn_ocr_torch.kernels import ctc_loss as cl
@@ -1157,29 +1256,44 @@ def check_ctc(state, batch, cfg, dtype_name: str):
     out = []
     for name, fn, plain in (("ctc_alpha", cl.ctc_alphas, cl.ctc_alphas_plain),
                             ("ctc_beta", cl.ctc_betas, cl.ctc_betas_plain)):
+        B, T, S = emits.shape
+        p = cl.plan(B, T, S)
+        before = collections.Counter(cl.design_launches)
         got = fn(emits, flags, lens)
+        block = fn(emits, flags, lens, "block")
         want = plain(emits, flags, lens)
         torch.cuda.synchronize()
-        live = want > cl.NEG / 2
-        # f32 log-sum-exps in another order (CUDA's expf/logf against
-        # PyTorch's), over up to 62 dependent frames: 1e-4 + 1e-5 * |value|
-        # where a path exists; exactly NEG where none does
-        err, ok = _close(got[live], want[live], 1e-4, 1e-5)
-        ok = ok and bool((got[~live] == want[~live]).all())
-        B, T, S = emits.shape
+        short = name[4:]
+        require(cl.design_launches - before
+                == {(short, p.design): 1, (short, "block"): 1},
+                f"{name}: launched {dict(cl.design_launches - before)} by "
+                f"design; expected one {p.design} and one block")
+        err, ok = ctc_close(got, want)
+        block_err, block_ok = ctc_close(block, want)
         bytes_moved = nbytes(emits, flags, lens, got)
         ops = 20 * B * T * S  # 3 exp, 1 log, ~16 adds, maxes and selects
         b_ms, b_by = bound_ms(bytes_moved, ops, "float32")
+        frames = T - 1 if name == "ctc_alpha" else T  # dependent frames
+        device = device_ms(lambda: fn(emits, flags, lens))
         res = dict(kernel=name, dtype=dtype_name, B=B, T=T, S=S,
-                   max_abs_err=err, ok=ok,
+                   max_abs_err=err, ok=ok and block_ok,
                    tolerance="1e-4 + 1e-5 * |plain| where finite; NEG "
                              "where plain is NEG",
+                   design=p.design, plan=p._asdict(),
                    kernel_ms=time_ms(lambda: fn(emits, flags, lens)),
-                   kernel_device_ms=device_ms(lambda: fn(emits, flags, lens)),
+                   kernel_ms_old_host_path=time_ms(
+                       lambda: old_host_launch(short, emits, flags, lens)),
+                   kernel_device_ms=device,
+                   us_per_frame=device * 1e3 / frames,
+                   block_ms=device_ms(lambda: fn(emits, flags, lens,
+                                                 "block")),
+                   block_max_abs_err=block_err,
+                   block_equal=bool(torch.equal(got, block)),
+                   ptxas=CTC_PTXAS.get(ctc_ptxas_key(short, p)),
                    plain_ms=time_ms(lambda: plain(emits, flags, lens),
                                     reps=5),
                    bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, ops=ops,
-                   dependent_frames=T - 1)
+                   dependent_frames=frames)
         out.append(res)
     # yardstick only: the port never calls F.ctc_loss
     lp_t = lp.detach().transpose(0, 1).contiguous().requires_grad_(True)
@@ -1207,7 +1321,9 @@ def check_ctc(state, batch, cfg, dtype_name: str):
     for res in out:
         emit("kernel_check", **res)
         require(res["ok"], f"{res['kernel']} {dtype_name}: max error "
-                           f"{res['max_abs_err']} beyond {res['tolerance']}")
+                           f"{res['max_abs_err']} ({res['design']}), "
+                           f"{res['block_max_abs_err']} (block) beyond "
+                           f"{res['tolerance']}")
     return out
 
 
@@ -1405,7 +1521,7 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     ``read_design``'s."""
     import torch
     from crnn_ocr_torch.data.pipeline import produce_batch
-    from crnn_ocr_torch.kernels import bigru, fused_stem
+    from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
     from crnn_ocr_torch.train import loop as loop_lib
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
@@ -1434,12 +1550,14 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     counts = read_launches()
     emit("launches", model=name, train_steps=TRAIN_STEPS, **counts,
          designs=[[*d, n] for d, n in bigru.design_launches.items()],
-         stem_designs=dict(fused_stem.design_launches))
+         stem_designs=dict(fused_stem.design_launches),
+         ctc_designs=[[*d, n] for d, n in ctc_loss.design_launches.items()])
     require_launches(counts, {k: v * TRAIN_STEPS for k, v in want.items()},
                      f"{name}: {TRAIN_STEPS} train steps")
     design = read_design(counts, f"{name}: {TRAIN_STEPS} train steps")
     stem_design = read_stem_design(counts, "train",
                                    f"{name}: {TRAIN_STEPS} train steps")
+    ctc_design = read_ctc_design(counts, f"{name}: {TRAIN_STEPS} train steps")
     loss_curve = [float(x) for x in losses]
     first, last5 = loss_curve[0], statistics.mean(loss_curve[-5:])
     require(all(map(lambda v: v == v, loss_curve)), "a train loss is NaN")
@@ -1511,7 +1629,8 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
                            iter(batches[:1]), codec, 1)
     emit("fit", steps=state.step, eval=ev)
     require(0.0 <= ev["cer"] <= 1.0, f"fit's evaluation is malformed: {ev}")
-    return {**counts, "design": design, "stem_design": stem_design}
+    return {**counts, "design": design, "stem_design": stem_design,
+            "ctc_design": ctc_design}
 
 
 def trace_train(step, ranges, n: int = 3) -> dict:
@@ -2264,6 +2383,7 @@ def main() -> int:
     counts.update({k: train[k] for k in ("bigru_train", "ctc_alpha",
                                          "ctc_beta")})
     designs["bigru_train"] = train["design"]
+    ctc_designs = train["ctc_design"]
 
     # slice 3: the STN front end
     sg = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
@@ -2415,12 +2535,19 @@ def main() -> int:
                 if o["kernel"] == name and o["dtype"] == "float32"),
             **{k: c[k] for k in ("max_err_over_scale", "pair_library_ms",
                                  "pair_library_device_ms", "design", "ptxas",
+                                 "plan", "us_per_frame", "block_ms",
+                                 "block_equal", "kernel_ms_old_host_path",
                                  "k4_same_inputs_device_ms", "streamed_ms",
                                  "streamed_equal", "resources")
                if k in c},
         ))
         if name == "fused_stem":  # phase 4's launches by design
             kernels[-1]["design_launches"] = stem_design_launches
+        if name in ctc_designs:  # phase 8's launches by design
+            require({c["design"]: counts[name]} == ctc_designs[name],
+                    f"{name}: timed on {c['design']}, but the counted run "
+                    f"ran {ctc_designs[name]}")
+            kernels[-1]["design_launches"] = ctc_designs[name]
         if name in f32_rows:  # the f32 paths (phases 16, 23; 21, 24)
             kernels[-1]["f32"] = f32_rows[name]
         if name.startswith("bi"):  # f32 at this row's own path shape

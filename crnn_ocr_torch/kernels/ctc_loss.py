@@ -3,9 +3,15 @@
 Replaces ``crnn_ocr_tpu/kernels/ctc_loss.py``: ``ctc_loss_pallas`` (:256)
 and its two kernels, ``_run_fwd`` (K6, the alpha recursion) and
 ``_run_bwd`` (K7, the beta recursion). The CUDA kernels are in
-``csrc/ctc_loss.cu`` (its header has the recursions, the design and the
-H100 bound); ``ctc_alphas_plain`` and ``ctc_betas_plain`` are the same
-recursions as Python loops over T. Blank is ``C - 1``.
+``csrc/ctc_loss.cu`` (its header has the recursions, the designs and the
+H100 bound); :func:`plan` picks the design from the shape alone:
+``"pipelined"`` (one thread a state, the CTA's warps a pipeline handing
+their edge states over through shared memory, the emissions staged in a
+ring, the log-sum-exps on the MUFU in log2 units) wherever its shared
+memory fits, else ``"block"`` (the first design, also kept for
+comparison).
+``ctc_alphas_plain`` and ``ctc_betas_plain`` are the same recursions as
+Python loops over T. Blank is ``C - 1``.
 
 Around the kernels, plain PyTorch on either device, as in the JAX package:
 
@@ -20,27 +26,32 @@ Around the kernels, plain PyTorch on either device, as in the JAX package:
 
 ``ctc_alphas`` and ``ctc_betas`` dispatch on the device of the emissions
 and on nothing else: a CPU tensor goes through the plain version, a CUDA
-tensor through the kernel, or the call raises. ``ctc_loss`` is the
+tensor through the kernel (on the plan's design, or the one asked for),
+or the call raises. ``ctc_loss`` is the
 differentiable entry point (a ``torch.autograd.Function``: K6 forward, K7
 plus the gradient assembly backward).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 NEG = -1e30  # stands for log 0; keeps every gradient finite
-MAX_STATES = 1024  # one thread per extended state in a block
+MAX_STATES = 1024  # one thread a state in a CTA
 
 # flag bits per extended state, as csrc/ctc_loss.cu reads them
 VALID, INIT, SKIP, END = 1, 2, 4, 8
 
-# Kernel launches: K6 (ctc_alphas) and K7 (ctc_betas). The plain versions
-# are not counted.
+# Kernel launches: K6 (ctc_alphas) and K7 (ctc_betas), and both by
+# (kernel, design), e.g. ("alpha", "pipelined"). The plain versions are not
+# counted.
 alpha_launches = 0
 beta_launches = 0
+design_launches: collections.Counter = collections.Counter()
 
 
 def _lse3(a, b, c):
@@ -52,13 +63,15 @@ def _lse3(a, b, c):
 
 
 def _shift_down(x, k):
-    """x (B, S) -> x[:, s - k], NEG where s < k."""
-    return torch.cat([x.new_full((x.shape[0], k), NEG), x[:, :-k]], dim=1)
+    """x (B, S) -> x[:, s - k], NEG where s < k (also where S < k)."""
+    B, S = x.shape
+    return torch.cat([x.new_full((B, k), NEG), x[:, :S - k]], dim=1)[:, :S]
 
 
 def _shift_up(x, k):
     """x (B, S) -> x[:, s + k], NEG where s + k >= S."""
-    return torch.cat([x[:, k:], x.new_full((x.shape[0], k), NEG)], dim=1)
+    B, S = x.shape
+    return torch.cat([x[:, k:], x.new_full((B, k), NEG)], dim=1)[:, :S]
 
 
 def ctc_alphas_plain(emits, flags, lens):
@@ -115,55 +128,118 @@ def _check(emits, flags, lens):
     return B, T, S
 
 
-def _launch(name, emits, flags, lens):
-    B, T, S = _check(emits, flags, lens)
-    if emits.device.type != "cuda":
-        raise RuntimeError(f"ctc {name}: no kernel for {emits.device}")
+class Plan(NamedTuple):
+    """How K6 and K7 launch (``csrc/ctc_loss.cu``): ``design``
+    ``"pipelined"`` (one thread a state, ``warps`` warps a sample handing
+    their edge states to each other through shared memory, the emissions
+    staged in a ring of two chunks of ``ring_frames`` frames a warp) or
+    ``"block"`` (one thread a state, a block barrier a frame);
+    ``lane_states`` states a lane (1 in both), ``smem_bytes`` of shared
+    memory a CTA, ``ctas`` CTAs (one a sample)."""
+
+    design: str
+    warps: int
+    lane_states: int
+    ring_frames: int
+    smem_bytes: int
+    ctas: int
+
+
+DESIGNS = {"block": 0, "pipelined": 1}  # the C entries' design codes
+CHUNK = 16  # ring frames: a chunk's, the next chunk's loads in flight
+SMEM_MAX = 232_448  # a CTA's shared memory (the H100's, with the opt-in)
+
+
+def pipelined_smem(W: int, T: int) -> int:
+    """The pipelined design's shared memory: the hand-over slots (two
+    floats a frame for each pair of neighbouring warps) and a ring of two
+    chunks of CHUNK frames for each warp's 32 lanes."""
+    return ((W - 1) * T * 2 + W * 2 * CHUNK * 32) * 4
+
+
+def plan(B: int, T: int, S: int, design: str = "pipelined") -> Plan:
+    """The launch of K6 or K7 at (B, T, S), a pure function of the shape:
+    ``"pipelined"`` (the path's design wherever its shared memory fits a
+    CTA) or ``"block"`` (the first design, kept for comparison and for the
+    shapes whose hand-over slots do not fit: T past 400 at S near 1024)."""
+    if not 1 <= S <= MAX_STATES:
+        raise ValueError(f"ctc: 1 to {MAX_STATES} extended states (labels "
+                         f"of up to {(MAX_STATES - 1) // 2}), got {S}")
+    if design not in DESIGNS:
+        raise ValueError(f"ctc: no design {design!r}")
+    W = -(-S // 32)
+    if design == "pipelined" and pipelined_smem(W, T) <= SMEM_MAX:
+        return Plan("pipelined", W, 1, CHUNK, pipelined_smem(W, T), B)
+    return Plan("block", W, 1, 0, 2 * (S + 2) * 4, B)
+
+
+_entries: dict = {}  # name -> (library, C entry), bound once
+
+
+def _entry(name):
+    got = _entries.get(name)
+    if got is None:
+        from crnn_ocr_torch.kernels import _build
+
+        lib = _build.load("ctc_loss")
+        fn = getattr(lib, f"crnn_ctc_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        got = _entries[name] = (lib, fn)
+    return got
+
+
+def _launch(name, emits, flags, lens, design):
+    B, T, S = emits.shape
     dev = emits.device
     if flags.device != dev or lens.device != dev:
         raise RuntimeError(f"ctc {name}: emits, flags and lens must be on "
                            "one device")
-    if S > MAX_STATES:
-        raise ValueError(f"ctc {name}: at most {MAX_STATES} extended states "
-                         f"(labels of {(MAX_STATES - 1) // 2}), got {S}")
-    from crnn_ocr_torch.kernels import _build
-
+    p = plan(B, T, S, design)
     emits, flags, lens = emits.contiguous(), flags.contiguous(), \
         lens.contiguous()
     out = torch.empty_like(emits)
-    lib = _build.load("ctc_loss")
-    fn = getattr(lib, f"crnn_ctc_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        err = fn(emits.data_ptr(), flags.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), B, T, S,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, f"ctc {name}")
+    lib, fn = _entry(name)
+    args = (emits.data_ptr(), flags.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), B, T, S, DESIGNS[p.design], p.warps,
+            p.ring_frames, p.smem_bytes)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        from crnn_ocr_torch.kernels import _build
+
+        _build.check(lib, err, f"ctc {name} ({p})")
+    global alpha_launches, beta_launches
+    if name == "alpha":
+        alpha_launches += 1
+    else:
+        beta_launches += 1
+    design_launches[(name, p.design)] += 1
     return out
 
 
-def ctc_alphas(emits, flags, lens):
-    """K6: alphas (B, T, S) of :func:`ctc_alphas_plain`."""
+def _run(name, plain, emits, flags, lens, design):
     _check(emits, flags, lens)
     if emits.device.type == "cpu":
-        return ctc_alphas_plain(emits, flags, lens)
-    global alpha_launches
-    out = _launch("alpha", emits, flags, lens)
-    alpha_launches += 1
-    return out
+        return plain(emits, flags, lens)
+    if emits.device.type != "cuda":
+        raise RuntimeError(f"ctc {name}: no kernel for {emits.device}")
+    return _launch(name, emits, flags, lens, design)
 
 
-def ctc_betas(emits, flags, lens):
-    """K7: betas (B, T, S) of :func:`ctc_betas_plain`."""
-    _check(emits, flags, lens)
-    if emits.device.type == "cpu":
-        return ctc_betas_plain(emits, flags, lens)
-    global beta_launches
-    out = _launch("beta", emits, flags, lens)
-    beta_launches += 1
-    return out
+def ctc_alphas(emits, flags, lens, design: str = "pipelined"):
+    """K6: alphas (B, T, S) of :func:`ctc_alphas_plain`, on ``design``
+    (:func:`plan`) for a CUDA tensor."""
+    return _run("alpha", ctc_alphas_plain, emits, flags, lens, design)
+
+
+def ctc_betas(emits, flags, lens, design: str = "pipelined"):
+    """K7: betas (B, T, S) of :func:`ctc_betas_plain`, on ``design``."""
+    return _run("beta", ctc_betas_plain, emits, flags, lens, design)
 
 
 def prepare(log_probs, labels, input_length, label_length):

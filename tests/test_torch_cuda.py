@@ -14,9 +14,10 @@ bf16 to 2^-7, two ulps of outputs in (-1, 1), and K5's stash to the same
 plus as much times its value in bf16 (c is not bounded by 1); the BiLSTM's
 autograd Function on the card against the CPU to rtol 1e-4 / atol 1e-5 of
 the largest gradient in f32 and 1e-2 in bf16 (h's bf16 roundings differ
-between the two and reach every gradient); the CTC recursions (K6, K7) to 1e-4 + 1e-5 * |value| where a
-path exists (f32 log-sum-exps with CUDA's expf/logf, over up to 61
-dependent frames) and exactly NEG where none does; the CTC gradient to
+between the two and reach every gradient); the CTC recursions (K6, K7), on
+both designs, to 1e-4 + 1e-5 * |value| where a path exists (f32
+log-sum-exps with the MUFU's ex2/lg2, or CUDA's expf/logf for "block",
+over up to T dependent frames) and exactly NEG where none does; the CTC gradient to
 rtol 1e-4 / atol 1e-5, as the CPU tests hold it to JAX; the bilinear
 sampler (K11) and its dx, dy (K12) to 1e-6 + 1e-6 * |value| (the same f32
 operations in the same order, each rounded on its own), and K12's d_img to
@@ -448,17 +449,47 @@ def _ctc_case(seed, B, T, C, L):
     return lp, labels, il, ll
 
 
+def _ctc_operands(seed, B, T, C, L):
+    """K6's and K7's operands for ``_ctc_case``, with input lengths of 1
+    and past T; for L = 0 (S = 1, which ``prepare`` does not take: its skip
+    mask, like the JAX package's, is 2 wide there) the blank's emissions
+    and the one state's flags (valid, init, end) directly."""
+    lp, labels, il, ll = _ctc_case(seed, B, T, C, L)
+    il[1 % B] = 1
+    il[2 % B] = T + 3
+    if L == 0:
+        flags = torch.full((B, 1), tcl.VALID | tcl.INIT | tcl.END,
+                           dtype=torch.int32)
+        return lp[:, :, -1:].contiguous(), flags, il
+    emits, flags, lens, _, _ = tcl.prepare(lp, labels, il, ll)
+    return emits, flags, lens
+
+
+# (B, T, C, L): the training shape (S 65); S 1023 at T 30 and T 126; S 1
+# (empty labels); T 1; B not a multiple of anything (5, 129)
+CTC_SHAPES = [(128, 12, 9, 4), (128, 62, 63, 32), (5, 30, 12, 511),
+              (5, 126, 40, 511), (7, 20, 9, 0), (6, 1, 9, 3),
+              (129, 17, 9, 6)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,C,L", [(128, 12, 9, 4), (128, 62, 63, 32),
-                                     (5, 30, 12, 511)])
-def test_ctc_kernels_match_plain(card, B, T, C, L):
-    """K6 and K7 against their plain versions (S = 2L + 1 up to 1023)."""
-    emits, flags, lens, _, _ = tcl.prepare(*_ctc_case(8, B, T, C, L))
+@pytest.mark.parametrize("design", ["pipelined", "block"])
+@pytest.mark.parametrize("B,T,C,L", CTC_SHAPES)
+def test_ctc_kernels_match_plain(card, B, T, C, L, design):
+    """K6 and K7 on both designs against their plain versions (S = 2L + 1
+    up to 1023), input lengths of 1 and past T included, each launch
+    counted on its design."""
+    emits, flags, lens = _ctc_operands(8, B, T, C, L)
     na, nb = tcl.alpha_launches, tcl.beta_launches
-    got = [tcl.ctc_alphas(emits.to(card), flags.to(card), lens.to(card)),
-           tcl.ctc_betas(emits.to(card), flags.to(card), lens.to(card))]
+    before = collections.Counter(tcl.design_launches)
+    got = [tcl.ctc_alphas(emits.to(card), flags.to(card), lens.to(card),
+                          design),
+           tcl.ctc_betas(emits.to(card), flags.to(card), lens.to(card),
+                         design)]
     torch.cuda.synchronize()
     assert (tcl.alpha_launches, tcl.beta_launches) == (na + 1, nb + 1)
+    assert tcl.design_launches - before == {("alpha", design): 1,
+                                            ("beta", design): 1}
     want = [tcl.ctc_alphas_plain(emits, flags, lens),
             tcl.ctc_betas_plain(emits, flags, lens)]
     for g, w in zip(got, want):
