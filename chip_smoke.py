@@ -81,7 +81,16 @@ bucket 256; and ``fonts-stn``), on the 64 lines of each model's own task in
    ``fonts-warp-stn`` at B 256 (serving) and B 128 (training), bf16 and
    f32, TF32 off; ``d_img`` also through autograd with an image that
    requires a gradient. ``F.grid_sample`` (border, align_corners) and its
-   backward are the yardsticks.
+   backward are the yardsticks. K12 runs the path's design
+   (``grid_sample.plan``: ``"cluster"``) and the first one (``"image"``)
+   on the same inputs, held to each other (dx, dy bit for bit) and to the
+   plain version; its row adds ``design``, ``plan``, ``ptxas``,
+   ``image_ms`` (the first design's device time) and, for both designs,
+   the device time with the L2 flushed before each launch (``cold_ms``,
+   ``image_cold_ms``: a 128 MB buffer written first); K11's and K12's
+   rows add ``kernel_ms_old_host_path`` (CUDA events through the
+   wrappers' earlier host path: argtypes set per call, always a device
+   switch) beside ``kernel_ms``.
 10. Golden texts: ``fonts-stn`` and ``fonts-warp-stn`` in f32 equal to the
     JAX predictor's (scores rtol 1e-4); ``fonts-warp-stn`` as shipped
     (bf16) at most 1 line in 64 off the JAX bf16 golden, and the kernel
@@ -93,9 +102,10 @@ bucket 256; and ``fonts-stn``), on the 64 lines of each model's own task in
 12. One f32 ``fonts-warp-stn`` train step: kernels against plain versions,
     and against the JAX step (``stn_goldens.npz``, ``train/``).
 13. Fine-tuning ``fonts-warp-stn`` counted, as phase 8 (bf16, B 128): each
-    step must launch K11 and K12 once, K3 twice, K6 and K7 once, K1, K2
-    and K8-K10 never (an STN model trains through the plain stem); the
-    loss must fall.
+    step must launch K11 and K12 once (every K12 on ``"cluster"``,
+    ``SAMPLER_PATH_DESIGN``), K3 twice, K6 and K7 once, K1, K2 and K8-K10
+    never (an STN model trains through the plain stem); the loss must
+    fall.
 14. Serving in turns: ``fonts-hard`` on its lines and on the STN task's,
     and ``fonts-warp-stn`` on its own, alternated within the call, so that
     the STN's cost and the lines' cost read apart from the host's drift.
@@ -109,8 +119,9 @@ B 128, bucket 128, on its 64 golden lines repeated):
     at ``fonts-hard``'s (bucket 256), bf16 and f32, TF32 off; K1 in the
     training forward (on ``"conv9"``, fed the batch statistics) against
     its plain version at phase 2's tolerance, and its time; cuDNN's conv +
-    ``torch.var_mean`` (K8) and the plain stem's autograd backward (K9 +
-    K10 as a pair) as yardsticks. K8's, K9's and K10's rows add their
+    ``torch.var_mean`` (K8), the plain stem's autograd backward (K9 +
+    K10 as a pair) and cuDNN's conv + affine + ReLU + max-pool (K1's
+    training call) as yardsticks. K8's, K9's and K10's rows add their
     ``design`` (``_stem_tiles.stem_plan`` and ``fused_stem_train.
     bwd_plan``: band rows, column tiles, tiles, CTAs, shared-memory bytes)
     and their instance's ``ptxas`` report.
@@ -180,7 +191,8 @@ for all of them, and each K1 launch on the design ``STEM_PATH_DESIGN``
 names for the path: ``"mma"`` serving bf16 (the conv on the tensor cores),
 ``"conv9"`` serving f32 and in the training forward (K9 and K10 recompute
 its z bit for bit); every counted training run (phases 8, 13, 17, 22) also
-requires each K6 and K7 launch on the design ``CTC_PATH_DESIGN`` names.
+requires each K6 and K7 launch on the design ``CTC_PATH_DESIGN`` names,
+and phase 13 each K12 launch on ``SAMPLER_PATH_DESIGN``.
 
 The last lines are the card's ``name, power.limit``, the kernels' JSON
 line (K1 and K2 with phase 4's launches, K3, K6 and K7 with phase 8's, K11
@@ -200,7 +212,13 @@ which computes both; K8's, K9's and K10's rows add their ``design`` and
 ``design_launches`` (phase 4's launches by design), K6's and K7's their
 ``design``, ``design_launches`` (phase 8's launches by design) and phase
 6's ``plan``, ``us_per_frame``, ``block_ms``, ``block_equal``, ``ptxas``
-and ``kernel_ms_old_host_path``. The recurrences' rows
+and ``kernel_ms_old_host_path``; K1's adds ``train_call`` (phase 15's
+training call at ``fonts-small``'s shape, with phase 17's launches and
+its cuDNN yardstick); K11's adds ``kernel_ms_old_host_path`` and
+``cold_ms``, K12's phase 9's ``design``, ``plan``, ``ptxas``,
+``image_ms``, ``cold_ms``, ``image_cold_ms``, ``image_equal`` and
+``kernel_ms_old_host_path`` and phase 13's ``design_launches``. The
+recurrences' rows
 add ``design``, ``cluster`` and
 ``rows`` as the counted run launched them, ``design_launches`` (that run's
 launches on that design) and ``ms_per_step`` (``ms`` over the T steps),
@@ -327,6 +345,45 @@ def device_ms(fn, reps: int = 20) -> float:
 
 
 EDGE = 4  # marker kernels on each side of device_ms's measured calls
+FLUSH_BYTES = 128 << 20  # written before a launch to evict the 50 MB L2
+_flush: list = []
+
+
+def kernel_device_ms(fn, name: str, cold: bool = False,
+                     reps: int = 20) -> float:
+    """The device ms of one launch of the kernel whose name holds ``name``
+    in a call of ``fn``: the mean over a torch.profiler window's records of
+    that kernel (so a record the profiler drops does not skew it), median
+    of three windows of ``reps`` calls after a warm-up call. With ``cold``
+    a 128 MB buffer is written before each call, which evicts the inputs
+    from the L2 (the kernel then reads them from device memory); the
+    write's own kernel is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if cold and not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                                  device="cuda"))
+    fn()
+    out, empty = [], 0
+    while len(out) < 3:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                if cold:
+                    _flush[0].fill_(i)
+                fn()
+            torch.cuda.synchronize()
+        recs = [e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.name]
+        if recs:
+            out.append(sum(recs) / len(recs) / 1e3)
+        else:
+            empty += 1
+            require(empty < 6, f"the profiler saw no {name} kernel in 6 "
+                               "windows")
+    return statistics.median(out)
 
 
 def profiled(run):
@@ -439,6 +496,7 @@ def reset_launches() -> None:
     ctc_loss.alpha_launches = ctc_loss.beta_launches = 0
     ctc_loss.design_launches.clear()
     gs.launches = gs.bwd_launches = 0
+    gs.design_launches.clear()
     fst.stats_launches = fst.partials_launches = fst.final_launches = 0
 
 
@@ -517,6 +575,25 @@ def read_ctc_design(counts: dict, what: str) -> dict:
     return ran
 
 
+# the design K12 runs on in the counted training runs (grid_sample.plan's
+# at every shape it covers)
+SAMPLER_PATH_DESIGN = "cluster"
+
+
+def read_sampler_design(counts: dict, what: str) -> dict:
+    """The counted run's K12 launches per design (``grid_sample.
+    design_launches``, set to 0 by ``reset_launches``): every one on
+    ``SAMPLER_PATH_DESIGN``. Returns them."""
+    from crnn_ocr_torch.kernels import grid_sample as gs
+
+    ran = {d: n for d, n in gs.design_launches.items() if n}
+    n = counts["grid_sample_bwd"]
+    want = {SAMPLER_PATH_DESIGN: n} if n else {}
+    require(ran == want, f"{what}: K12 launched {ran} by design; expected "
+                         f"{want}")
+    return ran
+
+
 # the design K1 runs on in the counted runs: bf16 serving on the tensor
 # cores, f32 serving and the training forward on conv9 (K9 and K10
 # recompute its z)
@@ -546,6 +623,8 @@ RESIDENT_PTXAS: dict = {}  # phase 1's report per resident instance
 STEM_BWD_PTXAS: dict = {}  # and per K9/K10 instance
 STEM_FWD_PTXAS: dict = {}  # and per K1/K8 instance
 CTC_PTXAS: dict = {}  # and per K6/K7 instance
+SAMPLER_PTXAS: dict = {}  # and per K11/K12 instance
+K1_TRAIN: dict = {}  # phase 15's K1 training-call rows by (dtype, path)
 
 
 def ptxas_instances(report: str, key_of) -> dict:
@@ -663,6 +742,41 @@ def ctc_ptxas(report: str) -> dict:
     return ptxas_instances(report, key_of)
 
 
+def sampler_ptxas_key(plan, dtype_name: str) -> str:
+    """``"grid_sample_bwd cluster bfloat16 tile staged"``,
+    ``"grid_sample_bwd image float32"``: K12's kernel instance for a plan
+    (its design, the image's dtype, and on the cluster designs the
+    accumulator, a whole ``tile`` or a ``slice``, and whether the image is
+    ``staged`` in shared memory or read through ``L1``)."""
+    if plan.design == "image":
+        return f"grid_sample_bwd image {dtype_name}"
+    return (f"grid_sample_bwd cluster {dtype_name} "
+            f"{'tile' if plan.tile else 'slice'} "
+            f"{'staged' if plan.staged else 'L1'}")
+
+
+def sampler_ptxas(report: str) -> dict:
+    """ptxas's report per kernel instance of ``grid_sample.cu``: K11 as
+    ``"grid_sample bfloat16"``, K12 by :func:`sampler_ptxas_key`."""
+    import re
+
+    def key_of(name):
+        dt = lambda k: "float32" if k == "f" else "bfloat16"  # noqa: E731
+        k = re.search(r"sample_bwd_clusterI(13__nv_bfloat16|f)Lb([01])ELb"
+                      r"([01])E", name)
+        if k:
+            return (f"grid_sample_bwd cluster {dt(k.group(1))} "
+                    f"{'tile' if k.group(3) == '1' else 'slice'} "
+                    f"{'staged' if k.group(2) == '1' else 'L1'}")
+        k = re.search(r"sample_bwd_imageI(13__nv_bfloat16|f)E", name)
+        if k:
+            return f"grid_sample_bwd image {dt(k.group(1))}"
+        k = re.search(r"sample_fwdI(13__nv_bfloat16|f)E", name)
+        return f"grid_sample {dt(k.group(1))}" if k else None
+
+    return ptxas_instances(report, key_of)
+
+
 def ctc_close(got, want):
     """K6's or K7's output against its plain version: (max error where a
     path exists, whether it is within 1e-4 + 1e-5 * |plain| there and
@@ -700,6 +814,7 @@ def phase_build(card: str):
     STEM_FWD_PTXAS.update(stem_fwd_ptxas(_build.ptxas_reports.get(
         "fused_stem", "")))
     CTC_PTXAS.update(ctc_ptxas(_build.ptxas_reports.get("ctc_loss", "")))
+    SAMPLER_PTXAS.update(sampler_ptxas(_build.ptxas_report("grid_sample")))
     require("fused_stem" not in built or len(STEM_BWD_PTXAS) == 4,
             f"ptxas reported {sorted(STEM_BWD_PTXAS)} of K9's and K10's 4 "
             f"instances")
@@ -708,7 +823,8 @@ def phase_build(card: str):
             f"instances")
     emit("build", seconds=round(secs, 3), built=built, ptxas=ptxas,
          resident_ptxas=RESIDENT_PTXAS, stem_bwd_ptxas=STEM_BWD_PTXAS,
-         stem_fwd_ptxas=STEM_FWD_PTXAS, ctc_ptxas=CTC_PTXAS)
+         stem_fwd_ptxas=STEM_FWD_PTXAS, ctc_ptxas=CTC_PTXAS,
+         sampler_ptxas=SAMPLER_PTXAS)
 
 
 def resident_resources(cell: str, stash: bool, H: int, design,
@@ -1522,6 +1638,7 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     import torch
     from crnn_ocr_torch.data.pipeline import produce_batch
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import grid_sample as gs
     from crnn_ocr_torch.train import loop as loop_lib
     from crnn_ocr_torch.train import state as st_lib
     from crnn_ocr_torch.train import step as step_lib
@@ -1551,13 +1668,16 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     emit("launches", model=name, train_steps=TRAIN_STEPS, **counts,
          designs=[[*d, n] for d, n in bigru.design_launches.items()],
          stem_designs=dict(fused_stem.design_launches),
-         ctc_designs=[[*d, n] for d, n in ctc_loss.design_launches.items()])
+         ctc_designs=[[*d, n] for d, n in ctc_loss.design_launches.items()],
+         sampler_designs=dict(gs.design_launches))
     require_launches(counts, {k: v * TRAIN_STEPS for k, v in want.items()},
                      f"{name}: {TRAIN_STEPS} train steps")
     design = read_design(counts, f"{name}: {TRAIN_STEPS} train steps")
     stem_design = read_stem_design(counts, "train",
                                    f"{name}: {TRAIN_STEPS} train steps")
     ctc_design = read_ctc_design(counts, f"{name}: {TRAIN_STEPS} train steps")
+    sampler_design = read_sampler_design(
+        counts, f"{name}: {TRAIN_STEPS} train steps")
     loss_curve = [float(x) for x in losses]
     first, last5 = loss_curve[0], statistics.mean(loss_curve[-5:])
     require(all(map(lambda v: v == v, loss_curve)), "a train loss is NaN")
@@ -1630,7 +1750,7 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     emit("fit", steps=state.step, eval=ev)
     require(0.0 <= ev["cer"] <= 1.0, f"fit's evaluation is malformed: {ev}")
     return {**counts, "design": design, "stem_design": stem_design,
-            "ctc_design": ctc_design}
+            "ctc_design": ctc_design, "sampler_design": sampler_design}
 
 
 def trace_train(step, ranges, n: int = 3) -> dict:
@@ -1709,6 +1829,42 @@ STN_NAME, STN_KEY = "fonts-warp-stn", "warp"
 STN_SERVE_KERNELS = {"grid_sample": 1, "fused_stem": 1, "bigru": 2}
 
 
+def old_sampler_launch(img, x, y, g=None):
+    """K11 (``g`` None) or K12 (on the path's plan) through the wrappers'
+    host path as it was first written (the C entry's restype and argtypes
+    set on every call, always inside ``torch.cuda.device``), to time that
+    path against the wrappers' own; uncounted."""
+    import ctypes
+
+    import torch
+    from crnn_ocr_torch.kernels import _build
+    from crnn_ocr_torch.kernels import grid_sample as gs
+
+    B, H, W, N = gs._check(img, x, y, g)
+    dev = img.device
+    lib = _build.load("grid_sample")
+    ins = (x, y) if g is None else (x, y, g)
+    row = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if g is None:
+        fn, outs, extra = lib.crnn_grid_sample_fwd, (row,), ()
+    else:
+        p = gs.plan(B, H, W, N, img.element_size())
+        fn = lib.crnn_grid_sample_bwd
+        outs = (torch.empty((B, H, W), dtype=torch.float32, device=dev), row,
+                torch.empty_like(row))
+        extra = gs.plan_args(p)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (1 + len(ins) + len(outs))
+                   + [ctypes.c_int] * (5 + len(extra)) + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(img.data_ptr(), *(t.data_ptr() for t in ins),
+                 *(t.data_ptr() for t in outs), B, H, W, N,
+                 int(img.dtype == torch.bfloat16), *extra,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "sample_pix (old host path)")
+    return outs
+
+
 def check_sampler(img, theta, dtype_name: str, path: str):
     """K11 and K12 on an STN's input frames ``img`` (B, H, W) in the compute
     dtype and its ``theta`` (B, 6), against their plain versions; the
@@ -1726,10 +1882,17 @@ def check_sampler(img, theta, dtype_name: str, path: str):
     x, y = gs.pixel_coords(coords, H, W)
     g = torch.randn(x.shape, generator=torch.Generator(
         device="cuda").manual_seed(7), device="cuda")
+    N = x.shape[1]
+    p = gs.plan(B, H, W, N, img.element_size())
+    before = collections.Counter(gs.design_launches)
     out = gs.sample_pix(img, x, y)
     dimg, dx, dy = gs.sample_pix_bwd(img, x, y, g)
+    first = gs.sample_pix_bwd(img, x, y, g, "image")
     want = gs.sample_pix_plain(img, x, y)
     p_dimg, p_dx, p_dy = gs.sample_pix_bwd_plain(img, x, y, g)
+    require(gs.design_launches - before == {p.design: 1, "image": 1},
+            f"grid_sample_bwd: launched {dict(gs.design_launches - before)} "
+            f"by design; expected one {p.design} and one image")
     # d_img through the path's autograd Function, image and coordinates
     # requiring gradients: kernels against plain versions
     grads = []
@@ -1753,10 +1916,14 @@ def check_sampler(img, theta, dtype_name: str, path: str):
             ("out", out, want, 1e-6, 1e-6), ("dx", dx, p_dx, 1e-6, 1e-6),
             ("dy", dy, p_dy, 1e-6, 1e-6), ("d_img", dimg, p_dimg, 1e-5, 1e-5),
             ("d_img_autograd", grads[0][0], grads[1][0], 1e-5, 1e-5 + ulp),
-            ("d_coords_autograd", grads[0][1], grads[1][1], 1e-5, 1e-5)):
+            ("d_coords_autograd", grads[0][1], grads[1][1], 1e-5, 1e-5),
+            ("image_d_img", first[0], p_dimg, 1e-5, 1e-5)):
         errs[key], good = _close(a, b, atol, rtol)
         ok = ok and good
-    N = x.shape[1]
+    # the two designs: the same per-sample operations, atomics in another
+    # order
+    image_equal = bool(torch.equal(dx, first[1]) and torch.equal(dy, first[2]))
+    ok = ok and image_equal
     fwd_bytes = nbytes(img, x, y, out)
     bwd_bytes = nbytes(img, x, y, g, dimg, dx, dy)
     # ~20 f32 operations a sample forward (corner math, 4 loads, 6 products
@@ -1785,7 +1952,11 @@ def check_sampler(img, theta, dtype_name: str, path: str):
     fwd = dict(kernel="grid_sample", **common, max_abs_err=errs["out"],
                tolerance="1e-6 + 1e-6 * |plain|",
                kernel_ms=time_ms(lambda: gs.sample_pix(img, x, y)),
+               kernel_ms_old_host_path=time_ms(
+                   lambda: old_sampler_launch(img, x, y)),
                kernel_device_ms=device_ms(lambda: gs.sample_pix(img, x, y)),
+               cold_ms=kernel_device_ms(lambda: gs.sample_pix(img, x, y),
+                                        "sample_fwd", cold=True),
                plain_ms=time_ms(lambda: gs.sample_pix_plain(img, x, y)),
                library_ms=time_ms(lib_fwd),
                library_device_ms=device_ms(lib_fwd),
@@ -1796,12 +1967,26 @@ def check_sampler(img, theta, dtype_name: str, path: str):
     bwd = dict(kernel="grid_sample_bwd", **common,
                max_abs_err=max(errs["dx"], errs["dy"], errs["d_img"]),
                errors=errs,
-               tolerance="dx, dy 1e-6 + 1e-6 * |plain|; d_img 1e-5 + 1e-5 "
-                         "* |plain| (through autograd with a bf16 image, "
+               tolerance="dx, dy 1e-6 + 1e-6 * |plain| (and bit for bit "
+                         "to the image design's); d_img 1e-5 + 1e-5 * "
+                         "|plain| (through autograd with a bf16 image, "
                          "+ 2^-7 * |plain|)",
+               design=p.design, plan=p._asdict(),
+               ptxas=SAMPLER_PTXAS.get(sampler_ptxas_key(p, dtype_name)),
                kernel_ms=time_ms(lambda: gs.sample_pix_bwd(img, x, y, g)),
+               kernel_ms_old_host_path=time_ms(
+                   lambda: old_sampler_launch(img, x, y, g)),
                kernel_device_ms=device_ms(
                    lambda: gs.sample_pix_bwd(img, x, y, g)),
+               cold_ms=kernel_device_ms(
+                   lambda: gs.sample_pix_bwd(img, x, y, g), "sample_bwd",
+                   cold=True),
+               image_ms=device_ms(
+                   lambda: gs.sample_pix_bwd(img, x, y, g, "image")),
+               image_cold_ms=kernel_device_ms(
+                   lambda: gs.sample_pix_bwd(img, x, y, g, "image"),
+                   "sample_bwd", cold=True),
+               image_equal=image_equal,
                plain_ms=time_ms(
                    lambda: gs.sample_pix_bwd_plain(img, x, y, g), reps=5),
                library_ms=time_ms(lib_bwd),
@@ -1955,7 +2140,8 @@ def check_stem_train(state, batch, dtype_name: str, path: str):
     phase 2's tolerance, and its time;
     the yardsticks: cuDNN's conv with ``torch.var_mean`` for K8, the plain
     stem's autograd backward (conv, BatchNorm, ReLU, max-pool) for K9 and
-    K10 as a pair."""
+    K10 as a pair, cuDNN's conv with the affine, ReLU and max-pool for K1's
+    training call."""
     import torch
     import torch.nn.functional as F
     from crnn_ocr_torch.kernels import fused_stem as fs
@@ -2058,12 +2244,25 @@ def check_stem_train(state, batch, dtype_name: str, path: str):
     ok = bool((err <= tol).all())
     k1_ms, k1_by = bound_ms(nbytes(img, pooled) + 11 * C * 4, 21 * elems,
                             dtype_name)
-    emit("k1_train_forward", dtype=dtype_name, path=path,
-         max_abs_err=float(err.max()), tolerance=tol_text, ok=ok,
-         kernel_ms=time_ms(k1_train), kernel_device_ms=device_ms(k1_train),
-         bound_ms=k1_ms, bound_by=k1_by,
-         design=stem_design_fields(img, C, "conv9"),
-         ptxas=STEM_FWD_PTXAS.get(f"fused_stem {dtype_name} conv9"))
+    # yardstick only: the same function through cuDNN's conv, the affine,
+    # ReLU and max-pool, as phase 2's for the serving call
+    w_k1 = w.to(dt).permute(3, 2, 0, 1).contiguous()
+    s4, b4 = scale.to(dt)[:, None, None], bias.to(dt)[:, None, None]
+
+    def k1_library():
+        z = F.conv2d(x_nchw, w_k1, padding=1)
+        return F.max_pool2d(torch.relu(z * s4 + b4), 2)
+
+    k1 = dict(dtype=dtype_name, path=path, max_abs_err=float(err.max()),
+              tolerance=tol_text, ok=ok, kernel_ms=time_ms(k1_train),
+              kernel_device_ms=device_ms(k1_train), bound_ms=k1_ms,
+              bound_by=k1_by, library_ms=time_ms(k1_library),
+              library_device_ms=device_ms(k1_library),
+              library="cudnn conv2d + affine + relu + max_pool2d",
+              design=stem_design_fields(img, C, "conv9"),
+              ptxas=STEM_FWD_PTXAS.get(f"fused_stem {dtype_name} conv9"))
+    K1_TRAIN[(dtype_name, path)] = k1
+    emit("k1_train_forward", **k1)
     require(ok, f"fused_stem {dtype_name} conv9 ({path}): max error "
                 f"{float(err.max())} beyond {tol_text}")
     return out
@@ -2398,8 +2597,9 @@ def main() -> int:
     phase_train_parity(sg, STN_NAME, STN_KEY,
                        {k[6:]: sg[k] for k in sg.files
                         if k.startswith("train/")}, STN_TRAIN_KERNELS)
-    counts["grid_sample_bwd"] = phase_train(
-        sg, card, STN_NAME, STN_KEY, STN_TRAIN_KERNELS)["grid_sample_bwd"]
+    stn_train = phase_train(sg, card, STN_NAME, STN_KEY, STN_TRAIN_KERNELS)
+    counts["grid_sample_bwd"] = stn_train["grid_sample_bwd"]
+    sampler_design = stn_train["sampler_design"]
     phase_serve_turns(card, lines, stn_lines)
 
     # slice 4: the training stem
@@ -2537,12 +2737,28 @@ def main() -> int:
                                  "pair_library_device_ms", "design", "ptxas",
                                  "plan", "us_per_frame", "block_ms",
                                  "block_equal", "kernel_ms_old_host_path",
+                                 "cold_ms", "image_ms", "image_cold_ms",
+                                 "image_equal",
                                  "k4_same_inputs_device_ms", "streamed_ms",
                                  "streamed_equal", "resources")
                if k in c},
         ))
         if name == "fused_stem":  # phase 4's launches by design
             kernels[-1]["design_launches"] = stem_design_launches
+            # the training call (phase 15 at train-small, phase 17's
+            # launches)
+            k1 = K1_TRAIN[("bfloat16", SMALL_KEY)]
+            kernels[-1]["train_call"] = dict(
+                launches=small["fused_stem"], ms=k1["kernel_device_ms"],
+                event_ms=k1["kernel_ms"], bound_ms=k1["bound_ms"],
+                bound_by=k1["bound_by"], library_ms=k1["library_ms"],
+                library_device_ms=k1["library_device_ms"],
+                library=k1["library"], max_abs_err=k1["max_abs_err"])
+        if name == "grid_sample_bwd":  # phase 13's launches by design
+            require({c["design"]: counts[name]} == sampler_design,
+                    f"{name}: timed on {c['design']}, but the counted run "
+                    f"ran {sampler_design}")
+            kernels[-1]["design_launches"] = sampler_design
         if name in ctc_designs:  # phase 8's launches by design
             require({c["design"]: counts[name]} == ctc_designs[name],
                     f"{name}: timed on {c['design']}, but the counted run "

@@ -8,8 +8,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
 
 The library lands in ``crnn_ocr_torch/_build/`` (git-ignored) under a name
 keyed by a hash of the source and the flags, so an edited ``.cu`` builds
-anew. Builds happen at first use; ``build_all`` starts one nvcc per source
-at once. A failed build raises with nvcc's stderr: there is no fallback.
+anew; ptxas's report is kept beside it (``<library>.ptxas``). Builds
+happen at first use; ``build_all`` starts one nvcc per source at once. A
+failed build raises with nvcc's stderr: there is no fallback.
 """
 
 from __future__ import annotations
@@ -80,7 +81,22 @@ def _finish(name: str, out: str, proc: subprocess.Popen) -> None:
             f"{stderr}{stdout}"
         )
     ptxas_reports[name] = stderr + stdout
+    with open(f"{out}.ptxas", "w") as f:
+        f.write(ptxas_reports[name])
     os.replace(tmp, out)
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's -Xptxas -v report for ``csrc/<name>.cu``'s current build,
+    from this process's build or, where another process built it, the
+    copy kept beside the library; empty if it is not built."""
+    if name in ptxas_reports:
+        return ptxas_reports[name]
+    try:
+        with open(f"{_lib_path(name)}.ptxas") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
 
 
 def build_all(names: Sequence[str] = SOURCES) -> List[str]:

@@ -30,24 +30,41 @@ and the coordinate gradients are f32, ``d_img`` is f32 from the kernel.
 
 ``sample_pix`` and ``sample_pix_bwd`` dispatch on the image's device and on
 nothing else: a CPU tensor goes through the plain version, a CUDA tensor
-through the kernel, or the call raises. ``bilinear_sample`` is the
-differentiable entry point (a ``torch.autograd.Function``: K11 forward,
-K12 backward).
+through the kernel, or the call raises. K12 launches as :func:`plan` says,
+a pure function of the shape: ``"cluster"`` (an image's samples spread
+over a thread-block cluster, ``d_img`` reduced in the cluster's shared
+memory) on every path; ``"image"`` (the first design, one CTA an image) is
+kept to time against it. ``bilinear_sample`` is the differentiable entry
+point (a ``torch.autograd.Function``: K11 forward, K12 backward).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-# Kernel launches: K11 (sample_pix) and K12 (sample_pix_bwd). The plain
-# versions are not counted.
+# Kernel launches: K11 (sample_pix) and K12 (sample_pix_bwd), and K12's by
+# design. The plain versions are not counted.
 launches = 0
 bwd_launches = 0
+design_launches: collections.Counter = collections.Counter()
 
-# K12 keeps one image's f32 gradient in shared memory (227 KB a block)
-MAX_BWD_PIXELS = 232_448 // 4
+SMEM_MAX = 232_448  # a CTA's shared memory (the H100's, with the opt-in)
+MAX_CLUSTER = 8  # the portable cluster size
+# K12's CTAs an image on the "cluster" design: 2 where B * 2 CTAs of 512
+# threads fit the H100 at once (2 an SM on its 132 SMs), else 1 (one CTA
+# an image already fills the card: at B 256, 1 ran K12 faster than 2, and
+# 2 faster than 4 at B 128); more where an image's slice must shrink to
+# fit a CTA
+CLUSTER = 2
+WAVE_CTAS = 2 * 132
+THREADS = 512  # a "cluster" CTA's threads
+DESIGNS = {"image": 0, "cluster": 1}  # the C entry's design codes
+CHUNK, RING = 1024, 2  # a ring slot's samples (x, y, g f32), the slots
+RING_BYTES = RING * 3 * CHUNK * 4
 
 
 def _corners(x, y, H: int, W: int):
@@ -122,63 +139,189 @@ def _check(img, x, y, g=None):
     return B, H, W, x.shape[1]
 
 
-def _launch(entry, img, ins, outs, B, H, W, N):
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class Plan(NamedTuple):
+    """How K12 launches (``csrc/grid_sample.cu``): ``design``, ``cluster``
+    CTAs an image (1 on ``"image"``), each accumulating ``d_img`` over the
+    whole image (``tile``) or over its own ``slice`` of pixels (flat
+    ranges; on ``"image"`` all of them) and taking ``span`` samples
+    (contiguous ranges), the image ``staged`` in shared memory or read
+    through L1, ``smem_bytes`` of shared memory a CTA, ``ctas`` in all."""
+
+    design: str
+    cluster: int
+    tile: bool
+    slice: int
+    span: int
+    staged: bool
+    smem_bytes: int
+    ctas: int
+
+
+def cluster_for(B: int, H: int, W: int) -> int:
+    """The "cluster" design's CTAs an image (see ``CLUSTER``)."""
+    c = CLUSTER if B * CLUSTER <= WAVE_CTAS else 1
+    while (c < MAX_CLUSTER
+           and _round(-(-H * W // c), 4) * 4 > SMEM_MAX - RING_BYTES):
+        c *= 2
+    return c
+
+
+def plan(B: int, H: int, W: int, N: int, itemsize: int,
+         design: str = "cluster", cluster: int | None = None) -> Plan:
+    """K12's launch for B images of (H, W) elements of ``itemsize`` bytes
+    and N samples each, a pure function of the shape. ``"cluster"`` keeps
+    a CTA's f32 tile of the whole image where it fits beside the ring of
+    samples (up to 51,968 pixels) and each CTA's pixel slice (H * W /
+    cluster, rounded up to 4) past that, so at 2 CTAs it takes up to
+    103,936 pixels: every shape the JAX package's ``sampler_supported``
+    admits (H * W * 4 <= 256 KB). The image is staged in shared memory
+    where it fits beside them.
+    ``"image"`` (one CTA an image) takes up to 58,112 pixels. A shape past
+    the gate raises."""
+    if design not in DESIGNS:
+        raise ValueError(f"sample_pix_bwd: no design {design!r}")
+    HW = H * W
+    if HW < 1:
+        raise ValueError(f"sample_pix_bwd: an empty image {H}x{W}")
+    if design == "image":
+        if HW * 4 > SMEM_MAX:
+            raise ValueError(f"sample_pix_bwd: the image design keeps the "
+                             f"image's f32 gradient in one CTA's shared "
+                             f"memory ({SMEM_MAX // 4} pixels), got {H}x{W}")
+        return Plan("image", 1, True, HW, N, False, HW * 4, B)
+    if cluster is None:
+        cluster = cluster_for(B, H, W)
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"sample_pix_bwd: 1 to {MAX_CLUSTER} CTAs a "
+                         f"cluster, got {cluster}")
+    slice_ = _round(-(-HW // cluster), 4)
+    room = SMEM_MAX - RING_BYTES  # beside the ring of x, y, g
+    tile = _round(HW, 4) * 4 <= room
+    acc = _round(HW, 4) if tile else slice_
+    if acc * 4 > room:
+        raise ValueError(f"sample_pix_bwd: a CTA's share of the image's f32 "
+                         f"gradient ({acc} pixels of {H}x{W} over "
+                         f"{cluster} CTAs) must fit its shared memory "
+                         f"({room // 4} pixels beside its samples)")
+    image = _round(HW * itemsize, 16)
+    # past a tile, slice and image never fit together at cluster_for's size
+    staged = tile and acc * 4 + image <= room
+    return Plan(design, cluster, tile, slice_, _round(-(-N // cluster), 4),
+                staged, acc * 4 + RING_BYTES + (image if staged else 0),
+                B * cluster)
+
+
+_entries: dict = {}  # name -> (library, C entry), bound once
+
+
+def plan_args(p: Plan) -> tuple:
+    """The C entry's plan arguments."""
+    return (DESIGNS[p.design], p.cluster, int(p.tile), p.slice, p.span,
+            int(p.staged), p.smem_bytes)
+
+
+def _entry(name):
+    got = _entries.get(name)
+    if got is None:
+        from crnn_ocr_torch.kernels import _build
+
+        lib = _build.load("grid_sample")
+        fn = getattr(lib, f"crnn_grid_sample_{name}")
+        fn.restype = ctypes.c_int
+        if name == "fwd":  # img, x, y, out; B, H, W, N, bf16
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        else:  # img, x, y, g, dimg, dx, dy; B, H, W, N, bf16, the plan
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+        fn.argtypes += [ctypes.c_void_p]  # the stream
+        got = _entries[name] = (lib, fn)
+    return got
+
+
+def _launch(name, img, ins, outs, B, H, W, N, extra=()):
     dev = img.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"{entry}: no kernel for {dev}")
     for t in ins:
         if t.device != dev:
-            raise RuntimeError(f"{entry}: an operand is on {t.device}, the "
-                               f"image on {dev}")
+            raise RuntimeError(f"sample_pix {name}: an operand is on "
+                               f"{t.device}, the image on {dev}")
     if B > 65535:
-        raise ValueError(f"{entry}: at most 65535 images a launch, got {B}")
-    from crnn_ocr_torch.kernels import _build
-
+        raise ValueError(f"sample_pix {name}: at most 65535 images a "
+                         f"launch, got {B}")
     img = img.contiguous()
     ins = [t.contiguous() for t in ins]
+    lib, fn = _entry(name)
+    args = (img.data_ptr(), *(t.data_ptr() for t in ins),
+            *(t.data_ptr() for t in outs), B, H, W, N,
+            int(img.dtype == torch.bfloat16), *extra)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        from crnn_ocr_torch.kernels import _build
+
+        _build.check(lib, err, f"sample_pix {name}")
+
+
+def resources(p: Plan, itemsize: int) -> dict:
+    """A cluster plan's instance on this card, launching nothing: its
+    registers and local memory a thread, and the clusters the card holds
+    at once (``ctas`` / ``cluster`` / that is the waves the grid takes)."""
+    from crnn_ocr_torch.kernels import _build
+
     lib = _build.load("grid_sample")
-    fn = getattr(lib, entry)
+    fn = lib.crnn_grid_sample_bwd_info
     fn.restype = ctypes.c_int
-    n_ptr = 1 + len(ins) + len(outs)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        err = fn(img.data_ptr(), *(t.data_ptr() for t in ins),
-                 *(t.data_ptr() for t in outs), B, H, W, N,
-                 int(img.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, entry)
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    info = (ctypes.c_int * 3)()
+    err = fn(int(itemsize == 2), int(p.tile), int(p.staged), p.cluster,
+             p.smem_bytes, ctypes.addressof(info))
+    _build.check(lib, err, f"sample_pix_bwd info ({p})")
+    return dict(registers=info[0], local_bytes=info[1],
+                clusters_at_once=info[2])
+
+
+def _on_card(img, what: str) -> bool:
+    if img.device.type == "cpu":
+        return False
+    if img.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for {img.device}")
+    return True
 
 
 def sample_pix(img, x, y):
     """K11: samples (B, N) f32 of :func:`sample_pix_plain`."""
     B, H, W, N = _check(img, x, y)
-    if img.device.type == "cpu":
+    if not _on_card(img, "sample_pix"):
         return sample_pix_plain(img, x, y)
     out = torch.empty((B, N), dtype=torch.float32, device=img.device)
-    _launch("crnn_grid_sample_fwd", img, (x, y), (out,), B, H, W, N)
+    _launch("fwd", img, (x, y), (out,), B, H, W, N)
     global launches
     launches += 1
     return out
 
 
-def sample_pix_bwd(img, x, y, g):
-    """K12: (d_img, dx, dy) of :func:`sample_pix_bwd_plain`."""
+def sample_pix_bwd(img, x, y, g, design: str = "cluster",
+                   cluster: int | None = None):
+    """K12: (d_img, dx, dy) of :func:`sample_pix_bwd_plain`, on ``design``
+    (:func:`plan`) for a CUDA tensor."""
     B, H, W, N = _check(img, x, y, g)
-    if img.device.type == "cpu":
+    if not _on_card(img, "sample_pix_bwd"):
         return sample_pix_bwd_plain(img, x, y, g)
-    if H * W > MAX_BWD_PIXELS:
-        raise ValueError(f"sample_pix_bwd: the image's f32 gradient must fit "
-                         f"a block's shared memory ({MAX_BWD_PIXELS} pixels),"
-                         f" got {H}x{W}")
+    p = plan(B, H, W, N, img.element_size(), design, cluster)
     dev = img.device
     dimg = torch.empty((B, H, W), dtype=torch.float32, device=dev)
     dx = torch.empty((B, N), dtype=torch.float32, device=dev)
     dy = torch.empty_like(dx)
-    _launch("crnn_grid_sample_bwd", img, (x, y, g), (dimg, dx, dy), B, H, W,
-            N)
+    _launch("bwd", img, (x, y, g), (dimg, dx, dy), B, H, W, N,
+            plan_args(p))
     global bwd_launches
     bwd_launches += 1
+    design_launches[p.design] += 1
     return dimg, dx, dy
 
 

@@ -20,9 +20,9 @@ log-sum-exps with the MUFU's ex2/lg2, or CUDA's expf/logf for "block",
 over up to T dependent frames) and exactly NEG where none does; the CTC gradient to
 rtol 1e-4 / atol 1e-5, as the CPU tests hold it to JAX; the bilinear
 sampler (K11) and its dx, dy (K12) to 1e-6 + 1e-6 * |value| (the same f32
-operations in the same order, each rounded on its own), and K12's d_img to
-1e-5 + 1e-5 * |value| (shared-memory atomics add a pixel's terms in no fixed
-order); the training stem's sums (K8, K9, K10) to 1e-5 of the sum of their
+operations in the same order, each rounded on its own; K12's designs bit for
+bit to each other), and K12's d_img to 1e-5 + 1e-5 * |value| (shared-memory
+atomics add a pixel's terms in no fixed order); the training stem's sums (K8, K9, K10) to 1e-5 of the sum of their
 terms' magnitudes plus 1e-6 (f32 sums of up to B * H * W terms in other
 orders), and its autograd Function on the card against the CPU as
 ``tests/test_torch_stem_train.py`` holds the CPU to JAX. TF32 is off.
@@ -583,22 +583,68 @@ def _assert_near(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("B,H,W,N", [(256, 32, 256, 8192), (3, 16, 24, 384),
-                                     (2, 5, 7, 1000), (1, 1, 1, 3)])
+                                     (2, 5, 7, 1000), (1, 1, 1, 3),
+                                     (3, 16, 24, 383), (2, 128, 512, 65536)])
 def test_grid_sample_kernels_match_plain(card, dtype, B, H, W, N):
-    """K11's samples and K12's d_img, dx and dy against the plain versions,
-    on the image's own dtype (bf16 is read as f32 by both)."""
+    """K11's samples and K12's d_img, dx and dy (on the path's design,
+    ``"cluster"``) against the plain versions, on the image's own dtype
+    (bf16 is read as f32 by both); N % 4 != 0, and 128 x 512 (past the
+    first design's 58,112 pixels; in f32 the image is read through L1)."""
     img, x, y, g = _sampler_case(10, B, H, W, N, dtype)
     n11, n12 = tgs.launches, tgs.bwd_launches
+    by_design = collections.Counter(tgs.design_launches)
     got = tgs.sample_pix(img.to(card), x.to(card), y.to(card))
     got_b = tgs.sample_pix_bwd(img.to(card), x.to(card), y.to(card),
                                g.to(card))
     torch.cuda.synchronize()
     assert (tgs.launches, tgs.bwd_launches) == (n11 + 1, n12 + 1)
+    assert tgs.design_launches - by_design == {"cluster": 1}
     _assert_near(got, tgs.sample_pix_plain(img, x, y), 1e-6)
     want_b = tgs.sample_pix_bwd_plain(img, x, y, g)
     _assert_near(got_b[0], want_b[0], 1e-5)
     for a, b in zip(got_b[1:], want_b[1:]):
         _assert_near(a, b, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,H,W,N", [(128, 32, 256, 8192), (3, 16, 24, 384),
+                                     (2, 5, 7, 1001), (1, 1, 1, 3)])
+def test_grid_sample_bwd_designs_agree(card, dtype, B, H, W, N):
+    """K12 on every cluster design and cluster size against the first
+    design (``"image"``) on the same inputs: dx and dy bit for bit, d_img
+    to 1e-5 + 1e-5 * |image| (atomics in another order), each within the
+    plain version's tolerance; each launch counted under its design."""
+    img, x, y, g = (t.to(card) for t in _sampler_case(11, B, H, W, N, dtype))
+    first = tgs.sample_pix_bwd(img, x, y, g, "image")
+    want = tgs.sample_pix_bwd_plain(img, x, y, g)
+    for design in tgs.DESIGNS:
+        for cluster in ((1,) if design == "image" else (1, 2, 4, 8)):
+            by_design = collections.Counter(tgs.design_launches)
+            got = tgs.sample_pix_bwd(img, x, y, g, design, cluster)
+            torch.cuda.synchronize()
+            assert tgs.design_launches - by_design == {design: 1}
+            assert torch.equal(got[1], first[1]), (design, cluster)
+            assert torch.equal(got[2], first[2]), (design, cluster)
+            _assert_near(got[0], first[0].cpu(), 1e-5)
+            _assert_near(got[0], want[0].cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_grid_sample_bwd_refuses_past_its_gate(card):
+    """A shape past the gate raises on a CUDA tensor (no plain fallback):
+    the first design past 58,112 pixels, the cluster past its slices."""
+    img, x, y, g = (t.to(card) for t in _sampler_case(
+        12, 1, 128, 512, 64, "float32"))
+    n12 = tgs.bwd_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tgs.sample_pix_bwd(img, x, y, g, "image")
+    wide = torch.zeros(1, 1, tgs.MAX_CLUSTER * (tgs.SMEM_MAX
+                                                 - tgs.RING_BYTES) // 4 + 4,
+                       device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        tgs.sample_pix_bwd(wide, x, y, g)
+    assert tgs.bwd_launches == n12
 
 
 @pytest.mark.cuda
