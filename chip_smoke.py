@@ -184,8 +184,27 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     run this phase from a copy of this script in the parent's tree, its
     ``PATH_DESIGN["bilstm"]`` set to the parent's ``"f32"``).
 
-Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24) requires each
-recurrence launch to have run on the design ``PATH_DESIGN`` names for its
+25. Serving by beam (no kernel of its own): the TF-exact beam on the card
+    (``ops/ctc_beam_device.py``; W 10, 3 paths, ``merge_repeated`` on and
+    off) on the JAX f32 probabilities of ``fonts-hard``'s and
+    ``fonts-small``'s 64 golden lines against JAX's labels (equal) and
+    scores (rtol 1e-5, atol 1e-5), the C++ decoder's labels on the same
+    (``exact_tf``), greedy alignment and forced alignment of the beam's
+    top path against JAX's (frames equal, confidences rtol 1e-6), all from
+    ``crnn_ocr_torch/testdata/beam_goldens.npz``; ``load_pretrained(
+    "fonts-hard").predict(greedy=False)`` end to end: f32 texts equal to
+    the JAX beam's, scores rtol 1e-4, spans (``alignments=True``) equal on
+    every line whose text is equal, bf16 at most 1 line in 64 off; then
+    ``fonts-hard`` counted as phase 4 (B 256, bucket 256, bf16, W 10, one
+    path: each ``predict`` launches K1 once on ``"mma"`` and K2 twice on
+    ``"resident"``), its lines/s, p50 and stages; the decode stage alone
+    split into device and host ms with its host syncs (a profiler window
+    read off the raw records), beside the exact tier run on every frame
+    and both at B 16; the tier mix (``ctc_beam_tier_stats``); the C++
+    decoder's time on the same probabilities; phase 4's greedy numbers.
+
+Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24, 25) requires
+each recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
 for all of them, and each K1 launch on the design ``STEM_PATH_DESIGN``
 names for the path: ``"mma"`` serving bf16 (the conv on the tensor cores),
@@ -1123,29 +1142,34 @@ def phase_goldens(g, f32_models, bf16_model, bf16_max_off: int = 1):
 
 def phase_throughput(card: str, name: str, lines, want: dict,
                      bucket: int = BUCKET, path: str = "serve",
-                     dtype: str = None):
+                     dtype: str = None, decode_kw: dict = None,
+                     reps: int = 20, stage_reps: int = 13,
+                     trace_n: int = 5):
     """The main path, counted: ``REPS`` timed ``predict`` calls of ``name``
     (as shipped, or in ``dtype``) on ``lines`` at ``bucket`` with the
     launch counts set to 0 just before them and read just after; ``want``:
     each kernel's launches per call; ``path``: ``"serve"`` (bf16: K1 on
     ``"mma"``, the recurrences on ``PATH_DESIGN``'s designs) or
     ``"serve_f32"`` (K1 on ``"conv9"``, K2 or K4 on ``PATH_DESIGN``'s, its
-    f32 instance). Returns the counts and, under ``"design"``,
-    ``read_design``'s."""
+    f32 instance); ``decode_kw``: ``predict``'s decode keywords (greedy
+    when None); ``reps`` timed calls, ``stage_reps`` clocked ones (the
+    first 3 not kept) and ``trace_n`` traced ones (0: none). Returns the
+    counts, under ``"design"`` ``read_design``'s, and under
+    ``"throughput"`` the emitted line."""
     import torch
     from crnn_ocr_torch import load_pretrained
     from crnn_ocr_torch.kernels import bigru, fused_stem
 
-    reps = 20
+    decode_kw = decode_kw or {}
     pred = load_pretrained(name, device="cuda", dtype=dtype)
     for _ in range(3):
-        pred.predict(lines, bucket=bucket)
+        pred.predict(lines, bucket=bucket, **decode_kw)
     torch.cuda.synchronize()
     batch_ms = []
     reset_launches()
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = pred.predict(lines, bucket=bucket)
+        out = pred.predict(lines, bucket=bucket, **decode_kw)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_launches()
     emit("launches", model=name, predict_calls=reps, **counts,
@@ -1175,7 +1199,7 @@ def phase_throughput(card: str, name: str, lines, want: dict,
         return t1
 
     with torch.inference_mode():
-        for _ in range(13):
+        for _ in range(stage_reps):
             torch.cuda.synchronize()
             t = time.perf_counter()
             x, w_new = pred.preprocess(lines, bucket)
@@ -1188,7 +1212,7 @@ def phase_throughput(card: str, name: str, lines, want: dict,
             t = clock("backbone", t)
             logits = m.head(f)
             t = clock("rnn_head", t)
-            pred.decode(*pred.probs(logits, w_new))
+            pred.decode(*pred.probs(logits, w_new), **decode_kw)
             clock("decode", t)
     stage_ms = {k: statistics.median(v[3:]) for k, v in stages.items()}
     p50 = statistics.median(batch_ms)
@@ -1196,10 +1220,13 @@ def phase_throughput(card: str, name: str, lines, want: dict,
                bucket=bucket, lines_per_s=BATCH / (p50 / 1e3),
                p50_batch_ms=p50, min_batch_ms=min(batch_ms),
                max_batch_ms=max(batch_ms), stage_ms=stage_ms,
-               card=card)
+               card=card, **({"decode": decode_kw} if decode_kw else {}))
     emit("throughput", **res)
-    emit("trace", model=name, **trace_predict(pred, lines, bucket))
-    return {**counts, "design": design, "stem_design": stem_design}
+    if trace_n:
+        emit("trace", model=name, **trace_predict(
+            pred, lines, bucket, trace_n, decode_kw=decode_kw))
+    return {**counts, "design": design, "stem_design": stem_design,
+            "throughput": res}
 
 
 def stn_stages(m, x, clock, t):
@@ -1213,13 +1240,14 @@ def stn_stages(m, x, clock, t):
     return x, clock("sampler", t)
 
 
-def trace_predict(pred, lines, bucket: int = BUCKET, n: int = 5) -> dict:
-    """torch.profiler over ``n`` predict calls at ``bucket``: the device's
-    busy share of the wall time, and the ops that take the most device and
-    host time."""
+def trace_predict(pred, lines, bucket: int = BUCKET, n: int = 5,
+                  decode_kw: dict = None) -> dict:
+    """torch.profiler over ``n`` predict calls at ``bucket`` (with
+    ``decode_kw``): the device's busy share of the wall time, and the ops
+    that take the most device and host time."""
     def run():
         for _ in range(n):
-            pred.predict(lines, bucket=bucket)
+            pred.predict(lines, bucket=bucket, **(decode_kw or {}))
 
     return _trace_summary(*profiled(run), n)
 
@@ -2523,6 +2551,331 @@ def f32_fields(c: dict) -> dict:
         "old_f32_max_abs_err", "resources") if k in c}
 
 
+# ---- phase 25: serving by beam (fonts-hard) ----
+
+BEAM_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                            "beam_goldens.npz")
+BEAM_WIDTH, BEAM_TOP_PATHS = 10, 3
+BEAM_SERVE = dict(greedy=False, beam_width=BEAM_WIDTH, top_paths=1)
+
+
+def _tolerance_fields(got, want, rtol: float, atol: float) -> dict:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    rel = np.abs(got[fin] - want[fin]) / (np.abs(want[fin]) + 1e-30)
+    return dict(max_rel_err=float(rel.max(initial=0.0)),
+                ok=bool(np.array_equal(np.isfinite(got), fin)
+                        and np.allclose(got[fin], want[fin], rtol=rtol,
+                                        atol=atol)))
+
+
+def beam_decode_parity(bg, key: str) -> dict:
+    """One key's decode-level checks on the card: the device beam (W 10,
+    3 paths, both merge modes) against JAX's labels and scores, the C++
+    decoder's labels against the same, greedy alignment and forced
+    alignment of the beam's top path (merge off) against JAX's."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch.ops import ctc
+    from crnn_ocr_torch.ops.ctc_beam_device import ctc_beam_search_decode_tf
+    from crnn_ocr_torch.ops.ctc_beam_exact import (
+        ctc_beam_search_decode_exact)
+
+    probs_np, il_np = bg[f"{key}_probs"], bg[f"{key}_input_len"]
+    probs = torch.from_numpy(probs_np).cuda()
+    il = torch.from_numpy(il_np).cuda()
+    res = dict(key=key, lines=len(il_np), T=probs_np.shape[1],
+               C=probs_np.shape[2])
+    top0 = None
+    for merge in (1, 0):
+        want = bg[f"{key}_beam_m{merge}_decoded"].astype(np.int32)
+        dec, sc = ctc_beam_search_decode_tf(
+            probs, il, beam_width=BEAM_WIDTH, top_paths=BEAM_TOP_PATHS,
+            merge_repeated=bool(merge))
+        require(dec.device.type == "cuda", "the beam left the card")
+        dec = dec.cpu().numpy()
+        # atol 1e-5 as the greedy gate's: a near-certain line scores near
+        # 0, where f32 ulps of the ~-10 terms are ~3e-6 of absolute error
+        sc_fields = _tolerance_fields(sc.cpu().numpy(),
+                                      bg[f"{key}_beam_m{merge}_scores"],
+                                      1e-5, 1e-5)
+        host, _ = ctc_beam_search_decode_exact(
+            probs_np, il_np, beam_width=BEAM_WIDTH, top_paths=BEAM_TOP_PATHS,
+            merge_repeated=bool(merge))
+        host_bad = sum(int((h != want[p, :, :h.shape[1]]).any(1).sum()
+                           + (want[p, :, h.shape[1]:] != -1).any(1).sum())
+                       for p, h in enumerate(host))
+        res[f"merge_{merge}"] = dict(
+            label_rows_off=int((dec != want).any(2).sum()),
+            exact_tf_label_rows_off=host_bad, scores=sc_fields)
+        require(np.array_equal(dec, want) and sc_fields["ok"],
+                f"{key} merge {merge}: the beam on the card differs from "
+                f"JAX's ({res[f'merge_{merge}']})")
+        require(host_bad == 0, f"{key} merge {merge}: the C++ decoder's "
+                               f"labels differ from JAX's in {host_bad} rows")
+        if not merge:
+            top0 = torch.from_numpy(dec[0]).cuda()
+    checks = (
+        ("greedy_align", ("labels", "starts", "ends", "confs"),
+         ctc.ctc_greedy_alignment(probs, il)),
+        ("forced", ("starts", "ends", "confs", "feasible"),
+         ctc.ctc_forced_alignment(probs, il, top0.clamp(min=0),
+                                  (top0 >= 0).sum(1))),
+    )
+    for what, names, outs in checks:
+        for n, v in zip(names, outs):
+            got, want = v.cpu().numpy(), bg[f"{key}_{what}_{n}"]
+            if n == "confs":
+                f = _tolerance_fields(got, want, 1e-6, 0.0)
+                res[f"{what}_confs_max_rel_err"] = f["max_rel_err"]
+                ok = f["ok"]
+            else:
+                ok = bool(np.array_equal(got, want))
+            require(ok, f"{key}: {what} {n} on the card differ from JAX's")
+    emit("beam_decode", **res)
+    return res
+
+
+def beam_goldens(g, bg) -> dict:
+    """``load_pretrained("fonts-hard").predict(greedy=False)`` end to end
+    on the golden lines: f32 texts equal to JAX's beam texts, scores
+    within rtol 1e-4 (atol 1e-5), spans (``alignments=True``) equal on
+    every line whose text is equal; bf16 at most 1 line in 64 off JAX's
+    bf16 beam texts."""
+    import numpy as np
+    from crnn_ocr_torch import load_pretrained
+
+    lines = golden_lines(g, "hard")
+    out = load_pretrained("fonts-hard", device="cuda", dtype="float32") \
+        .predict(lines, greedy=False, alignments=True)
+    want_t = [str(t) for t in bg["hard_pred_texts_f32"]]
+    bad = [(i, o.text, w) for i, (o, w) in enumerate(zip(out, want_t))
+           if o.text != w]
+    sc = _tolerance_fields([o.score for o in out], bg["hard_pred_scores_f32"],
+                           1e-4, 1e-5)
+    want_spans = [[] for _ in lines]
+    for (i, x0, x1), ch, conf in zip(bg["hard_pred_spans_f32"],
+                                     bg["hard_pred_span_chars_f32"],
+                                     bg["hard_pred_span_confs_f32"]):
+        want_spans[i].append((str(ch), int(x0), int(x1), float(conf)))
+    span_bad, conf_err = [], 0.0
+    for i, o in enumerate(out):
+        if o.text != want_t[i]:
+            continue
+        got = [(s.char, s.x0, s.x1) for s in o.spans]
+        if got != [w[:3] for w in want_spans[i]]:
+            span_bad.append(i)
+        conf_err = max([conf_err] + [abs(s.conf - w[3]) / w[3] for s, w in
+                                     zip(o.spans, want_spans[i])])
+    bf16 = load_pretrained("fonts-hard", device="cuda").predict(
+        lines, greedy=False)
+    want_b = [str(t) for t in bg["hard_pred_texts_bf16"]]
+    bf16_bad = [(i, o.text, w) for i, (o, w) in enumerate(zip(bf16, want_b))
+                if o.text != w]
+    res = dict(lines=len(lines), f32_text_mismatches=bad, f32_scores=sc,
+               spans=sum(len(o.spans) for o in out),
+               span_mismatch_lines=span_bad, span_conf_max_rel_err=conf_err,
+               bf16_text_mismatches=bf16_bad,
+               bf16_line_accuracy_vs_truth=float(np.mean(
+                   [o.text == str(t) for o, t in zip(bf16,
+                                                     g["hard_truth"])])))
+    emit("beam_goldens", **res)
+    require(not bad and sc["ok"], "fonts-hard f32 beam differs from JAX's")
+    require(not span_bad, f"fonts-hard f32 spans differ on lines {span_bad}")
+    require(len(bf16_bad) <= 1, f"fonts-hard bf16 beam: {len(bf16_bad)} "
+                                "lines differ from JAX's (at most 1 may)")
+    return res
+
+
+def tier_mix(probs, il) -> dict:
+    """The share of the decode's frames that each tier answers
+    (``ctc_beam_tier_stats``: a frame goes to the first tier that admits
+    every sample; the frames past every sample's length are not run), and
+    the share of (frame, sample) pairs each tier alone would admit."""
+    import torch
+    from crnn_ocr_torch.ops.ctc_beam_device import ctc_beam_tier_stats
+
+    cheap, bound = ctc_beam_tier_stats(probs, il, BEAM_WIDTH)[:2]
+    n = int(il.max())
+    cheap, bound = cheap[:n], bound[:n]
+    fast = cheap.all(1)
+    by_bound = ~fast & bound.all(1)
+    live = torch.arange(n, device=il.device)[:, None] < il[None, :]
+    return dict(frames=n, fast=float(fast.float().mean()),
+                bound=float(by_bound.float().mean()),
+                exact=float((~fast & ~by_bound).float().mean()),
+                sample_frames_cheap=float(cheap[live].float().mean()),
+                sample_frames_bound=float(bound[live].float().mean()))
+
+
+def lean_trace(run) -> dict:
+    """torch.profiler (host and card) over one ``run()``, read off the raw
+    kineto records: building ``prof.events()``'s tree for a beam decode's
+    ~60,000 ops took ~30 s on the card machine's host. The wall ms, the
+    device's busy ms (the union of kernel and copy intervals), the host's
+    waits on the card (synchronize calls; the window's closing one counts)
+    and the kernel launches with their host ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        evs = prof.profiler.kineto_results.events()
+        spans = sorted((e.start_ns(), e.end_ns()) for e in evs
+                       if e.device_type() == torch.autograd.DeviceType.CUDA
+                       and not e.is_user_annotation())
+        if spans:
+            break
+    require(bool(spans), "the profiler saw no work on the device")
+    busy, end = 0, -1
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    launch = [e.duration_ns() for e in evs if e.name() == "cudaLaunchKernel"]
+    return dict(wall_ms=wall, device_busy_ms=busy / 1e6,
+                syncs=sum("Synchronize" in e.name() for e in evs),
+                kernel_launches=len(launch),
+                launch_host_ms=sum(launch) / 1e6)
+
+
+def decode_split(pred, probs, il, rounds: int = 2) -> dict:
+    """The beam decode stage alone on the counted run's probabilities, at
+    B 256 and on the first 16 lines (a small batch, where the fast tier
+    answers more frames): the path's tier ladder beside the exact tier on
+    every frame (no host test a frame; its output must be the same bit for
+    bit), timed in turns (ladder, exact, exact, ladder, ...: the host's
+    speed drifts within a call), wall ms a call (median, synchronized),
+    then one traced call each: the device busy ms, the rest of the wall
+    (the card waiting on the host) and the host's syncs."""
+    import contextlib
+
+    import torch
+    from crnn_ocr_torch.ops import ctc_beam_device as dev
+
+    def exact_every_frame(p, W, C):
+        return dev._slow_path(p, dev._evict_counts(p, W, C), W, C)
+
+    @contextlib.contextmanager
+    def dispatch(name):
+        ladder = dev._tier_dispatch
+        if name == "exact_every_frame":
+            dev._tier_dispatch = exact_every_frame
+        try:
+            yield
+        finally:
+            dev._tier_dispatch = ladder
+
+    def timed(name, probs, il):
+        with dispatch(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.decode(probs, il, **BEAM_SERVE)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    names = ("ladder", "exact_every_frame")
+    res = {}
+    for key, n in (("b256", len(il)), ("b16", 16)):
+        p_, il_ = probs[:n], il[:n]
+        want = dev.ctc_beam_search_decode_tf(p_, il_, BEAM_WIDTH)
+        with dispatch("exact_every_frame"):
+            got = dev.ctc_beam_search_decode_tf(p_, il_, BEAM_WIDTH)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                "the exact tier on every frame decodes otherwise than the "
+                "ladder")
+        walls = {name: [] for name in names}
+        for r in range(rounds):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                walls[name].append(timed(name, p_, il_))
+        res[key] = {}
+        for name in names:
+            with dispatch(name):
+                tr = lean_trace(lambda: pred.decode(p_, il_, **BEAM_SERVE))
+            wall = statistics.median(walls[name])
+            res[key][name] = dict(wall_ms=wall, walls=walls[name],
+                                  device_ms=tr["device_busy_ms"],
+                                  host_ms=wall - tr["device_busy_ms"],
+                                  trace=tr)
+    return res
+
+
+def phase_beam(card: str, g, greedy_serve: dict) -> None:
+    """Phase 25: serving by beam. Decode-level parity on the card
+    (``fonts-hard`` and ``fonts-small``), the end-to-end goldens, then
+    ``fonts-hard`` counted at B 256, bucket 256, bf16, W 10, one path (each
+    ``predict``: K1 once on ``"mma"``, K2 twice on ``"resident"``), with
+    the decode stage split into device and host ms, the tier mix and the
+    C++ decoder's time on the same probabilities, beside phase 4's greedy
+    numbers."""
+    import numpy as np
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.ops.ctc_beam_exact import (
+        ctc_beam_search_decode_exact)
+
+    secs = {}
+    t0 = time.perf_counter()
+
+    def lap(key):
+        nonlocal t0
+        t1 = time.perf_counter()
+        secs[key] = t1 - t0
+        t0 = t1
+
+    bg = np.load(BEAM_GOLDENS)
+    for key in ("hard", "small"):
+        beam_decode_parity(bg, key)
+    lap("decode_parity")
+    beam_goldens(g, bg)
+    lap("goldens")
+    lines = golden_lines(g, "hard")
+    lines = (lines * (BATCH // len(lines) + 1))[:BATCH]
+    # a beam batch takes ~0.5-1 s of host time: fewer calls than phase
+    # 4's, and its trace is the decode's (decode_split)
+    serve = phase_throughput(card, "fonts-hard", lines,
+                             {"fused_stem": 1, "bigru": 2},
+                             decode_kw=BEAM_SERVE, reps=5, stage_reps=5,
+                             trace_n=0)
+    lap("counted")
+    pred = load_pretrained("fonts-hard", device="cuda")
+    probs, il = pred.predict_probs(lines, bucket=BUCKET)
+    mix = tier_mix(probs, il)
+    mix["b16"] = tier_mix(probs[:16], il[:16])
+    lap("tier_mix")
+    split = decode_split(pred, probs, il)
+    lap("decode_split")
+    probs_h, il_h = probs.float().cpu().numpy(), il.cpu().numpy()
+    exact_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        ctc_beam_search_decode_exact(probs_h, il_h, beam_width=BEAM_WIDTH,
+                                     merge_repeated=False)
+        exact_ms.append((time.perf_counter() - t1) * 1e3)
+    lap("exact_tf")
+    tp = serve["throughput"]
+    emit("beam_serving", model="fonts-hard", dtype=tp["dtype"], batch=BATCH,
+         bucket=BUCKET, beam_width=BEAM_WIDTH, top_paths=1,
+         lines_per_s=tp["lines_per_s"], p50_batch_ms=tp["p50_batch_ms"],
+         stage_ms=tp["stage_ms"], decode=split["b256"]["ladder"],
+         syncs_per_iteration=split["b256"]["ladder"]["trace"]["syncs"],
+         dispatch=split, tier_mix=mix,
+         exact_tf_ms=statistics.median(exact_ms),
+         design=[*serve["design"][0], serve["design"][1]],
+         stem_design=serve["stem_design"],
+         greedy=dict(lines_per_s=greedy_serve["lines_per_s"],
+                     p50_batch_ms=greedy_serve["p50_batch_ms"],
+                     decode_ms=greedy_serve["stage_ms"]["decode"]),
+         seconds=secs, card=card)
+
+
 def main() -> int:
     try:
         import torch
@@ -2574,6 +2927,7 @@ def main() -> int:
     # each recurrence's (design, launches) in the counted run that holds it
     designs = {"bigru": counts.pop("design")}
     stem_design_launches = counts.pop("stem_design")
+    greedy_serve = counts.pop("throughput")
 
     # slice 2: training
     checks += phase_train_kernels(g)
@@ -2683,6 +3037,9 @@ def main() -> int:
                                      k5_f32["rows"]),
             "the f32 LSTM rows were timed on another design than their runs "
             "ran")
+
+    # phase 25: serving by beam (no kernel of its own)
+    phase_beam(card, g, greedy_serve)
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",

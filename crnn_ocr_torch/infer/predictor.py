@@ -1,16 +1,24 @@
-"""Greedy recognition API (``crnn_ocr_tpu/infer/predictor.py:57-292``).
+"""Recognition API (``crnn_ocr_tpu/infer/predictor.py``).
 
 uint8 images -> ``pack_canvas`` -> ``preprocess_batch`` on the device ->
-``CRNN`` -> softmax after the first ``ctc_time_slice`` frames ->
-``ctc_greedy_decode`` -> text. Beam search and per-character alignment come
-with the slice that ports them (ROADMAP queue 1, item 11).
+``CRNN`` -> softmax after the first ``ctc_time_slice`` frames -> decode ->
+text. Decode modes, all on the predictor's device unless noted:
+
+* greedy (the default): ``ops.ctc.ctc_greedy_decode``; the score is
+  ``neg_sum_logits``.
+* beam: the TF-exact beam (``ops/ctc_beam_device.py``), with
+  ``top_paths`` candidates; or ``exact_tf=True``, the host C++ decoder of
+  the same semantics (``native/ctc_beam_tf.cc``).
+* ``alignments=True``: per-character pixel spans (``CharSpan``) of the
+  returned text: the greedy path's argmax runs, or the beam's top path
+  force-aligned (``ops.ctc.ctc_forced_alignment``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +27,7 @@ from crnn_ocr_torch.config import ModelConfig
 from crnn_ocr_torch.data.codec import LabelCodec
 from crnn_ocr_torch.models.crnn import CRNN
 from crnn_ocr_torch.ops import ctc
+from crnn_ocr_torch.ops.ctc_beam_exact import ctc_beam_search_decode_exact
 from crnn_ocr_torch.ops.preprocess import pack_canvas, preprocess_batch
 
 
@@ -37,7 +46,21 @@ def resolve_device(device="cuda") -> torch.device:
 class Prediction:
     text: str
     score: float
+    candidates: Optional[List[Tuple[str, float]]] = None
     latency_ms: Optional[float] = None
+    spans: Optional[list] = None  # List[CharSpan] when alignments=True
+
+
+@dataclasses.dataclass
+class CharSpan:
+    """One decoded character in the ORIGINAL image: the horizontal extent of
+    its frames, mapped back through the resize and the conv downsample,
+    and the peak softmax probability inside them."""
+
+    char: str
+    x0: int  # inclusive, original-image pixel column
+    x1: int  # exclusive
+    conf: float
 
 
 class Predictor:
@@ -104,15 +127,67 @@ class Predictor:
         )
         return probs, input_len
 
-    def decode(self, probs: torch.Tensor,
-               input_len: torch.Tensor) -> List[Prediction]:
-        """Greedy CTC decode on the device, then labels to text on the
-        host."""
-        decoded, score = ctc.ctc_greedy_decode(probs, input_len)
-        rows = ctc.trim_dense(decoded.cpu())
-        scores = score[:, 0].cpu().tolist()
-        return [Prediction(text=self.codec.labels_to_text(row), score=s)
-                for row, s in zip(rows, scores)]
+    @property
+    def default_merge_repeated(self) -> bool:
+        """The beam's output merge keyed on the model's provenance: migrated
+        Keras artifacts keep ``K.ctc_decode`` parity (TF-V1 merge, which
+        collapses double letters); models trained by this framework
+        ("native", every bundled model) get standard CTC (no merge)."""
+        return self.cfg.provenance == "keras_migrated"
+
+    def decode_dense(
+        self,
+        probs: torch.Tensor,
+        input_len: torch.Tensor,
+        greedy: bool = True,
+        beam_width: int = 10,
+        top_paths: int = 1,
+        merge_repeated: Optional[bool] = None,
+        exact_tf: bool = False,
+    ):
+        """(decoded_list, scores): ``top_paths`` dense (B, T) int32 label
+        tensors padded with -1 (greedy: one) on the probabilities' device
+        (``exact_tf``: decoded on the host, moved there), and (B, paths)
+        scores as a numpy array."""
+        if greedy:
+            decoded, score = ctc.ctc_greedy_decode(probs, input_len)
+            return [decoded], score.cpu().numpy()
+        if merge_repeated is None:
+            merge_repeated = self.default_merge_repeated
+        if exact_tf:
+            dense, scores = ctc_beam_search_decode_exact(
+                probs.float().cpu().numpy(), input_len.cpu().numpy(),
+                beam_width=beam_width, top_paths=top_paths,
+                merge_repeated=merge_repeated)
+            # the device beam's layout: width T, so both beam paths hand the
+            # aligner the same shape
+            T = probs.shape[1]
+            return [torch.nn.functional.pad(torch.from_numpy(d),
+                                            (0, T - d.shape[1]), value=-1)
+                    .to(probs.device) for d in dense], scores
+        decoded_list, scores = ctc.ctc_decode(
+            probs, input_len, greedy=False, beam_width=beam_width,
+            top_paths=top_paths, merge_repeated=merge_repeated)
+        return decoded_list, scores.cpu().numpy()
+
+    def decode(self, probs: torch.Tensor, input_len: torch.Tensor,
+               **decode_kw) -> List[Prediction]:
+        """Decode on the device (greedy, or beam with ``decode_kw`` as
+        :meth:`predict`'s), then labels to text on the host."""
+        return self._predictions(*self.decode_dense(probs, input_len,
+                                                    **decode_kw))
+
+    def _predictions(self, decoded_list, scores) -> List[Prediction]:
+        rows_per_path = [ctc.trim_dense(d.cpu()) for d in decoded_list]
+        out = []
+        for b in range(scores.shape[0]):
+            cands = [(self.codec.labels_to_text(rows[b]),
+                      float(scores[b, min(p, scores.shape[1] - 1)]))
+                     for p, rows in enumerate(rows_per_path)]
+            out.append(Prediction(
+                text=cands[0][0], score=cands[0][1],
+                candidates=cands if len(cands) > 1 else None))
+        return out
 
     @torch.inference_mode()
     def predict_probs(
@@ -127,22 +202,119 @@ class Predictor:
         self,
         images: Sequence[np.ndarray],
         greedy: bool = True,
+        beam_width: int = 10,
+        top_paths: int = 1,
+        merge_repeated: Optional[bool] = None,
+        exact_tf: bool = False,
         timing: bool = False,
         bucket: Optional[int] = None,
+        alignments: bool = False,
     ) -> List[Prediction]:
-        if not greedy:
-            raise NotImplementedError(
-                "beam search is not ported yet: it comes with the slice "
-                "that ports beam search and alignment (ROADMAP queue 1, "
-                "item 11)"
-            )
+        """Texts and scores of ``images``; with ``greedy=False`` the
+        TF-exact beam (``beam_width``; ``top_paths`` > 1 fills
+        ``candidates``; ``exact_tf`` decodes on the host). ``merge_repeated``
+        (beam only): True is the Keras/TF-V1 output merge, False standard
+        CTC, None :attr:`default_merge_repeated`. ``alignments=True`` fills
+        ``spans`` from the same forward pass: the greedy path's argmax runs,
+        or the beam's top path force-aligned, so spans always describe the
+        returned text."""
         t0 = time.perf_counter()
-        out = self.decode(*self.predict_probs(images, bucket=bucket))
-        if timing:
-            per_line = (time.perf_counter() - t0) * 1e3 / len(out)
-            for p in out:
-                p.latency_ms = per_line
+        bucket = self.resolve_bucket(images, bucket)
+        probs, input_len = self.predict_probs(images, bucket=bucket)
+        decoded_list, scores = self.decode_dense(
+            probs, input_len, greedy=greedy, beam_width=beam_width,
+            top_paths=top_paths, merge_repeated=merge_repeated,
+            exact_tf=exact_tf)
+        spans_rows = None
+        if alignments and greedy:
+            spans_rows = self._spans_rows(
+                images, bucket, *ctc.ctc_greedy_alignment(probs, input_len))
+        elif alignments:
+            dec = decoded_list[0]
+            spans_rows = self._spans_rows(
+                images, bucket, dec,
+                *ctc.ctc_forced_alignment(probs, input_len,
+                                          torch.clamp(dec, min=0),
+                                          (dec >= 0).sum(1))[:3])
+        out = self._predictions(decoded_list, scores)
+        per_line = (time.perf_counter() - t0) * 1e3 / len(out)
+        for b, p in enumerate(out):
+            p.latency_ms = per_line if timing else None
+            p.spans = spans_rows[b] if spans_rows is not None else None
         return out
 
     def predict_text(self, images: Sequence[np.ndarray], **kw) -> List[str]:
         return [p.text for p in self.predict(images, **kw)]
+
+    def predict_with_alignment(
+        self, images: Sequence[np.ndarray], bucket: Optional[int] = None
+    ) -> List[List[CharSpan]]:
+        """Greedy decode with per-character localization: one ``CharSpan``
+        list per image, whose chars join to ``predict_text(greedy=True)``'s
+        text at the same bucket."""
+        bucket = self.resolve_bucket(images, bucket)
+        probs, input_len = self.predict_probs(images, bucket=bucket)
+        return self._spans_rows(
+            images, bucket, *ctc.ctc_greedy_alignment(probs, input_len))
+
+    def _spans_rows(self, images, bucket, labels, starts, ends,
+                    confs) -> List[List[CharSpan]]:
+        """Alignment tensors -> per-image ``CharSpan`` lists in original-image
+        pixel columns (``crnn_ocr_tpu/infer/predictor.py:313``)."""
+        labels, starts, ends, confs = (t.cpu().numpy() for t in
+                                       (labels, starts, ends, confs))
+        ds = self.cfg.width_downsample
+        sl = self.cfg.ctc_time_slice
+        out: List[List[CharSpan]] = []
+        for b, img in enumerate(images):
+            h, w = img.shape[:2]
+            # preprocessing clamps the resized width to the bucket, so a
+            # resized column maps back by w / w_new
+            w_new = min(int(round(w * self.cfg.height / h)), bucket)
+            scale = ds * w / max(w_new, 1)
+            spans = []
+            for j in range(labels.shape[1]):
+                lab = int(labels[b, j])
+                if lab < 0 or starts[b, j] < 0:
+                    break
+                # frame boundary k maps to floor((k + sl) * scale) on both
+                # sides, so adjacent runs' spans tile without overlap
+                x0 = int(np.floor((starts[b, j] + sl) * scale))
+                x1 = int(np.floor((ends[b, j] + 1 + sl) * scale))
+                x0 = min(x0, max(w - 1, 0))
+                x1 = min(max(x1, x0 + 1), w)
+                spans.append(CharSpan(char=self.codec.labels_to_text([lab]),
+                                      x0=x0, x1=x1, conf=float(confs[b, j])))
+            out.append(spans)
+        return out
+
+
+def decode_predict_ctc(
+    out,
+    input_length=None,
+    top_paths: int = 1,
+    beam_width: int = 10,
+    codec: Optional[LabelCodec] = None,
+    merge_repeated: bool = True,
+    device="cuda",
+):
+    """Reference-parity free function (``crnn_ocr_tpu/infer/predictor.py:
+    446``): beam-decode (B, T, C) softmax outputs ``out`` on ``device`` to
+    label sequences, or to texts when a codec is given. Returns (paths or
+    texts, indexed [p][b] or [b][p], and (B, top_paths) numpy scores)."""
+    dev = resolve_device(device)
+    out = torch.as_tensor(out).to(dev)
+    B, T, _ = out.shape
+    if input_length is None:
+        input_length = torch.full((B,), T, dtype=torch.int64)
+    decoded_list, scores = ctc.ctc_decode(
+        out, torch.as_tensor(input_length).to(dev), greedy=False,
+        beam_width=beam_width, top_paths=top_paths,
+        merge_repeated=merge_repeated)
+    paths = [ctc.trim_dense(d.cpu()) for d in decoded_list]
+    scores = scores.cpu().numpy()
+    if codec is None:
+        return paths, scores
+    texts = [[codec.labels_to_text(paths[p][b]) for p in range(top_paths)]
+             for b in range(B)]
+    return texts, scores

@@ -25,7 +25,10 @@ bit to each other), and K12's d_img to 1e-5 + 1e-5 * |value| (shared-memory
 atomics add a pixel's terms in no fixed order); the training stem's sums (K8, K9, K10) to 1e-5 of the sum of their
 terms' magnitudes plus 1e-6 (f32 sums of up to B * H * W terms in other
 orders), and its autograd Function on the card against the CPU as
-``tests/test_torch_stem_train.py`` holds the CPU to JAX. TF32 is off.
+``tests/test_torch_stem_train.py`` holds the CPU to JAX; the beam search
+(plain PyTorch, no kernel) on the card against the CPU: labels equal,
+scores rtol 1e-5 / atol 1e-6 (f32 ``log``/``exp`` ulps), and greedy and
+forced alignment to rtol 1e-6. TF32 is off.
 """
 
 import collections
@@ -803,3 +806,52 @@ def test_fused_stem_train_on_card_matches_cpu(card, dtype):
     for a, b in zip(grads[1], grads[0]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
                                    atol=tol * float(b.abs().max()))
+
+
+def _beam_batch(kind: str, rng):
+    B, T, C = 32, 40, 63
+    if kind == "ties":  # quantized logits: exact ties across labels
+        logits = np.round(rng.normal(size=(B, T, C)) * 2) / 2
+    elif kind == "flat":  # near-uniform: the bound and exact tiers
+        logits = np.log1p(0.05 * rng.random((B, T, C)))
+    else:  # peaked, as a trained model's frames
+        logits = 8 * rng.random((B, T, C))
+    p = np.exp(logits - logits.max(-1, keepdims=True)).astype(np.float32)
+    p /= p.sum(-1, keepdims=True)
+    return (torch.from_numpy(p.astype(np.float32)),
+            torch.from_numpy(rng.integers(1, T + 1, (B,))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["peaked", "flat", "ties"])
+@pytest.mark.parametrize("merge", [True, False])
+def test_beam_on_card_matches_cpu(card, kind, merge):
+    """The TF-exact beam on CUDA against the same beam on the CPU: labels
+    equal (CUDA's stable sorts break ties as the CPU's), scores within
+    rtol 1e-5 (f32 log and exp differ by ulps between the two)."""
+    from crnn_ocr_torch.ops.ctc_beam_device import ctc_beam_search_decode_tf
+
+    probs, il = _beam_batch(kind, np.random.default_rng(15))
+    out = [ctc_beam_search_decode_tf(probs.to(dev), il.to(dev), beam_width=10,
+                                     top_paths=3, merge_repeated=merge)
+           for dev in ("cpu", card)]
+    assert out[1][0].device.type == torch.device(card).type
+    np.testing.assert_array_equal(out[1][0].cpu().numpy(), out[0][0].numpy())
+    np.testing.assert_allclose(out[1][1].cpu().numpy(), out[0][1].numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_alignment_on_card_matches_cpu(card):
+    from crnn_ocr_torch.ops import ctc as tctc
+
+    probs, il = _beam_batch("peaked", np.random.default_rng(16))
+    dec, _ = tctc.ctc_greedy_decode(probs, il)
+    labels, ll = dec.clamp(min=0), (dec >= 0).sum(1)
+    for fn, args in ((tctc.ctc_greedy_alignment, (probs, il)),
+                     (tctc.ctc_forced_alignment, (probs, il, labels, ll))):
+        want = fn(*args)
+        got = fn(*(a.to(card) for a in args))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-6,
+                                       atol=0)

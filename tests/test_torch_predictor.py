@@ -90,9 +90,11 @@ def test_bucket_routing_matches_jax():
 
 
 def test_entry_points_refuse_what_is_not_ported():
+    """A model the port does not have raises; beam decoding, once refused
+    here, is ported (``tests/test_torch_beam.py`` holds it to JAX)."""
     pred = load_pretrained("fonts-small", device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        pred.predict([np.full((32, 40), 255, np.uint8)], greedy=False)
+    out = pred.predict([np.full((32, 40), 255, np.uint8)], greedy=False)
+    assert len(out) == 1 and isinstance(out[0].text, str)
     with pytest.raises(NotImplementedError, match="not available"):
         load_pretrained("nope", device="cpu")
 

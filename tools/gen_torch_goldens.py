@@ -78,9 +78,33 @@ seeded_rnn_params``, seed 0; ``infer/pretrained.py::VARIANTS``), on the 64
 * ``train/...``: one f32 train step as ``--train`` writes it (dropout 0,
   the lines repeated to 128, bucket 256, labels padded to 32).
 
+``--beam`` writes ``crnn_ocr_torch/testdata/beam_goldens.npz``: the JAX
+package's beam search and alignment on the committed greedy goldens' lines
+(64 each of ``hard`` and ``small``), under the prefix ``hard_`` or
+``small_``:
+
+* ``probs`` (64, T, C) and ``input_len`` (64,): the JAX f32 predictor's
+  probabilities at ``bucket`` (the bucket the batch resolves to);
+* ``beam_m1_decoded``/``beam_m1_scores`` and ``beam_m0_...``: the device
+  beam (``ops/ctc_beam_device.py::ctc_beam_search_decode_tf``) on them, W
+  ``BEAM_WIDTH``, ``TOP_PATHS`` paths, ``merge_repeated`` True (m1) and
+  False (m0); decoded (TOP_PATHS, 64, T) int16;
+* ``greedy_align_{labels,starts,ends,confs}``: ``ctc_greedy_alignment``;
+* ``forced_{starts,ends,confs,feasible}``: ``ctc_forced_alignment`` of the
+  m0 beam's top path (``merge_repeated=False``, the bundled models'
+  default);
+
+and, for ``fonts-hard`` only, its predictor's ``predict(greedy=False,
+alignments=True)``: ``hard_pred_texts_f32``/``hard_pred_scores_f32`` and
+its spans (``hard_pred_spans_f32`` (N, 3) int32: line, x0, x1, with
+``hard_pred_span_chars_f32`` and ``hard_pred_span_confs_f32``) in f32, and
+``hard_pred_texts_bf16``/``hard_pred_scores_bf16`` as shipped (bf16, both
+Pallas serve kernels in interpret mode). About a minute.
+
 Run from the repo root (several minutes on the CPU):
 
-    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py [--train | --stn | --lstm]
+    JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py \
+        [--train | --stn | --lstm | --beam]
 """
 
 from __future__ import annotations
@@ -99,6 +123,9 @@ TRAIN_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
 STN_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata", "stn_goldens.npz")
 LSTM_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                         "lstm_goldens.npz")
+BEAM_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                        "beam_goldens.npz")
+BEAM_WIDTH, TOP_PATHS = 10, 3
 LSTM_NAME = "fonts-hard-lstm"
 LSTM_PROBS = 8  # lines whose probabilities lstm_goldens.npz keeps
 TRAIN_BATCH, TRAIN_BUCKET, TRAIN_MAX_LABEL = 128, 256, 32
@@ -365,6 +392,63 @@ def write_lstm_goldens() -> None:
     print(f"wrote {LSTM_OUT} ({os.path.getsize(LSTM_OUT)} bytes)")
 
 
+def write_beam_goldens() -> None:
+    import jax.numpy as jnp
+
+    from crnn_ocr_tpu.ops import ctc
+    from crnn_ocr_tpu.ops.ctc_beam_device import ctc_beam_search_decode_tf
+
+    g = np.load(OUT)
+    arrays = {}
+    for key, task in TASKS.items():
+        images = [g[f"{key}_canvas"][i, :h, :w] for i, (h, w) in
+                  enumerate(zip(g[f"{key}_heights"], g[f"{key}_widths"]))]
+        pred, _ = jax_predictor(task["model"], "float32", False)
+        bucket = pred.resolve_bucket(images)
+        probs, in_len = pred.predict_probs(images, bucket=bucket)
+        arrays[f"{key}_probs"] = np.asarray(probs, np.float32)
+        arrays[f"{key}_input_len"] = np.asarray(in_len, np.int32)
+        arrays[f"{key}_bucket"] = np.array(bucket)
+        for merge in (1, 0):
+            dec, sc = ctc_beam_search_decode_tf(
+                probs, in_len, beam_width=BEAM_WIDTH, top_paths=TOP_PATHS,
+                merge_repeated=bool(merge))
+            arrays[f"{key}_beam_m{merge}_decoded"] = np.asarray(dec, np.int16)
+            arrays[f"{key}_beam_m{merge}_scores"] = np.asarray(sc)
+        for name, v in zip(("labels", "starts", "ends", "confs"),
+                           ctc.ctc_greedy_alignment(probs, in_len)):
+            arrays[f"{key}_greedy_align_{name}"] = np.asarray(v)
+        top = jnp.asarray(arrays[f"{key}_beam_m0_decoded"][0], jnp.int32)
+        for name, v in zip(("starts", "ends", "confs", "feasible"),
+                           ctc.ctc_forced_alignment(
+                               probs, in_len, jnp.maximum(top, 0),
+                               jnp.sum(top >= 0, axis=1))):
+            arrays[f"{key}_forced_{name}"] = np.asarray(v)
+        if key != "hard":
+            continue
+        for dtype, pallas, tag in (("float32", False, "f32"),
+                                   ("bfloat16", True, "bf16")):
+            pred, _ = jax_predictor(task["model"], dtype, pallas)
+            out = pred.predict(images, greedy=False, alignments=True)
+            arrays[f"hard_pred_texts_{tag}"] = np.array([p.text for p in out])
+            arrays[f"hard_pred_scores_{tag}"] = np.array(
+                [p.score for p in out], np.float32)
+            if tag == "f32":
+                spans = [(i, s) for i, p in enumerate(out) for s in p.spans]
+                arrays["hard_pred_spans_f32"] = np.array(
+                    [(i, s.x0, s.x1) for i, s in spans], np.int32)
+                arrays["hard_pred_span_chars_f32"] = np.array(
+                    [s.char for _, s in spans])
+                arrays["hard_pred_span_confs_f32"] = np.array(
+                    [s.conf for _, s in spans], np.float32)
+        diff = sum(a != b for a, b in zip(arrays["hard_pred_texts_bf16"],
+                                          arrays["hard_pred_texts_f32"]))
+        print(f"fonts-hard beam bf16 (Pallas interpret) vs f32: {diff} "
+              "lines differ")
+    np.savez_compressed(BEAM_OUT, **arrays)
+    print(f"wrote {BEAM_OUT} ({os.path.getsize(BEAM_OUT)} bytes)")
+
+
 def main() -> int:
     import jax
 
@@ -377,6 +461,9 @@ def main() -> int:
         return 0
     if "--lstm" in sys.argv[1:]:
         write_lstm_goldens()
+        return 0
+    if "--beam" in sys.argv[1:]:
+        write_beam_goldens()
         return 0
     arrays = golden_lines({}, TASKS)
     bf16_golden(arrays, "hard", "fonts-hard")
