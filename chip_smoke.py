@@ -203,6 +203,41 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     and both at B 16; the tier mix (``ctc_beam_tier_stats``); the C++
     decoder's time on the same probabilities; phase 4's greedy numbers.
 
+26. The serving daemon, reference artifacts and the CLIs (no kernel of
+    their own): (a) ``fonts-hard`` in f32 behind ``OCRServer(port=0,
+    max_batch=32, max_wait_ms=20)``, the 64 golden lines posted as ``.npy``
+    from 16 client threads at once, greedy, by beam (W 10, one path, the
+    provenance-keyed merge) and greedy with alignments: each reply against
+    JAX's output for its line on the canvas its batch gave it
+    (``serve_goldens.npz``'s ``cond_*``, written by ``tools/
+    gen_torch_goldens.py --serve``; a line whose height or width lies on
+    the canvas ladder reads its batch's padding only when it is not the
+    batch's tallest or widest, ``canvas_variants``), texts and spans equal,
+    scores rtol 1e-4 / atol 1e-5, confidences within 1e-4; ``/healthz``,
+    ``/stats`` (64 requests), ``/metrics`` and a garbage payload's 400;
+    ``predict_many`` against JAX's ``predict_many``; (b) ``fonts-hard`` as
+    shipped (bf16) behind ``OCRServer(max_batch=256, max_wait_ms=5)``
+    after ``batcher.warmup()`` (timed), the launch counts set to 0, then
+    the 64 lines 32 times from 64 client threads: K1 launches equal the
+    batcher's batches (all on ``"mma"``) and K2 twice that (all
+    ``"resident"``), every reply one of its line's texts alone through
+    ``Predictor.predict`` on each canvas it can meet (at most one reply in
+    64 off); req/s, client and server p50/p95, mean batch size, padded
+    rows, launches by design and the device's idle share over a profiled
+    window of 512 more requests; the same by beam (W 10, 8 times the
+    lines, no trace); (c) ``init_predictor`` of ``tests/goldens/
+    migration_autonamed{,_stn}`` on the card: the forward on ``io.npz``'s
+    input (f32) against Keras's output at rtol 1e-4 / atol 2e-5, its
+    launches (K1 once, K2 once, K11 once with the STN); (d) ``python -m
+    crnn_ocr_torch.cli.serve --pretrained fonts-hard --port 0 --max_batch
+    64`` as a subprocess, 512 requests from this process's threads,
+    ``/metrics``, SIGTERM: rc 0, ``shutting down``, every reply 200, at
+    most one line off (b)'s; its req/s; (e) where ``cv2`` imports,
+    ``cli.predict.main`` on the lines as PNGs with ``--annotation`` and
+    ``--validate`` (rows equal to ``predict_many``'s, at most one line off
+    (a)'s f32 texts), else a ``{"phase": "predict_cli", "cv2": false}``
+    line and ``predict_many`` alone.
+
 Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24, 25) requires
 each recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
@@ -2876,6 +2911,561 @@ def phase_beam(card: str, g, greedy_serve: dict) -> None:
          seconds=secs, card=card)
 
 
+# ---- slice 16: the serving daemon, reference artifacts and the CLIs ----
+
+SERVE_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                             "serve_goldens.npz")
+MIGRATIONS = ("migration_autonamed", "migration_autonamed_stn")
+# phase 26's counted daemon: 64 clients, each of the 64 golden lines
+# DAEMON_REPEATS times (greedy) and BEAM_DAEMON_REPEATS times (beam); the
+# profiled window's requests; the serve CLI's requests (the lines repeated)
+DAEMON_CLIENTS, DAEMON_REPEATS, BEAM_DAEMON_REPEATS = 64, 32, 8
+TRACE_REQUESTS, CLI_REPEATS = 512, 8
+
+
+def canvas_variants(image) -> list:
+    """The canvases a line can meet in a batch, as (pad_h, pad_w): the
+    canvas is the batch's largest height and width snapped up
+    ``quantize_dim``'s ladder (``pack_canvas(quantize=True)``), and the
+    resize reads the canvas's first row and column past the line when there
+    is one (white). So a line is padded on both axes unless its height or
+    width lies on the ladder and it is the batch's tallest or widest."""
+    from crnn_ocr_torch.ops.preprocess import quantize_dim
+
+    h, w = image.shape[:2]
+    hs = [True] + ([False] if quantize_dim(h) == h else [])
+    ws = [True] + ([False] if quantize_dim(w) == w else [])
+    return [(ph, pw) for ph in hs for pw in ws]
+
+
+def padded_batch(image, pad_h: bool, pad_w: bool) -> list:
+    """``[image, filler]``: a white filler that gives the line the canvas
+    ``(pad_h, pad_w)`` names (one of ``canvas_variants(image)``)."""
+    import numpy as np
+
+    h, w = image.shape[:2]
+    return [image, np.full((h + 1 if pad_h else 1, w + 1 if pad_w else 1),
+                           255, np.uint8)]
+
+
+def batch_padding(images) -> list:
+    """Each image's (pad_h, pad_w) in a batch of ``images``."""
+    from crnn_ocr_torch.ops.preprocess import quantize_dim
+
+    Hm = quantize_dim(max(im.shape[0] for im in images))
+    Wm = quantize_dim(max(im.shape[1] for im in images))
+    return [(im.shape[0] < Hm, im.shape[1] < Wm) for im in images]
+
+
+class PaddingLog:
+    """Wraps a predictor's ``predict`` (the batcher's one call into it) to
+    record each image's canvas padding, keyed by its bytes: a daemon's
+    batches are whatever arrived together, and a line's canvas is theirs."""
+
+    def __init__(self, pred):
+        self.seen: dict = {}
+        self._predict = pred.predict
+        pred.predict = self
+
+    def __call__(self, images, **kw):
+        for im, pad in zip(images, batch_padding(images)):
+            self.seen[(im.shape, im.tobytes())] = pad
+        return self._predict(images, **kw)
+
+    def of(self, image):
+        return self.seen[(image.shape, image.tobytes())]
+
+
+def npy_payload(img) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, img)
+    return buf.getvalue()
+
+
+def post(url: str, data: bytes, timeout: float = 120.0):
+    """One POST: (status, JSON body, client ms). An HTTP error's status and
+    body come back too; other failures raise."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=data, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, json.loads(body), (time.perf_counter() - t0) * 1e3
+
+
+def get(url: str, timeout: float = 30.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read().decode()
+
+
+def fire(url: str, payloads, clients: int) -> dict:
+    """``payloads`` posted to ``url`` by ``clients`` threads at once, each
+    taking the next payload when its reply is in: the replies in order,
+    each request's client ms, and the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as ex:
+        out = list(ex.map(lambda p: post(url, p), payloads))
+    wall = time.perf_counter() - t0
+    return dict(replies=[(s, b) for s, b, _ in out],
+                client_ms=[ms for _, _, ms in out], wall_s=wall)
+
+
+def client_fields(run: dict) -> dict:
+    import numpy as np
+
+    ms = np.asarray(run["client_ms"])
+    return dict(requests=len(ms), req_per_s=len(ms) / run["wall_s"],
+                wall_s=run["wall_s"],
+                client_p50_ms=float(np.percentile(ms, 50)),
+                client_p95_ms=float(np.percentile(ms, 95)))
+
+
+def variant_of(sg, log, lines) -> list:
+    """Each line's row of ``serve_goldens.npz``'s ``cond_*`` arrays: the
+    canvas ``log`` (a ``PaddingLog``) saw it in."""
+    index = {(int(i), bool(h), bool(w)): k for k, (i, h, w) in enumerate(
+        zip(sg["cond_line"], sg["cond_pad_h"], sg["cond_pad_w"]))}
+    return [index[(i, *log.of(im))] for i, im in enumerate(lines)]
+
+
+def reply_gate(replies, texts, scores, rtol: float, atol: float) -> dict:
+    """Replies (all 200) against per-line texts (equal) and scores."""
+    import numpy as np
+
+    require(all(s == 200 for s, _ in replies),
+            f"replies not all 200: {[s for s, _ in replies if s != 200]}")
+    got_t = [b["text"] for _, b in replies]
+    bad = [(i, a, str(b)) for i, (a, b) in enumerate(zip(got_t, texts))
+           if a != str(b)]
+    fields = _tolerance_fields([b["score"] for _, b in replies], scores,
+                               rtol, atol)
+    return dict(lines=len(replies), text_mismatches=bad,
+                max_score_rel_err=fields["max_rel_err"],
+                scores_ok=fields["ok"])
+
+
+def daemon_gates(g, sg) -> list:
+    """Phase 26 (a): ``fonts-hard`` in f32 behind the daemon, the 64 lines
+    from 16 client threads at once, greedy, then by beam, then greedy with
+    alignments: each reply against JAX's output for its line on the canvas
+    its batch gave it (``serve_goldens.npz``'s ``cond_*``; texts and spans
+    equal, scores rtol 1e-4 / atol 1e-5, confidences within 1e-4); then
+    ``predict_many`` against JAX's ``predict_many``. Returns the greedy
+    daemon's texts."""
+    import numpy as np
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.serve import OCRServer
+
+    lines = golden_lines(g, "hard")
+    payloads = [npy_payload(im) for im in lines]
+    pred = load_pretrained("fonts-hard", device="cuda", dtype="float32")
+    buckets = [pred.bucket_for(im) for im in lines]
+    require(buckets == sg["bucket"].tolist(),
+            "bucket_for differs from JAX's on the golden lines")
+    merge = pred.default_merge_repeated  # the serve CLI's default
+    modes = (("greedy", {}), ("beam", dict(
+        greedy=False, beam_width=10, top_paths=1, merge_repeated=merge)),
+        ("greedy_align", {"greedy": True, "alignments": True}))
+    log = PaddingLog(pred)
+    out, texts = {}, None
+    for mode, kw in modes:
+        log.seen.clear()
+        srv = OCRServer(pred, host="127.0.0.1", port=0, max_batch=32,
+                        max_wait_ms=20, decode_kw=kw).start()
+        try:
+            base = f"http://127.0.0.1:{srv.port}"
+            run = fire(base + "/predict", payloads, 16)
+            snap = srv.batcher.stats.snapshot()
+            key = "beam" if mode == "beam" else "greedy"
+            ks = variant_of(sg, log, lines)
+            gate = reply_gate(run["replies"], sg[f"cond_{key}_texts_f32"][ks],
+                              sg[f"cond_{key}_scores_f32"][ks], 1e-4, 1e-5)
+            res = dict(gate, batches=snap["batches"],
+                       mean_batch_size=snap["mean_batch_size"],
+                       unpadded_lines=sum(not (sg["cond_pad_h"][k]
+                                               and sg["cond_pad_w"][k])
+                                          for k in ks),
+                       **client_fields(run))
+            if mode == "greedy":
+                texts = [b["text"] for _, b in run["replies"]]
+                res["healthz"] = json.loads(get(base + "/healthz")[2])
+                stats = json.loads(get(base + "/stats")[2])
+                _, ctype, metrics = get(base + "/metrics")
+                status, body, _ = post(base + "/predict", b"garbage")
+                res.update(stats=stats, garbage_status=status,
+                           garbage_error=body.get("error"))
+                require(res["healthz"] == {"ok": True}
+                        and stats["requests"] == 64
+                        and ctype.startswith("text/plain")
+                        and "ocr_requests_total 64" in metrics
+                        and status == 400,
+                        f"daemon endpoints: {res}, {metrics!r}")
+            if mode == "greedy_align":
+                spans = [(i, s) for i, (_, b) in enumerate(run["replies"])
+                         for s in b["alignments"]]
+                got = [(i, s["char"], s["x0"], s["x1"]) for i, s in spans]
+                line_of = {k: i for i, k in enumerate(ks)}
+                rows = [j for j, k in enumerate(sg["cond_align_spans_f32"]
+                                                [:, 0]) if k in line_of]
+                rows.sort(key=lambda j: line_of[
+                    sg["cond_align_spans_f32"][j, 0]])
+                want = [(line_of[int(k)], str(sg["cond_align_chars_f32"][j]),
+                         int(x0), int(x1)) for j, (k, x0, x1) in
+                        ((j, sg["cond_align_spans_f32"][j]) for j in rows)]
+                conf_err = np.abs(np.array([s["conf"] for _, s in spans])
+                                  - sg["cond_align_confs_f32"][rows]) if (
+                    len(spans) == len(want)) else np.array([np.inf])
+                res.update(spans=len(got), spans_equal=got == want,
+                           max_conf_err=float(conf_err.max(initial=0.0)))
+        finally:
+            srv.stop()
+        out[mode] = res
+        emit("daemon_gate", mode=mode, **res)
+        require(not res["text_mismatches"] and res["scores_ok"],
+                f"daemon {mode} f32 differs from JAX's predict_many")
+        require(mode != "greedy_align" or (res["spans_equal"]
+                                           and res["max_conf_err"] <= 1e-4),
+                "daemon alignments differ from JAX's")
+    many = pred.predict_many(lines, batch_size=64)
+    out["predict_many"] = reply_gate([(200, {"text": p.text,
+                                             "score": p.score})
+                                      for p in many],
+                                     sg["greedy_texts_f32"],
+                                     sg["greedy_scores_f32"], 1e-4, 1e-5)
+    require(not out["predict_many"]["text_mismatches"]
+            and out["predict_many"]["scores_ok"],
+            "predict_many f32 differs from JAX's")
+    emit("daemon_gates", model="fonts-hard", dtype="float32", clients=16,
+         max_batch=32, max_wait_ms=20, beam_merge_repeated=merge,
+         buckets=dict(collections.Counter(buckets)),
+         predict_many=out["predict_many"])
+    return texts
+
+
+def daemon_counted(card: str, g, decode_kw: dict, repeats: int,
+                   detail: bool) -> dict:
+    """Phase 26 (b): ``fonts-hard`` as shipped (bf16) behind
+    ``OCRServer(max_batch=256, max_wait_ms=5)``, after ``batcher.warmup()``;
+    the launch counts set to 0, then the 64 lines ``repeats`` times from 64
+    client threads: K1 once (``"mma"``) and K2 twice (``"resident"``) per
+    batch, every reply's text one of ``reference_texts``' for its line (the
+    line alone through ``Predictor.predict`` on the same predictor, on each
+    canvas it can meet) with at most one reply in 64 off; req/s, client and
+    server percentiles, mean batch size, padded rows, launches by design,
+    and (``detail``) the device's idle share over a profiled window of
+    further requests and ``daemon_split``'s."""
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.kernels import bigru, fused_stem
+    from crnn_ocr_torch.serve import OCRServer
+
+    lines = golden_lines(g, "hard")
+    payloads = [npy_payload(im) for im in lines]
+    pred = load_pretrained("fonts-hard", device="cuda")
+    srv = OCRServer(pred, host="127.0.0.1", port=0, max_batch=256,
+                    max_wait_ms=5, decode_kw=decode_kw)
+    t0 = time.perf_counter()
+    srv.batcher.warmup()
+    torch_sync()
+    warmup_s = time.perf_counter() - t0
+    srv.start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}/predict"
+        reset_launches()
+        run = fire(url, payloads * repeats, DAEMON_CLIENTS)
+        counts = read_launches()
+        snap = srv.batcher.stats.snapshot()
+        designs = {f"{d.name} C{d.cluster} R{d.rows}": n
+                   for d, n in bigru.design_launches.items() if n}
+        stem = dict(fused_stem.design_launches)
+        n = snap["batches"]
+        require_launches(counts, {"fused_stem": n, "bigru": 2 * n},
+                         f"daemon ({n} batches)")
+        require(all(k.startswith(PATH_DESIGN["bigru"] + " ")
+                    for k in designs), f"daemon: K2 on {designs}")
+        read_stem_design(counts, "serve", "daemon")
+        trace_fields = {}
+        if detail:
+            sub = (payloads * (TRACE_REQUESTS // len(payloads) + 1))[
+                :TRACE_REQUESTS]
+            summary = _trace_summary(*profiled(
+                lambda: fire(url, sub, DAEMON_CLIENTS)), TRACE_REQUESTS)
+            trace_fields = dict(trace_per_request=summary,
+                                split=daemon_split(srv, pred, lines * repeats,
+                                                   snap["mean_batch_size"]))
+    finally:
+        srv.stop()
+    require(snap["requests"] == len(payloads) * repeats
+            and snap["errors"] == 0, f"daemon stats {snap}")
+    require(all(s == 200 for s, _ in run["replies"]), "daemon: a reply "
+                                                      "was not 200")
+    ref = reference_texts(pred, lines, decode_kw)
+    texts = [b["text"] for _, b in run["replies"]]
+    off = [i for i, t in enumerate(texts) if t not in ref[i % len(lines)]]
+    off_lines = sorted({i % len(lines) for i in off})
+    res = dict(model="fonts-hard", dtype="bfloat16",
+               decode=decode_kw or {"greedy": True},
+               clients=DAEMON_CLIENTS, max_batch=256, max_wait_ms=5,
+               warmup_s=warmup_s, **client_fields(run),
+               server_p50_ms=snap["latency_ms_p50"],
+               server_p95_ms=snap["latency_ms_p95"],
+               batches=n, mean_batch_size=snap["mean_batch_size"],
+               padded_rows=snap["padded_rows"],
+               launches=dict(fused_stem=counts["fused_stem"],
+                             bigru=counts["bigru"]),
+               k2_designs=designs, k1_designs=stem,
+               replies_off_single=len(off), lines_off_single=off_lines,
+               card=card, **trace_fields)
+    emit("daemon_serving", **res)
+    require(len(off) <= len(texts) // 64, f"daemon: {len(off)} replies "
+                                          "differ from single-line predict")
+    return dict(res, reference=ref)
+
+
+def daemon_split(srv, pred, images, mean_batch: float) -> dict:
+    """Where the daemon's time goes: ``images`` through the same batcher
+    without HTTP (``DAEMON_CLIENTS`` threads calling ``predict_sync``), and
+    through ``predict_many`` alone on this thread at the daemon's mean
+    batch (no threads, no window): each one's lines/s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DAEMON_CLIENTS) as ex:
+        list(ex.map(lambda im: srv.batcher.predict_sync(im, timeout=120),
+                    images))
+    direct_s = time.perf_counter() - t0
+    batch = max(1, round(mean_batch))
+    t0 = time.perf_counter()
+    pred.predict_many(images, batch_size=batch)
+    torch_sync()
+    alone_s = time.perf_counter() - t0
+    return dict(requests=len(images),
+                batcher_no_http_req_per_s=len(images) / direct_s,
+                predict_many_lines_per_s=len(images) / alone_s,
+                predict_many_batch=batch)
+
+
+def reference_texts(pred, lines, decode_kw: dict) -> list:
+    """Each line's texts from ``pred.predict`` of the line alone at its
+    bucket, on each canvas it can meet in a batch (``canvas_variants``;
+    the canvas set by a white filler row)."""
+    return [{pred.predict(padded_batch(im, ph, pw),
+                          bucket=pred.bucket_for(im), **decode_kw)[0].text
+             for ph, pw in canvas_variants(im)} for im in lines]
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def migration_on_card() -> dict:
+    """Phase 26 (c): the reference artifact directories through
+    ``init_predictor`` on the card; the forward pass on ``io.npz``'s input
+    (f32, TF32 off) against Keras's output at rtol 1e-4 / atol 2e-5."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch.infer import init_predictor
+    from crnn_ocr_torch.kernels import bigru, fused_stem
+
+    out = {}
+    for name in MIGRATIONS:
+        mig = os.path.join(REPO, "tests", "goldens", name)
+        data = np.load(os.path.join(mig, "io.npz"))
+        pred = init_predictor(mig, device="cuda")
+        reset_launches()
+        with torch.inference_mode():
+            y = torch.softmax(pred.model(torch.from_numpy(
+                data["x"][..., 0]).to(pred.device)), -1).cpu().numpy()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_launches().items() if v}
+        fields = _tolerance_fields(y, data["y"], 1e-4, 2e-5)
+        out[name] = dict(
+            max_abs_err=float(np.abs(y - data["y"]).max()), **fields,
+            default_merge_repeated=pred.default_merge_repeated,
+            width=pred.cfg.width, buckets=list(pred.buckets),
+            n_units=pred.cfg.n_units, launches=counts,
+            k2_designs={f"{d.name} C{d.cluster} R{d.rows}": n
+                        for d, n in bigru.design_launches.items() if n},
+            k1_designs=dict(fused_stem.design_launches))
+        want = {"fused_stem": 1, "bigru": pred.cfg.rnn_layers}
+        if pred.cfg.use_stn:
+            want["grid_sample"] = 1
+        require_launches(counts, want, name)
+        require(fields["ok"] and pred.default_merge_repeated,
+                f"{name} on the card: {out[name]}")
+    emit("migration", shapes="io.npz x (3, 32, 64), f32, TF32 off", **out)
+    return out
+
+
+def serve_cli(g, ref_texts) -> dict:
+    """Phase 26 (d): ``python -m crnn_ocr_torch.cli.serve --pretrained
+    fonts-hard --port 0 --max_batch 64`` as a subprocess (it loads the
+    kernels phase 1 built); the 64 lines ``CLI_REPEATS`` times from 64
+    threads of this process, ``/metrics`` read, then SIGTERM: rc 0,
+    ``shutting down``, every reply 200, texts at most one line in 64 off
+    ``ref_texts`` (each line's set, ``reference_texts``)."""
+    import queue
+    import signal
+    import threading
+
+    lines = golden_lines(g, "hard")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "crnn_ocr_torch.cli.serve", "--pretrained",
+         "fonts-hard", "--port", "0", "--host", "127.0.0.1", "--max_batch",
+         "64"], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    out_lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [out_lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    log = []
+    try:
+        port = None
+        deadline = time.perf_counter() + 300
+        while port is None:
+            ln = out_lines.get(timeout=max(deadline - time.perf_counter(),
+                                           0.1))
+            log.append(ln.rstrip())
+            if ln.startswith("serving on "):
+                port = int(ln.split()[2].split(":")[1])
+        ready_s = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        run = fire(base + "/predict",
+                   [npy_payload(im) for im in lines] * CLI_REPEATS,
+                   DAEMON_CLIENTS)
+        _, _, metrics = get(base + "/metrics")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=30)  # its output's last lines
+        proc.stdout.close()
+    while not out_lines.empty():
+        log.append(out_lines.get_nowait().rstrip())
+    texts = [b["text"] for _, b in run["replies"]]
+    off = sorted({i % len(lines) for i, t in enumerate(texts)
+                  if t not in ref_texts[i % len(lines)]})
+    res = dict(rc=rc, ready_s=ready_s, **client_fields(run),
+               statuses=dict(collections.Counter(s for s, _ in
+                                                 run["replies"])),
+               lines_off=off, metrics=[m for m in metrics.splitlines()
+                                       if not m.startswith("#")],
+               log=[ln for ln in log if ln.startswith(("warmup", "serving",
+                                                        "shutting"))])
+    emit("serve_cli", **res)
+    require(rc == 0 and "shutting down" in log
+            and all(s == 200 for s, _ in run["replies"])
+            and f"ocr_requests_total {len(texts)}" in metrics,
+            f"serve CLI: rc {rc}, log {log[-5:]}")
+    require(len(off) <= 1, f"serve CLI: lines {off} differ")
+    return res
+
+
+def predict_cli(g, f32_texts) -> dict:
+    """Phase 26 (e): where cv2 imports, ``cli.predict.main`` on a temporary
+    directory of the 64 lines as PNGs with ``--annotation`` and
+    ``--validate`` (greedy, as shipped: bf16): its rows equal to
+    ``predict_many``'s texts on the same model and at most one line in 64
+    off (a)'s f32 texts. Without cv2 a line says so, and ``predict_many``
+    runs alone."""
+    import contextlib
+    import io
+    import tempfile
+
+    from crnn_ocr_torch import load_pretrained
+
+    lines = golden_lines(g, "hard")
+    many = [p.text for p in load_pretrained(
+        "fonts-hard", device="cuda").predict_many(lines, batch_size=64)]
+    try:
+        import cv2
+    except ImportError:
+        res = dict(cv2=False, predict_many_lines_off_f32=sum(
+            a != b for a, b in zip(many, f32_texts)))
+        emit("predict_cli", **res)
+        require(res["predict_many_lines_off_f32"] <= 1,
+                "predict_many differs from the f32 texts")
+        return res
+    from crnn_ocr_torch.cli import predict as predict_mod
+
+    truth = [str(t) for t in g["hard_truth"]]
+    with tempfile.TemporaryDirectory() as d:
+        names = [f"l{i:02d}.png" for i in range(len(lines))]
+        for name, im in zip(names, lines):
+            require(cv2.imwrite(os.path.join(d, name), im), "imwrite")
+        with open(os.path.join(d, "annotation.txt"), "w") as f:
+            f.write("\n".join(f"{n}\t{t}" for n, t in zip(names, truth)))
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = predict_mod.main([
+                "--pretrained", "fonts-hard", "--image_dir", d,
+                "--annotation", "annotation.txt", "--validate", "--greedy",
+                "--result", os.path.join(d, "out.tsv")])
+        with open(os.path.join(d, "out.tsv")) as f:
+            rows = [r.split("\t") for r in f.read().splitlines()]
+    texts = [r[1] if len(r) > 1 else "" for r in rows]
+    res = dict(cv2=True, rc=rc, rows=len(rows),
+               names_in_order=[r[0] for r in rows] == names,
+               rows_off_predict_many=sum(a != b for a, b in
+                                         zip(texts, many)),
+               lines_off_f32=sum(a != b for a, b in zip(texts, f32_texts)),
+               stderr=err.getvalue().strip().splitlines())
+    emit("predict_cli", **res)
+    require(rc == 0 and len(rows) == len(lines) and res["names_in_order"]
+            and res["rows_off_predict_many"] == 0
+            and res["lines_off_f32"] <= 1
+            and any(ln.startswith("CER") for ln in res["stderr"]),
+            f"predict CLI: {res}")
+    return res
+
+
+def phase_daemon(card: str, g) -> None:
+    """Phase 26: the serving daemon, reference artifacts and the CLIs."""
+    import numpy as np
+
+    sg = np.load(SERVE_GOLDENS)
+    secs = {}
+    t0 = time.perf_counter()
+
+    def lap(key):
+        nonlocal t0
+        t1 = time.perf_counter()
+        secs[key] = t1 - t0
+        t0 = t1
+
+    f32_texts = daemon_gates(g, sg)
+    lap("gates")
+    greedy = daemon_counted(card, g, {}, DAEMON_REPEATS, detail=True)
+    lap("counted_greedy")
+    daemon_counted(card, g, BEAM_SERVE, BEAM_DAEMON_REPEATS, detail=False)
+    lap("counted_beam")
+    migration_on_card()
+    lap("migration")
+    serve_cli(g, greedy["reference"])
+    lap("serve_cli")
+    predict_cli(g, f32_texts)
+    lap("predict_cli")
+    emit("daemon_seconds", **secs)
+
+
 def main() -> int:
     try:
         import torch
@@ -3040,6 +3630,9 @@ def main() -> int:
 
     # phase 25: serving by beam (no kernel of its own)
     phase_beam(card, g, greedy_serve)
+
+    # phase 26: the serving daemon, reference artifacts and the CLIs
+    phase_daemon(card, g)
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",

@@ -1,4 +1,5 @@
-"""Label codec: text <-> integer labels, and the JSON class map on disk.
+"""Label codec: text <-> integer labels, and the class map on disk (JSON,
+or a reference artifact's pickle).
 
 A copy of ``crnn_ocr_tpu/data/codec.py::LabelCodec`` (the part the
 recognition and training paths use). Blank is always ``num_classes``, the last logit,
@@ -73,5 +74,13 @@ class LabelCodec:
 
     @classmethod
     def load(cls, path: str) -> "LabelCodec":
+        """A JSON class map, or a reference artifact's pickled one
+        (``.pkl``, ``crnn_ocr_tpu/data/codec.py:88-93``). Unpickling runs
+        code: load only class maps from a source you trust."""
+        if path.endswith(".pkl"):
+            import pickle
+
+            with open(path, "rb") as f:
+                return cls(pickle.load(f))
         with open(path) as f:
             return cls(json.load(f))

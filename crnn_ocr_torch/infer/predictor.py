@@ -12,11 +12,17 @@ text. Decode modes, all on the predictor's device unless noted:
 * ``alignments=True``: per-character pixel spans (``CharSpan``) of the
   returned text: the greedy path's argmax runs, or the beam's top path
   force-aligned (``ops.ctc.ctc_forced_alignment``).
+
+The serving surface (``bucket_for``, ``blank_row``, ``warmup``,
+``predict_many``) is what the batcher (``serve/batcher.py``) and the CLIs
+call; ``init_predictor`` loads reference artifacts and
+``predictor_from_cli`` resolves the CLIs' ``--model``/``--pretrained``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -33,12 +39,17 @@ from crnn_ocr_torch.ops.preprocess import pack_canvas, preprocess_batch
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU. Raises when CUDA is asked for and absent; never falls back."""
+    the CPU. Raises when CUDA is asked for and absent; never falls back.
+    A CUDA device without an index gets the current one's, so that work
+    run later on another thread (the serving batcher's worker) lands on
+    the same card."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -85,6 +96,14 @@ class Predictor:
         self.model.load_state_dict(state_dict)
         self.model.eval().requires_grad_(False).to(self.device)
 
+    def bucket_for(self, image: np.ndarray) -> int:
+        """The width bucket one image routes to: the one rule for
+        :meth:`predict_many` and the serving batcher."""
+        shape = np.asarray(image).shape
+        if shape[0] <= 0 or shape[1] <= 0:
+            raise ValueError(f"empty image: shape {shape}")
+        return self.resolve_bucket([image])
+
     def resolve_bucket(
         self, images: Sequence[np.ndarray], bucket: Optional[int] = None
     ) -> int:
@@ -97,6 +116,18 @@ class Predictor:
             for im in (np.asarray(im) for im in images)
         )
         return next((b for b in self.buckets if w_need <= b), self.buckets[-1])
+
+    def blank_row(self) -> np.ndarray:
+        """The white image that pads a batch up the batcher's ladder."""
+        return np.full((self.cfg.height, 16), 255, np.uint8)
+
+    def warmup(self, batch_size: int = 32, buckets=None) -> None:
+        """One forward pass per bucket at ``batch_size`` white lines: on the
+        card this builds or loads the kernels and warms cuDNN and the
+        allocator before the first request."""
+        for b in buckets or self.buckets:
+            dummy = [np.full((self.cfg.height, b), 255, np.uint8)] * batch_size
+            self.predict_probs(dummy, bucket=b)
 
     def preprocess(
         self, images: Sequence[np.ndarray], bucket: Optional[int] = None
@@ -287,6 +318,83 @@ class Predictor:
                                       x0=x0, x1=x1, conf=float(confs[b, j])))
             out.append(spans)
         return out
+
+    def predict_many(
+        self,
+        images: Sequence[np.ndarray],
+        batch_size: int = 64,
+        **kw,
+    ) -> List[Prediction]:
+        """Bucket-grouped batched inference over any list of images: each
+        image goes to its :meth:`bucket_for` bucket, each bucket runs in
+        chunks of ``batch_size``, and the predictions come back in the
+        original order. ``kw`` goes to :meth:`predict`."""
+        groups: dict = {}
+        for i, im in enumerate(images):
+            groups.setdefault(self.bucket_for(im), []).append(i)
+        out: List[Optional[Prediction]] = [None] * len(images)
+        for bucket in sorted(groups):
+            idxs = groups[bucket]
+            for k in range(0, len(idxs), batch_size):
+                chunk = idxs[k:k + batch_size]
+                preds = self.predict([images[i] for i in chunk],
+                                     bucket=bucket, **kw)
+                for i, p in zip(chunk, preds):
+                    out[i] = p
+        return out  # type: ignore[return-value]
+
+
+def init_predictor(model_dir: str, device="cuda", **kw) -> Predictor:
+    """A ``Predictor`` from a directory of reference artifacts (a Keras
+    ``.h5``, its architecture JSON if present, and a class map), through
+    ``infer/keras_json.py::load_reference_model``
+    (``crnn_ocr_tpu/infer/predictor.py:389``). The port's config has no
+    kernel-path knobs to reset (``config._RUNTIME_KNOBS``): on the card
+    the stem and the recurrence always run their kernels. Keywords go to
+    ``Predictor``.
+
+    A checkpoint directory (``model_config.json``) is not read yet: the
+    port's checkpoints are ROADMAP item 8."""
+    if os.path.exists(os.path.join(model_dir, "model_config.json")):
+        raise NotImplementedError(
+            f"{model_dir}: checkpoint directories (model_config.json) are "
+            "not ported yet (ROADMAP item 8); the port loads reference "
+            "artifacts (.h5 + class map) and the bundled models")
+    from crnn_ocr_torch.infer.keras_json import load_reference_model
+    from crnn_ocr_torch.infer.weights import params_from_jax
+
+    cfg, params, batch_stats, codec = load_reference_model(model_dir)
+    if codec is None:
+        raise FileNotFoundError(
+            f"{model_dir}: reference .h5 found but no class map "
+            "(classes.pkl / classes.json)")
+    return Predictor(cfg, params_from_jax(params, batch_stats), codec,
+                     device=device, **kw)
+
+
+def predictor_from_cli(
+    model: Optional[str],
+    pretrained: Optional[str],
+    normalize: bool = True,
+    n_devices: int = 1,
+    device="cuda",
+    **kw,
+) -> Predictor:
+    """The CLIs' loader (predict and serve): ``--pretrained`` goes to
+    ``load_pretrained``, ``--model`` to :func:`init_predictor`
+    (``crnn_ocr_tpu/infer/predictor.py:478``)."""
+    if n_devices > 1:
+        raise NotImplementedError(
+            "data-parallel serving (n_devices > 1) is not ported yet "
+            "(ROADMAP item 13)")
+    if pretrained:
+        from crnn_ocr_torch.infer.pretrained import load_pretrained
+
+        return load_pretrained(pretrained, device=device,
+                               normalize=normalize, **kw)
+    if model:
+        return init_predictor(model, device=device, normalize=normalize, **kw)
+    raise SystemExit("one of --model / --pretrained is required")
 
 
 def decode_predict_ctc(

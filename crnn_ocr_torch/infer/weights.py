@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,17 +109,28 @@ def _read_h5_layers(path: str) -> Dict[str, List[np.ndarray]]:
     return out
 
 
-def import_keras_h5(path: str, cfg) -> Tuple[dict, dict]:
-    """(params, batch_stats) numpy trees from a Keras .h5 with the canonical
-    layer names, as ``crnn_ocr_tpu/infer/h5_import.py::import_keras_h5``
-    builds them (GRU and LSTM models, with or without an STN; a
-    direction's LSTM bias (4H,) stacks to (2, 4H), ``h5_import.py:15``)."""
+def import_keras_h5(path: str, cfg,
+                    name_map: Optional[Dict[str, str]] = None
+                    ) -> Tuple[dict, dict]:
+    """(params, batch_stats) numpy trees from a Keras .h5, as
+    ``crnn_ocr_tpu/infer/h5_import.py::import_keras_h5`` builds them (GRU
+    and LSTM models, with or without an STN; a direction's LSTM bias (4H,)
+    stacks to (2, 4H), ``h5_import.py:15``). Layers are looked up by their
+    canonical names (``stem_conv``, ``block{i}_*``, ``birnn{i}``, ...),
+    each mapped to the ``.h5``'s own name through ``name_map`` where it
+    has one (a reference artifact's Keras-generated names,
+    ``infer/keras_json.py``)."""
     layers = _read_h5_layers(path)
+    name_map = name_map or {}
+
+    def h5_name(layer: str) -> str:
+        return name_map.get(layer, layer)
 
     def get(layer: str) -> List[np.ndarray]:
-        if layer not in layers:
-            raise KeyError(f"layer {layer!r} not in h5 (has: {sorted(layers)})")
-        return layers[layer]
+        if h5_name(layer) not in layers:
+            raise KeyError(f"layer {h5_name(layer)!r} not in h5 (has: "
+                           f"{sorted(layers)})")
+        return layers[h5_name(layer)]
 
     params: dict = {}
     stats: dict = {}
@@ -132,7 +143,7 @@ def import_keras_h5(path: str, cfg) -> Tuple[dict, dict]:
     if cfg.use_stn:  # the sampler has no weights (h5_import.py:83-99)
         stn: dict = {}
         i = 0
-        while f"stn_conv{i}" in layers:
+        while h5_name(f"stn_conv{i}") in layers:
             k, b = get(f"stn_conv{i}")
             stn[f"Conv_{i}"] = {"kernel": k, "bias": b}
             i += 1

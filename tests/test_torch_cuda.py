@@ -855,3 +855,84 @@ def test_alignment_on_card_matches_cpu(card):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-6,
                                        atol=0)
+
+
+SERVE_GOLDENS = os.path.join(os.path.dirname(GOLDENS), "serve_goldens.npz")
+
+
+def _post_npy(url: str, img) -> dict:
+    import io
+    import json
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, img)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        assert r.status == 200
+        return json.loads(r.read())
+
+
+@pytest.mark.cuda
+def test_daemon_f32_matches_serve_goldens(card):
+    """``fonts-hard`` in f32 behind the HTTP daemon on the card, the 64
+    golden lines posted from 16 threads at once (batches of mixed sizes and
+    buckets, each line at its own bucket): each reply's text equals JAX's
+    for its line on the canvas its batch gave it (``serve_goldens.npz``'s
+    ``cond_*``, ``chip_smoke.canvas_variants``), scores within rtol 1e-4
+    (atol 1e-5); ``predict_many`` equals JAX's ``predict_many``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from chip_smoke import PaddingLog, variant_of
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.serve import OCRServer
+
+    g, sg = np.load(GOLDENS), np.load(SERVE_GOLDENS)
+    lines = [g["hard_canvas"][i, :h, :w] for i, (h, w) in
+             enumerate(zip(g["hard_heights"], g["hard_widths"]))]
+    pred = load_pretrained("fonts-hard", device=card, dtype="float32")
+    assert [pred.bucket_for(im) for im in lines] == sg["bucket"].tolist()
+    log = PaddingLog(pred)
+    srv = OCRServer(pred, host="127.0.0.1", port=0, max_batch=32,
+                    max_wait_ms=20).start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}/predict"
+        with ThreadPoolExecutor(16) as ex:
+            replies = list(ex.map(lambda im: _post_npy(url, im), lines))
+    finally:
+        srv.stop()
+    ks = variant_of(sg, log, lines)
+    assert [r["text"] for r in replies] == [
+        str(t) for t in sg["cond_greedy_texts_f32"][ks]]
+    np.testing.assert_allclose([r["score"] for r in replies],
+                               sg["cond_greedy_scores_f32"][ks], rtol=1e-4,
+                               atol=1e-5)
+    many = pred.predict_many(lines, batch_size=64)
+    assert [p.text for p in many] == [str(t) for t in sg["greedy_texts_f32"]]
+    np.testing.assert_allclose([p.score for p in many],
+                               sg["greedy_scores_f32"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["autonamed", "autonamed_stn"])
+def test_migration_forward_on_card(card, variant):
+    """A reference artifact directory loaded by ``init_predictor`` on the
+    card: the forward pass on ``io.npz``'s input equals Keras's output at
+    rtol 1e-4 / atol 2e-5 (``tests/test_keras_parity.py:160``), through K1
+    (``"conv9"``), K2 and, for the STN variant, K11."""
+    from crnn_ocr_torch.infer import init_predictor
+
+    mig = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
+                       f"migration_{variant}")
+    data = np.load(os.path.join(mig, "io.npz"))
+    pred = init_predictor(mig, device=card)
+    assert pred.default_merge_repeated
+    n1, n2, n11 = tfs.launches, tbg.launches, tgs.launches
+    with torch.inference_mode():
+        y = torch.softmax(pred.model(torch.from_numpy(data["x"][..., 0])
+                                     .to(card)), -1)
+    torch.cuda.synchronize()
+    assert (tfs.launches - n1, tbg.launches - n2, tgs.launches - n11) == (
+        1, 1, int(variant.endswith("stn")))
+    np.testing.assert_allclose(y.cpu().numpy(), data["y"], rtol=1e-4,
+                               atol=2e-5)

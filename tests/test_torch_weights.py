@@ -184,7 +184,10 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/infer/hdf5.py",
             "crnn_ocr_torch/kernels/fused_stem_train.py",
             "crnn_ocr_torch/kernels/bigru.py",
-            "crnn_ocr_torch/infer/pretrained.py"} <= names
+            "crnn_ocr_torch/infer/pretrained.py",
+            "crnn_ocr_torch/serve/batcher.py", "crnn_ocr_torch/serve/http.py",
+            "crnn_ocr_torch/cli/predict.py", "crnn_ocr_torch/cli/serve.py",
+            "crnn_ocr_torch/infer/keras_json.py"} <= names
     assert not bad, bad
 
 
@@ -197,14 +200,21 @@ def test_importing_the_port_loads_no_jax():
         "crnn_ocr_torch.train.step, crnn_ocr_torch.data.pipeline, "
         "crnn_ocr_torch.data.synthetic, crnn_ocr_torch.utils.metrics, "
         "crnn_ocr_torch.kernels.grid_sample, crnn_ocr_torch.ops.grid_sample, "
-        "crnn_ocr_torch.models.stn, crnn_ocr_torch.infer.hdf5\n"
+        "crnn_ocr_torch.models.stn, crnn_ocr_torch.infer.hdf5, "
+        "crnn_ocr_torch.serve, crnn_ocr_torch.serve.batcher, "
+        "crnn_ocr_torch.serve.http, crnn_ocr_torch.cli.predict, "
+        "crnn_ocr_torch.cli.serve, crnn_ocr_torch.infer.keras_json\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-small', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-warp-stn', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-hard-lstm', device='cpu')\n"
+        "p = crnn_ocr_torch.infer.init_predictor("
+        "'tests/goldens/migration_autonamed_stn', device='cpu')\n"
+        "assert 'h5py' not in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'cv2' not in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

@@ -101,10 +101,37 @@ its spans (``hard_pred_spans_f32`` (N, 3) int32: line, x0, x1, with
 ``hard_pred_texts_bf16``/``hard_pred_scores_bf16`` as shipped (bf16, both
 Pallas serve kernels in interpret mode). About a minute.
 
+``--serve`` writes ``crnn_ocr_torch/testdata/serve_goldens.npz``: the JAX
+predictor's ``predict_many`` (each line at its own ``bucket_for`` bucket,
+64 lines a chunk) over the committed greedy goldens' 64 ``hard`` lines,
+as the serving batcher and the predict CLI route them:
+
+* ``bucket`` (64,): each line's ``bucket_for``;
+* ``greedy_texts_f32``/``greedy_scores_f32``: ``fonts-hard`` in f32;
+* ``greedy_texts_bf16``/``greedy_scores_bf16``: as shipped (bf16, both
+  Pallas serve kernels in interpret mode);
+* ``beam_texts_f32``/``beam_scores_f32``: ``greedy=False``, W
+  ``SERVE_BEAM_WIDTH``, one path, the bundled models' merge default;
+* ``align_spans_f32`` (N, 3) int32 (line, x0, x1), ``align_chars_f32`` and
+  ``align_confs_f32``: the f32 greedy ``alignments=True`` spans;
+* ``cond_*``: the same f32 runs (greedy with alignments, and the beam) for
+  each line alone under each canvas it can meet in a batch. The canvas is
+  the batch's largest height and width snapped up ``quantize_dim``'s
+  ladder, and a line's resize reads the canvas's first row and column past
+  it (white) when there is one, so a line whose height or width lies on
+  the ladder reads differently when it is the batch's tallest or widest.
+  ``cond_line``, ``cond_pad_h``, ``cond_pad_w`` (K,) name each variant
+  (``chip_smoke.canvas_variants``: padded on both axes always, unpadded on
+  an axis where the line's size is on the ladder), run as the line and a
+  white filler (``chip_smoke.padded_batch``) at the line's bucket;
+  ``cond_{greedy,beam}_{texts,scores}_f32`` and ``cond_align_spans_f32``
+  (N, 3: variant, x0, x1), ``cond_align_chars_f32``,
+  ``cond_align_confs_f32``.
+
 Run from the repo root (several minutes on the CPU):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py \
-        [--train | --stn | --lstm | --beam]
+        [--train | --stn | --lstm | --beam | --serve]
 """
 
 from __future__ import annotations
@@ -125,7 +152,10 @@ LSTM_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                         "lstm_goldens.npz")
 BEAM_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                         "beam_goldens.npz")
+SERVE_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                         "serve_goldens.npz")
 BEAM_WIDTH, TOP_PATHS = 10, 3
+SERVE_BEAM_WIDTH = 10
 LSTM_NAME = "fonts-hard-lstm"
 LSTM_PROBS = 8  # lines whose probabilities lstm_goldens.npz keeps
 TRAIN_BATCH, TRAIN_BUCKET, TRAIN_MAX_LABEL = 128, 256, 32
@@ -449,6 +479,77 @@ def write_beam_goldens() -> None:
     print(f"wrote {BEAM_OUT} ({os.path.getsize(BEAM_OUT)} bytes)")
 
 
+def write_serve_goldens() -> None:
+    g = np.load(OUT)
+    images = [g["hard_canvas"][i, :h, :w] for i, (h, w) in
+              enumerate(zip(g["hard_heights"], g["hard_widths"]))]
+    pred, _ = jax_predictor("fonts-hard", "float32", False)
+    arrays = {"bucket": np.array([pred.bucket_for(im) for im in images],
+                                 np.int32)}
+    runs = (("greedy", "f32", pred, {}),
+            ("greedy", "bf16", jax_predictor("fonts-hard", "bfloat16",
+                                             True)[0], {}),
+            ("beam", "f32", pred, dict(greedy=False,
+                                       beam_width=SERVE_BEAM_WIDTH)))
+    for mode, tag, p, kw in runs:
+        out = p.predict_many(images, batch_size=N_LINES, **kw)
+        arrays[f"{mode}_texts_{tag}"] = np.array([o.text for o in out])
+        arrays[f"{mode}_scores_{tag}"] = np.array([o.score for o in out],
+                                                  np.float32)
+    out = pred.predict_many(images, batch_size=N_LINES, alignments=True)
+    spans = [(i, s) for i, o in enumerate(out) for s in o.spans]
+    arrays["align_spans_f32"] = np.array([(i, s.x0, s.x1) for i, s in spans],
+                                         np.int32)
+    arrays["align_chars_f32"] = np.array([s.char for _, s in spans])
+    arrays["align_confs_f32"] = np.array([s.conf for _, s in spans],
+                                         np.float32)
+    from chip_smoke import canvas_variants, padded_batch
+
+    cond = {k: [] for k in ("line", "pad_h", "pad_w", "greedy_texts",
+                            "greedy_scores", "beam_texts", "beam_scores")}
+    cspans = []
+    for i, im in enumerate(images):
+        bucket = int(arrays["bucket"][i])
+        for pad_h, pad_w in canvas_variants(im):
+            batch = padded_batch(im, pad_h, pad_w)
+            greedy = pred.predict(batch, bucket=bucket, alignments=True)[0]
+            beam = pred.predict(batch, bucket=bucket, greedy=False,
+                                beam_width=SERVE_BEAM_WIDTH)[0]
+            k = len(cond["line"])
+            cspans += [(k, s) for s in greedy.spans]
+            for key, v in (("line", i), ("pad_h", pad_h), ("pad_w", pad_w),
+                           ("greedy_texts", greedy.text),
+                           ("greedy_scores", greedy.score),
+                           ("beam_texts", beam.text),
+                           ("beam_scores", beam.score)):
+                cond[key].append(v)
+    for key in ("line", "pad_h", "pad_w"):
+        arrays[f"cond_{key}"] = np.array(cond[key])
+    for key in ("greedy_texts", "beam_texts"):
+        arrays[f"cond_{key}_f32"] = np.array(cond[key])
+    for key in ("greedy_scores", "beam_scores"):
+        arrays[f"cond_{key}_f32"] = np.array(cond[key], np.float32)
+    arrays["cond_align_spans_f32"] = np.array(
+        [(k, s.x0, s.x1) for k, s in cspans], np.int32)
+    arrays["cond_align_chars_f32"] = np.array([s.char for _, s in cspans])
+    arrays["cond_align_confs_f32"] = np.array([s.conf for _, s in cspans],
+                                              np.float32)
+    moved = sum(len({t for li, t in zip(cond["line"], cond["greedy_texts"])
+                     if li == i}) > 1 for i in range(len(images)))
+    print(f"{len(cond['line'])} canvas variants of {len(images)} lines; "
+          f"{moved} lines read differently under another canvas")
+    one = [p.text for p in pred.predict(images)]
+    for key in ("greedy_texts_bf16", "beam_texts_f32"):
+        diff = sum(a != b for a, b in zip(arrays[key],
+                                          arrays["greedy_texts_f32"]))
+        print(f"{key} vs greedy f32: {diff} lines differ")
+    diff = sum(a != b for a, b in zip(one, arrays["greedy_texts_f32"]))
+    print(f"per-line buckets {np.bincount(arrays['bucket'])[64::64]} vs one "
+          f"bucket for all: {diff} greedy f32 lines differ")
+    np.savez_compressed(SERVE_OUT, **arrays)
+    print(f"wrote {SERVE_OUT} ({os.path.getsize(SERVE_OUT)} bytes)")
+
+
 def main() -> int:
     import jax
 
@@ -464,6 +565,9 @@ def main() -> int:
         return 0
     if "--beam" in sys.argv[1:]:
         write_beam_goldens()
+        return 0
+    if "--serve" in sys.argv[1:]:
+        write_serve_goldens()
         return 0
     arrays = golden_lines({}, TASKS)
     bf16_golden(arrays, "hard", "fonts-hard")
