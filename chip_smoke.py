@@ -238,6 +238,43 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     (a)'s f32 texts), else a ``{"phase": "predict_cli", "cv2": false}``
     line and ``predict_many`` alone.
 
+27. Fine-tuning ``fonts-hard-lstm`` from image files (no kernel of its
+    own; bf16, dropout 0.2, Adam at ``FILES_LR``), in a temporary
+    directory outside the repo: (a) the 64 ``fonts-hard`` golden lines,
+    each cropped by its height and width, written with ``cv2.imwrite`` as
+    PNG under 16 names (1,024 files) with an ``annotation.txt``, read by
+    ``Reader(ReaderConfig(batch_size=128, val_fraction=0.125, buckets=(64,
+    128, 192, 256), max_label_len=32, pack_cache=True))`` with
+    ``fonts-hard``'s codec; the reader's host ms a training batch with the
+    pack cache cold (the first epoch) and warm, and each split's batches by
+    bucket (bucket 64's lines never fill a training batch of 128, so they
+    reach the evaluation only); (b) ``fit`` over ``device_batches(...,
+    prefetch=2)`` for ``FILES_STEPS`` steps with ``checkpoint_dir``, an
+    evaluation every ``FILES_EVAL_EVERY`` steps and ``profile_dir``,
+    counted: each step must launch K5 twice (resident), K6, K7, K8, K1 (on
+    ``"conv9"``), K9 and K10 once, and each evaluation batch K1 (on
+    ``"mma"``) once, K4 twice and K6 once; the loss must fall, the
+    evaluation CER must fall from the first evaluation to the best, the
+    trace file must name the K5 kernel; one checkpoint's save and restore
+    ms and its size; the files path timed as phase 22 (the next batch plus
+    the train step, synchronized, 30 steps) with the prefetch thread, with
+    the reader on the step's thread, and from the same epoch's host
+    batches held in memory, beside phase 22's in-memory lines/s from this
+    call; (c) fit to step 9 with
+    ``checkpoint_dir``, restore into a fresh state (bit for bit: every
+    parameter, BatchNorm statistic, optimizer slot and the step), fit to 18
+    from ``run_generator(skip=9)`` against a straight 18-step run:
+    ``bitwise: true``, else within rtol 2e-4 / atol 2e-5 with the largest
+    difference printed and two straight runs compared; (d) ``init_predictor`` of the
+    checkpoint directory: texts equal to a ``Predictor`` of the trained
+    state in memory on the 64 golden lines, scores within 1e-5, its CER
+    and sequence accuracy; ``python -m crnn_ocr_torch.cli.predict --model
+    <checkpoint dir> --greedy`` as a subprocess: its rows equal
+    ``predict_many``'s; (e) 3 counted steps each of sgd, rmsprop, adadelta
+    and adamw on ``fonts-hard`` (bf16, B 128, bucket 256): finite losses,
+    the slots filled, 2 K3 and one each of K6-K10 and K1 a step. To run it
+    alone: ``phase_build(card)`` then ``phase_files(card, g)``.
+
 Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24, 25) requires
 each recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
@@ -1296,11 +1333,12 @@ TRAIN_STEPS, TRAIN_WARMUP = 30, 3
 
 
 def train_setup(g, dtype: str, dropout: float, name: str = "fonts-hard",
-                key: str = "hard", bucket: int = BUCKET):
+                key: str = "hard", bucket: int = BUCKET,
+                optimizer: str = "adam"):
     """A train state of bundled model ``name`` on the card (its shipped
-    weights, ``dtype`` and ``dropout``), its raw host batch (the 64 golden
-    ``key`` lines repeated to 128, labels padded to 32, at ``bucket``) and
-    the device batch produced from it."""
+    weights, ``dtype`` and ``dropout``, ``optimizer`` at ``TRAIN_LR``), its
+    raw host batch (the 64 golden ``key`` lines repeated to 128, labels
+    padded to 32, at ``bucket``) and the device batch produced from it."""
     import dataclasses
 
     import numpy as np
@@ -1320,7 +1358,7 @@ def train_setup(g, dtype: str, dropout: float, name: str = "fonts-hard",
             "the_labels": labels, "label_length": lab_len,
             "bucket": bucket, "texts": truth}
     state = create_train_state(cfg, params_from_jax(params, stats),
-                               device="cuda",
+                               device="cuda", optimizer=optimizer,
                                learning_rate=TRAIN_LR)
     return cfg, codec, state, host, produce_batch(dict(host), "cuda", cfg)
 
@@ -1813,7 +1851,9 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     emit("fit", steps=state.step, eval=ev)
     require(0.0 <= ev["cer"] <= 1.0, f"fit's evaluation is malformed: {ev}")
     return {**counts, "design": design, "stem_design": stem_design,
-            "ctc_design": ctc_design, "sampler_design": sampler_design}
+            "ctc_design": ctc_design, "sampler_design": sampler_design,
+            "lines_per_s": TRAIN_BATCH * TRAIN_STEPS / (sum(step_ms) / 1e3),
+            "p50_step_ms": p50}
 
 
 def trace_train(step, ranges, n: int = 3) -> dict:
@@ -3466,6 +3506,443 @@ def phase_daemon(card: str, g) -> None:
     emit("daemon_seconds", **secs)
 
 
+# ---- phase 27: fine-tuning fonts-hard-lstm from image files ----
+
+FILES_COPIES = 16  # names per golden line: 64 x 16 = 1,024 files
+FILES_BUCKETS = (64, 128, 192, 256)
+FILES_VAL = 0.125
+FILES_LR = 1e-3  # a new BiLSTM head: the training default, not phase 22's
+FILES_STEPS, FILES_EVAL_EVERY, FILES_LOG_EVERY = 360, 60, 10
+FILES_RESUME_K = 9  # resume at step 9 of 18: an epoch is 6 batches
+# per evaluation batch: the served forward (K1 on "mma", 2 K4) and the loss
+FILES_EVAL_KERNELS = {"fused_stem": 1, "bilstm": 2, "ctc_alpha": 1}
+RESUME_RTOL, RESUME_ATOL = 2e-4, 2e-5  # phase 7's parameter tolerance
+OTHER_OPTIMIZERS = ("sgd", "rmsprop", "adadelta", "adamw")
+
+
+def write_corpus(g, d: str):
+    """Phase 27 (a): each of the 64 ``fonts-hard`` golden lines cropped
+    from the canvas by its height and width, written with ``cv2.imwrite``
+    as PNG under 16 names, and ``annotation.txt`` of ``<name>\\t<truth>``.
+    Returns the lines and their texts."""
+    import cv2
+
+    lines = golden_lines(g, "hard")
+    truth = [str(t) for t in g["hard_truth"]]
+    rows = []
+    for c in range(FILES_COPIES):
+        for i, (im, text) in enumerate(zip(lines, truth)):
+            name = f"c{c:02d}_l{i:02d}.png"
+            require(cv2.imwrite(os.path.join(d, name), im), f"imwrite {name}")
+            rows.append(f"{name}\t{text}")
+    with open(os.path.join(d, "annotation.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return lines, truth
+
+
+def reader_host_ms(reader) -> dict:
+    """The reader's host ms per training batch over one epoch with the pack
+    cache cold (planning decodes and packs every image once) and over the
+    next, warm (batches from the mmap shards), and each split's batches by
+    bucket."""
+    out = {}
+    for key in ("cold", "warm"):
+        buckets = collections.Counter()
+        t0 = time.perf_counter()
+        for b in reader.run_generator(train=True, epochs=1):
+            buckets[int(b["bucket"])] += 1
+        n = sum(buckets.values())
+        out[f"{key}_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / n
+    out["train_batches_by_bucket"] = dict(sorted(buckets.items()))
+    out["eval_batches_by_bucket"] = dict(sorted(collections.Counter(
+        int(b["bucket"]) for b in reader.run_generator(train=False,
+                                                       epochs=1)).items()))
+    return out
+
+
+def state_tensors(state) -> dict:
+    """Every tensor a checkpoint holds: the model's state_dict and the
+    optimizer's slots and step counts, by name."""
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    for i, slots in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer/{i}/{k}": v for k, v in slots.items()})
+    return out
+
+
+def compare_states(a, b) -> dict:
+    """Bit-equality of two states' tensors and steps; where they differ,
+    the largest difference, its tensor, and whether every tensor is within
+    the resume tolerance."""
+    import numpy as np
+
+    ta, tb = state_tensors(a), state_tensors(b)
+    require(ta.keys() == tb.keys(), "the states hold different tensors")
+    worst, where, close = 0.0, None, True
+    for k in ta:
+        x = ta[k].detach().float().cpu().numpy()
+        y = tb[k].detach().float().cpu().numpy()
+        if np.array_equal(x, y):
+            continue
+        d = float(np.max(np.abs(x - y)))
+        if d > worst:
+            worst, where = d, k
+        close = close and bool(np.allclose(x, y, rtol=RESUME_RTOL,
+                                           atol=RESUME_ATOL))
+    bitwise = where is None and a.step == b.step
+    return dict(bitwise=bitwise, steps=[a.step, b.step], max_abs_diff=worst,
+                max_diff_tensor=where, within_tolerance=close
+                and a.step == b.step)
+
+
+def files_fit(card: str, reader, cfg, codec, fresh, tmp: str) -> dict:
+    """Phase 27 (b): ``fit`` from the files path (``device_batches`` with
+    ``prefetch=2`` over ``reader.run_generator``) with ``checkpoint_dir``,
+    an evaluation every ``FILES_EVAL_EVERY`` steps and ``profile_dir``,
+    counted; then one checkpoint's save and restore timed."""
+    import torch
+    from crnn_ocr_torch.data.pipeline import device_batches
+    from crnn_ocr_torch.kernels import bigru, fused_stem
+    from crnn_ocr_torch.train import CheckpointManager, FitConfig, fit
+
+    n_eval = reader.steps_per_epoch(train=False)
+    evals = []
+
+    def eval_iter():
+        evals.append(0)
+        for b in device_batches(reader.run_generator(train=False, epochs=1),
+                                "cuda", cfg, prefetch=0):
+            evals[-1] += 1
+            yield b
+
+    ck, trace_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
+    metrics_path = os.path.join(tmp, "fit.jsonl")
+    state = fresh()
+    stream = device_batches(reader.run_generator(train=True), "cuda", cfg,
+                            prefetch=2)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = fit(state, cfg, stream, eval_iter, codec, FitConfig(
+        steps=FILES_STEPS, eval_every=FILES_EVAL_EVERY, eval_batches=n_eval,
+        log_every=FILES_LOG_EVERY, metrics_path=metrics_path,
+        checkpoint_dir=ck, profile_dir=trace_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stream.close()
+    counts = read_launches()
+    what = f"{LSTM_NAME} from files: {FILES_STEPS} steps"
+    n_ev = sum(evals)
+    want = {k: v * FILES_STEPS for k, v in LSTM_TRAIN_KERNELS.items()}
+    for k, v in FILES_EVAL_KERNELS.items():
+        want[k] = want.get(k, 0) + v * n_ev
+    emit("launches", model=LSTM_NAME, path="files", train_steps=FILES_STEPS,
+         eval_batches=n_ev, **counts,
+         designs=[[*d, n] for d, n in bigru.design_launches.items()])
+    require(state.step == FILES_STEPS and len(evals) == FILES_STEPS
+            // FILES_EVAL_EVERY and n_ev == len(evals) * n_eval,
+            f"{what}: {state.step} steps, evaluations of {evals} batches")
+    require_launches(counts, want, what)
+    stem = {d: n for d, n in fused_stem.design_launches.items() if n}
+    require(stem == {STEM_PATH_DESIGN["train"]: FILES_STEPS,
+                     STEM_PATH_DESIGN["serve"]: n_ev},
+            f"{what}: K1 launched {stem} by design")
+    rnn = {d: n for d, n in bigru.design_launches.items() if n}
+    require(all(d.name == PATH_DESIGN["bilstm_train"] for d in rnn),
+            f"{what}: recurrence launches by design {rnn}")
+    read_ctc_design({"ctc_alpha": counts["ctc_alpha"],
+                     "ctc_beta": counts["ctc_beta"]}, what)
+    with open(metrics_path) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r["kind"] == "train"]
+    ev = [r for r in recs if r["kind"] == "eval"]
+    losses = [r["loss"] for r in train]
+    cers = [r["cer"] for r in ev]
+    require(all(v == v for v in losses) and statistics.mean(losses[-3:])
+            < losses[0], f"{what}: the loss did not fall: {losses}")
+    require(min(cers) < cers[0], f"{what}: the evaluation CER did not fall "
+                                 f"from the first evaluation: {cers}")
+    mgr = CheckpointManager(ck)
+    require(mgr.all_steps() and mgr.best_step() in mgr.all_steps(),
+            f"{what}: checkpoints {mgr.all_steps()}")
+    traces = sorted(os.listdir(trace_dir))
+    require(len(traces) == 1, f"{what}: trace files {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    k5 = sorted(n for n in names if "birnn_resident_kernel" in n
+                and "Lstm" in n and ("true" in n or "Lb1E" in n))
+    require(bool(k5), f"{what}: the trace names no K5 kernel "
+                      f"({len(names)} kernel names)")
+    # one checkpoint's save and restore, timed
+    timing = CheckpointManager(os.path.join(tmp, "timing"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.save(state.step, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(timing.directory, str(state.step), "checkpoint.pt")
+    other = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.restore(other)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    same = compare_states(state, other)
+    require(same["bitwise"], f"{what}: a restore differs: {same}")
+    res = dict(
+        steps=FILES_STEPS, eval_every=FILES_EVAL_EVERY, eval_batches=n_ev,
+        learning_rate=FILES_LR, wall_s=wall,
+        fit_lines_per_s=train[-1]["lines_per_sec"],
+        host_step_p50_ms=train[-1]["host_step_p50_ms"],
+        first_loss=losses[0], last3_mean_loss=statistics.mean(losses[-3:]),
+        eval_cer=cers, eval_steps=[r["step"] for r in ev],
+        best_step=mgr.best_step(), kept_steps=mgr.all_steps(),
+        trace_k5_names=k5[:2], save_ms=save_ms, restore_ms=restore_ms,
+        checkpoint_mb=os.path.getsize(path) / 1e6, card=card)
+    emit("files_fit", **res)
+    return dict(res, state=state, ckpt=ck)
+
+
+def files_throughput(reader, cfg, fresh, reps: int = TRAIN_STEPS) -> dict:
+    """Phase 27 (b): the files path timed as phase 22 times the in-memory
+    one: each step is the next device batch plus ``fit``'s train step,
+    synchronized; 3 warm-up steps, then ``reps`` timed. Three sources in
+    turns, each on a fresh state: ``device_batches`` over
+    ``reader.run_generator`` with ``prefetch=2`` (the path) and with
+    ``prefetch=0`` (the reader on the step's thread), and ``produce_batch``
+    of the same epoch's host batches held in memory (the same buckets with
+    no reader at all)."""
+    import torch
+    from crnn_ocr_torch.data.pipeline import device_batches, produce_batch
+    from crnn_ocr_torch.train import step as step_lib
+
+    train_step = step_lib.make_train_step(cfg)
+    gen = torch.Generator(device="cuda")
+    held = list(reader.run_generator(train=True, epochs=1))
+
+    def in_memory():
+        while True:
+            for b in held:
+                yield produce_batch(dict(b), "cuda", cfg)
+
+    sources = {
+        "files_prefetch_2": lambda: device_batches(
+            reader.run_generator(train=True), "cuda", cfg, prefetch=2),
+        "files_prefetch_0": lambda: device_batches(
+            reader.run_generator(train=True), "cuda", cfg, prefetch=0),
+        "in_memory_same_batches": in_memory,
+    }
+    out = {}
+    for key, source in sources.items():
+        state, stream = fresh(), source()
+        lines, step_ms = 0, []
+        for i in range(TRAIN_WARMUP + reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = next(stream)
+            batch.pop("texts"), batch.pop("bucket")
+            gen.manual_seed(step_lib.step_seed(0, state.step))
+            train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            if i >= TRAIN_WARMUP:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                lines += int(batch["x"].shape[0])
+        stream.close()
+        out[key] = dict(lines_per_s=lines / (sum(step_ms) / 1e3),
+                        p50_step_ms=statistics.median(step_ms), steps=reps)
+    return out
+
+
+def files_resume(reader, cfg, fresh, tmp: str) -> dict:
+    """Phase 27 (c): fit to step k with ``checkpoint_dir``, restore into a
+    fresh state (the same optimizer and schedule), fit to 2k from
+    ``run_generator(skip=k)``, against a straight 2k-step run. Where the
+    two differ, a second straight run tells a fault of the resume from an
+    operation that sums in another order on every run (``scatter_add_``'s
+    atomics in the CTC gradient did, until it became a matmul)."""
+    from crnn_ocr_torch.data.pipeline import device_batches
+    from crnn_ocr_torch.train import CheckpointManager, FitConfig, fit
+
+    k = FILES_RESUME_K
+
+    def run(steps, state, skip=0, ck=None):
+        stream = device_batches(reader.run_generator(train=True, skip=skip),
+                                "cuda", cfg, prefetch=0)
+        return fit(state, cfg, stream, cfg=FitConfig(
+            steps=steps, log_every=10 ** 6, checkpoint_dir=ck))
+
+    ck = os.path.join(tmp, "resume")
+    straight = run(2 * k, fresh())
+    first = run(k, fresh(), ck=ck)
+    restored = CheckpointManager(ck).restore(fresh())
+    restore = compare_states(first, restored)
+    require(restore["bitwise"], f"the restored state differs from the saved "
+                                f"one: {restore}")
+    resumed = run(2 * k, restored, skip=k)
+    res = dict(k=k, restore_bitwise=True, **compare_states(straight, resumed))
+    if not res["bitwise"]:  # is it the resume, or any two runs?
+        res["straight_vs_straight"] = compare_states(straight,
+                                                     run(2 * k, fresh()))
+    emit("files_resume", **res)
+    require(res["bitwise"] or res["within_tolerance"],
+            f"the resumed run disagrees with the straight one: {res}")
+    print(f"bitwise: {'true' if res['bitwise'] else 'false'}"
+          + ("" if res["bitwise"] else
+             f" (max |diff| {res['max_abs_diff']} in "
+             f"{res['max_diff_tensor']})"), flush=True)
+    return res
+
+
+def files_serve(state, cfg, codec, ck: str, lines, truth, tmp: str) -> dict:
+    """Phase 27 (d): ``init_predictor`` of the checkpoint directory against
+    a ``Predictor`` of the trained state in memory on the 64 golden lines
+    (texts equal, scores within 1e-5), its CER, and ``python -m
+    crnn_ocr_torch.cli.predict --model <checkpoint dir>``'s rows against
+    ``predict_many``'s."""
+    import cv2
+    from crnn_ocr_torch.infer.predictor import Predictor, init_predictor
+    from crnn_ocr_torch.utils import metrics as metrics_lib
+
+    reloaded = init_predictor(ck, device="cuda")
+    memory = Predictor(cfg, state.model.state_dict(), codec, device="cuda")
+    got, want = reloaded.predict(lines), memory.predict(lines)
+    texts = [p.text for p in got]
+    score_diff = max(abs(a.score - b.score) for a, b in zip(got, want))
+    require(texts == [p.text for p in want] and score_diff <= 1e-5,
+            f"reloaded: texts or scores differ from the trained state's "
+            f"(max score diff {score_diff})")
+    d = os.path.join(tmp, "lines")
+    os.makedirs(d)
+    names = [f"l{i:02d}.png" for i in range(len(lines))]
+    for name, im in zip(names, lines):
+        require(cv2.imwrite(os.path.join(d, name), im), "imwrite")
+    out = os.path.join(tmp, "out.tsv")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "crnn_ocr_torch.cli.predict", "--model", ck,
+         "--image_dir", d, "--greedy", "--result", out],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"predict CLI: rc {proc.returncode}, "
+                                  f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        rows = [r.split("\t") for r in f.read().splitlines()]
+    many = reloaded.predict_many(lines, batch_size=64)
+    res = dict(
+        texts_equal=True, max_score_diff=score_diff,
+        cer=metrics_lib.cer(texts, truth),
+        seq_acc=metrics_lib.sequence_accuracy(texts, truth),
+        nonempty_texts=sum(bool(t) for t in texts),
+        cli_rows=len(rows),
+        cli_names_in_order=[r[0] for r in rows] == names,
+        cli_rows_off_predict_many=sum(
+            r[1] != p.text or abs(float(r[2]) - p.score) > 1e-4
+            for r, p in zip(rows, many)),
+        sample=[[t, w] for t, w in zip(texts[:6], truth[:6])])
+    emit("files_serve", **res)
+    require(res["cli_rows"] == len(lines) and res["cli_names_in_order"]
+            and res["cli_rows_off_predict_many"] == 0,
+            f"predict CLI on the checkpoint: {res}")
+    return res
+
+
+def files_optimizers(g, card: str) -> dict:
+    """Phase 27 (e): 3 counted steps of each of sgd, rmsprop, adadelta and
+    adamw on ``fonts-hard`` (bf16, B 128, bucket 256, dropout 0.2): a
+    finite loss, the optimizer's slots filled, and each step's launches
+    (2 K3, K6, K7, K8, K1 on ``"conv9"``, K9, K10)."""
+    import math
+
+    import torch
+    from crnn_ocr_torch.data.pipeline import produce_batch
+    from crnn_ocr_torch.train import step as step_lib
+
+    out = {}
+    for name in OTHER_OPTIMIZERS:
+        cfg, _, state, host, _ = train_setup(g, "bfloat16", 0.2,
+                                             optimizer=name)
+        train_step = step_lib.make_train_step(cfg)
+        gen = torch.Generator(device="cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        losses = []
+        for _ in range(3):
+            batch = produce_batch(dict(host), "cuda", cfg)
+            batch.pop("texts"), batch.pop("bucket")
+            gen.manual_seed(step_lib.step_seed(0, state.step))
+            losses.append(float(train_step(state, batch, gen)["loss"]))
+        counts = read_launches()
+        require_launches(counts, {k: 3 * v for k, v in TRAIN_KERNELS.items()},
+                         f"fonts-hard with {name}: 3 train steps")
+        require(all(map(math.isfinite, losses)) and state.optimizer.state,
+                f"fonts-hard with {name}: losses {losses}")
+        out[name] = dict(losses=losses, optimizer=type(state.optimizer)
+                         .__name__, bigru_train=counts["bigru_train"])
+    emit("files_optimizers", card=card, **out)
+    return out
+
+
+def phase_files(card: str, g, in_memory: dict = None) -> dict:
+    """Phase 27: fine-tune ``fonts-hard-lstm`` (bf16, dropout 0.2, Adam at
+    ``FILES_LR``) from a directory of PNG files, resume it, reload and
+    serve its checkpoint, and step the other optimizers. Everything is
+    written to a temporary directory outside the repo. ``in_memory``:
+    phase 22's lines/s and p50 in this call, reported beside the files
+    path's."""
+    import tempfile
+
+    from crnn_ocr_torch.data.reader import Reader, ReaderConfig
+    from crnn_ocr_torch.infer.pretrained import model_weights
+    from crnn_ocr_torch.infer.weights import params_from_jax
+    from crnn_ocr_torch.train import create_train_state
+
+    cfg, params, stats, codec = model_weights(LSTM_NAME, "bfloat16")
+    cfg = dataclasses.replace(cfg, dropout_rate=0.2)
+    weights = params_from_jax(params, stats)
+
+    def fresh():
+        return create_train_state(cfg, weights, device="cuda",
+                                  learning_rate=FILES_LR)
+
+    secs = {}
+    t0 = time.perf_counter()
+
+    def lap(key):
+        nonlocal t0
+        t1 = time.perf_counter()
+        secs[key] = t1 - t0
+        t0 = t1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        lines, truth = write_corpus(g, corpus)
+        reader = Reader(ReaderConfig(
+            corpus, batch_size=TRAIN_BATCH, val_fraction=FILES_VAL,
+            buckets=FILES_BUCKETS, max_label_len=TRAIN_MAX_LABEL,
+            pack_cache=True), codec=codec)
+        host = reader_host_ms(reader)
+        emit("files_corpus", files=len(reader.samples),
+             train_steps_per_epoch=reader.steps_per_epoch(),
+             eval_batches=reader.steps_per_epoch(train=False),
+             packed=len(reader._pack), **host)
+        lap("corpus")
+        fitted = files_fit(card, reader, cfg, codec, fresh, tmp)
+        lap("fit")
+        speed = files_throughput(reader, cfg, fresh)
+        emit("files_throughput", card=card, **speed,
+             in_memory_phase_22=in_memory,
+             train_batches_by_bucket=host["train_batches_by_bucket"])
+        lap("throughput")
+        files_resume(reader, cfg, fresh, tmp)
+        lap("resume")
+        files_serve(fitted["state"], cfg, codec, fitted["ckpt"], lines,
+                    truth, tmp)
+        lap("serve")
+    files_optimizers(g, card)
+    lap("optimizers")
+    emit("files_seconds", **secs)
+    return dict(speed, host=host)
+
+
 def main() -> int:
     try:
         import torch
@@ -3633,6 +4110,10 @@ def main() -> int:
 
     # phase 26: the serving daemon, reference artifacts and the CLIs
     phase_daemon(card, g)
+
+    # phase 27: fonts-hard-lstm fine-tuned from image files, resumed, served
+    phase_files(card, g, {k: train[k] for k in ("lines_per_s",
+                                                 "p50_step_ms")})
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",

@@ -1,7 +1,8 @@
 """Inference CLI (reference L4: ``python3 predict.py --flags``, SURVEY.md C11;
 ``crnn_ocr_tpu/cli/predict.py``).
 
-Loads a bundled model or a directory of reference artifacts (Keras ``.h5``,
+Loads a bundled model, a checkpoint directory of the port (``fit``'s
+``checkpoint_dir``), or a directory of reference artifacts (Keras ``.h5``,
 architecture JSON, class map), iterates images (a directory or an
 annotated validation file), preprocesses exactly as training, predicts,
 decodes (greedy or beam with confidences), writes predictions, and
@@ -26,8 +27,10 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", help="directory of reference artifacts "
-                   "(Keras .h5 + class map; checkpoints: ROADMAP item 8)")
+    p.add_argument("--model", help="a checkpoint directory of the port "
+                   "(model_config.json, classes.json, <step>/checkpoint.pt: "
+                   "fit's checkpoint_dir) or a directory of reference "
+                   "artifacts (Keras .h5 + class map)")
     p.add_argument("--pretrained", help="bundled pretrained model name "
                    "(e.g. fonts-small)")
     p.add_argument("--image_dir", required=True)

@@ -10,6 +10,7 @@ HTTP requests through the dynamic micro-batcher (L4 serving analog).
 
 Examples:
   python -m crnn_ocr_torch.cli.serve --model ./reference_model --port 8000
+  python -m crnn_ocr_torch.cli.serve --model ./checkpoints --port 8000
   python -m crnn_ocr_torch.cli.serve --pretrained fonts-small \
       --max_batch 64 --max_wait_ms 3 --beam_width 10
 
@@ -26,8 +27,10 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--model", help="directory of reference artifacts "
-                   "(Keras .h5 + class map; checkpoints: ROADMAP item 8)")
+    p.add_argument("--model", help="a checkpoint directory of the port "
+                   "(model_config.json, classes.json, <step>/checkpoint.pt: "
+                   "fit's checkpoint_dir) or a directory of reference "
+                   "artifacts (Keras .h5 + class map)")
     p.add_argument("--pretrained", help="bundled pretrained model name")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)

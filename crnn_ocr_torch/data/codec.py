@@ -1,15 +1,15 @@
 """Label codec: text <-> integer labels, and the class map on disk (JSON,
 or a reference artifact's pickle).
 
-A copy of ``crnn_ocr_tpu/data/codec.py::LabelCodec`` (the part the
-recognition and training paths use). Blank is always ``num_classes``, the last logit,
-per the Keras CTC convention.
+A copy of ``crnn_ocr_tpu/data/codec.py``: ``LabelCodec`` and
+``default_ocr_codec``. Blank is always ``num_classes``, the last logit, per
+the Keras CTC convention.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 
@@ -22,6 +22,12 @@ class LabelCodec:
         self.inverse = {v: k for k, v in self.classes.items()}
         if len(self.inverse) != len(self.classes):
             raise ValueError("class map is not a bijection")
+
+    @classmethod
+    def from_texts(cls, texts: Iterable[str]) -> "LabelCodec":
+        """The sorted unique characters of ``texts``, indexed from 0."""
+        chars = sorted({c for t in texts for c in t})
+        return cls({c: i for i, c in enumerate(chars)})
 
     @classmethod
     def from_alphabet(cls, alphabet: str) -> "LabelCodec":
@@ -84,3 +90,13 @@ class LabelCodec:
                 return cls(pickle.load(f))
         with open(path) as f:
             return cls(json.load(f))
+
+
+def default_ocr_codec() -> LabelCodec:
+    """Digits, ASCII letters and common punctuation (IAM-word-like)."""
+    return LabelCodec.from_alphabet(
+        "0123456789"
+        "abcdefghijklmnopqrstuvwxyz"
+        "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+        " .,'-"
+    )

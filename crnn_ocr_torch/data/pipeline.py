@@ -1,18 +1,22 @@
 """Host batches -> device batches for the training step.
 
-A port of ``crnn_ocr_tpu/data/pipeline.py`` (``synthetic_batches``
-:225-259, ``produce_batch`` :100-141, and ``device_batches`` without its
-prefetch thread). Raw host batches are dicts of numpy arrays: ``the_input``
-(B, Hmax, Wmax) uint8 canvas, white beyond each image's ``heights`` and
-``widths``, ``the_labels`` (B, L), ``label_length`` (B,), ``bucket`` and
-``texts``. ``produce_batch`` moves one to the device and preprocesses it
+A port of ``crnn_ocr_tpu/data/pipeline.py`` (``_prefetched`` :28-58,
+``device_batches`` :61-97 without ``augment_offset``, ``produce_batch``
+:100-141 and ``synthetic_batches`` :225-259). Raw host batches are dicts
+of numpy arrays: ``the_input`` (B, Hmax, Wmax) uint8 canvas, white beyond
+each image's ``heights`` and ``widths``, ``the_labels`` (B, L),
+``label_length`` (B,), ``bucket`` and ``texts``. ``produce_batch`` moves one to the device and preprocesses it
 there with the port's ``preprocess_batch``; ``input_length`` then counts
 the frames each line covers after the conv downsample and the
-``ctc_time_slice`` warm-up frames.
+``ctc_time_slice`` warm-up frames. ``device_batches`` drains the host
+iterator (image decode, canvas packing) on a daemon thread through a
+bounded queue while the consumer's thread does the device work.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -51,10 +55,58 @@ def produce_batch(b: Dict[str, np.ndarray], device,
     }
 
 
-def device_batches(host_iter, device,
-                   cfg: ModelConfig) -> Iterator[Dict[str, object]]:
-    """``produce_batch`` over a stream of raw host batches."""
-    for b in host_iter:
+def _prefetched(gen, prefetch: int):
+    """Drain ``gen`` on a daemon thread through a queue of ``prefetch``
+    items (``prefetch <= 0``: in the caller's thread). An exception in the
+    producer (a corrupt image failing its decode) is raised in the
+    consumer; it never ends the stream quietly, which would stop training
+    early as if the run were complete. Closing the consumer (or dropping
+    it) stops the producer after the item it is making."""
+    if prefetch <= 0:
+        yield from gen
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    end, err = object(), object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for item in gen:
+                if not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 -- raised in the consumer
+            put((err, e))
+        else:
+            put(end)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is err:
+                raise item[1]
+            yield item
+    finally:
+        stop.set()
+
+
+def device_batches(host_iter, device, cfg: ModelConfig,
+                   prefetch: int = 2) -> Iterator[Dict[str, object]]:
+    """``produce_batch`` over a stream of raw host batches, the host
+    iterator run ``prefetch`` batches ahead on a thread of its own; the
+    device work stays on the caller's thread."""
+    for b in _prefetched(host_iter, prefetch):
         yield produce_batch(b, device, cfg)
 
 

@@ -15,7 +15,7 @@ text. Decode modes, all on the predictor's device unless noted:
 
 The serving surface (``bucket_for``, ``blank_row``, ``warmup``,
 ``predict_many``) is what the batcher (``serve/batcher.py``) and the CLIs
-call; ``init_predictor`` loads reference artifacts and
+call; ``init_predictor`` loads a checkpoint or reference artifacts and
 ``predictor_from_cli`` resolves the CLIs' ``--model``/``--pretrained``.
 """
 
@@ -345,21 +345,32 @@ class Predictor:
 
 
 def init_predictor(model_dir: str, device="cuda", **kw) -> Predictor:
-    """A ``Predictor`` from a directory of reference artifacts (a Keras
-    ``.h5``, its architecture JSON if present, and a class map), through
-    ``infer/keras_json.py::load_reference_model``
-    (``crnn_ocr_tpu/infer/predictor.py:389``). The port's config has no
-    kernel-path knobs to reset (``config._RUNTIME_KNOBS``): on the card
-    the stem and the recurrence always run their kernels. Keywords go to
-    ``Predictor``.
+    """A ``Predictor`` from a model directory
+    (``crnn_ocr_tpu/infer/predictor.py:389-443``):
 
-    A checkpoint directory (``model_config.json``) is not read yet: the
-    port's checkpoints are ROADMAP item 8."""
+    * a checkpoint directory (``model_config.json``, ``classes.json`` and
+      the port's step directories, ``train/checkpoint.py``): the config,
+      the codec and the latest step's model tensors, whatever optimizer
+      wrote them. A config without ``provenance`` loads as ``"native"``.
+      An orbax checkpoint of the JAX package raises
+      ``OrbaxCheckpointError``;
+    * reference artifacts (a Keras ``.h5``, its architecture JSON if
+      present, and a class map), through
+      ``infer/keras_json.py::load_reference_model``.
+
+    The port's config has no kernel-path knobs to reset
+    (``config._RUNTIME_KNOBS``): on the card the stem and the recurrence
+    always run their kernels. Keywords go to ``Predictor``."""
     if os.path.exists(os.path.join(model_dir, "model_config.json")):
-        raise NotImplementedError(
-            f"{model_dir}: checkpoint directories (model_config.json) are "
-            "not ported yet (ROADMAP item 8); the port loads reference "
-            "artifacts (.h5 + class map) and the bundled models")
+        from crnn_ocr_torch.train.checkpoint import (
+            CheckpointManager,
+            load_codec,
+            load_model_config,
+        )
+
+        state_dict = CheckpointManager(model_dir).restore_inference()
+        return Predictor(load_model_config(model_dir), state_dict,
+                         load_codec(model_dir), device=device, **kw)
     from crnn_ocr_torch.infer.keras_json import load_reference_model
     from crnn_ocr_torch.infer.weights import params_from_jax
 

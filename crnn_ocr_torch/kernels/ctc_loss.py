@@ -22,7 +22,11 @@ Around the kernels, plain PyTorch on either device, as in the JAX package:
   the last frame (alpha is frozen past each sample's ``input_length``);
 * the gradient (``_bwd_rule``, :278-313): ``-exp(alpha + beta - log p)``,
   zeroed on infeasible samples, frozen frames and invalid states, then
-  summed back onto the classes with ``scatter_add``.
+  summed back onto the classes by a matmul with the extended labels'
+  one-hot, as the JAX package sums them. (``scatter_add_`` adds a class's
+  states, every blank state among them, by atomics on the card, in an
+  order that changes from run to run: two runs of one training step
+  differed.)
 
 ``ctc_alphas`` and ``ctc_betas`` dispatch on the device of the emissions
 and on nothing else: a CPU tensor goes through the plain version, a CUDA
@@ -303,8 +307,8 @@ def grad_from_alphas_betas(alphas, betas, loss, flags, lens, ext, C):
     keep = (feasible & (t_idx[None, :, None] < lens[:, None, None])
             & ((flags & VALID) != 0)[:, None, :])
     grad_emit = torch.where(keep, grad_emit, torch.zeros_like(grad_emit))
-    grad = torch.zeros((B, T, C), dtype=torch.float32, device=alphas.device)
-    return grad.scatter_add_(2, ext[:, None, :].expand(B, T, S), grad_emit)
+    onehot = torch.nn.functional.one_hot(ext, C).to(grad_emit.dtype)
+    return torch.bmm(grad_emit, onehot)  # (B, T, C), a fixed sum order
 
 
 class _CTCLoss(torch.autograd.Function):

@@ -2,12 +2,21 @@
 single device, one train step per batch.
 
 ``fit`` runs the train step over a stream of device batches (from
-``data.pipeline.produce_batch``), logs every ``log_every`` steps (loss, an
-EMA of it, the gradient norm, lines/s) to stderr and to an optional JSONL
-file, evaluates every ``eval_every`` steps with the greedy decoder (loss,
-CER, WER, sequence accuracy) and stops early after ``early_stop_patience``
-evaluations without a better CER. Reading a logged loss syncs with the
-device, so the loop syncs at log points only.
+``data.pipeline.device_batches``), logs every ``log_every`` steps (loss,
+an EMA of it, the gradient norm, lines/s, the host's p50/p90/mean ms of
+the step call) to stderr, to an optional JSONL file and to TensorBoard
+where ``tensorboardX`` imports, evaluates every ``eval_every`` steps with
+the greedy decoder (loss, CER, WER, sequence accuracy), checkpoints at
+each evaluation (the best CER tracked) and once at the end, and stops
+early after ``early_stop_patience`` evaluations without a better CER.
+``profile_dir`` traces steps ``profile_at`` to ``profile_at +
+profile_steps`` with ``torch.profiler``. Reading a logged loss syncs with
+the device, so the loop syncs at log points only.
+
+Dropout: each step's generator is seeded from ``(cfg.seed, state.step)``
+alone (``step.step_seed``), as the JAX step folds the step into its key
+(``crnn_ocr_tpu/train/step.py:199``); so a run resumed from a checkpoint
+draws the masks a straight run draws.
 
 Options of the JAX loop that belong to later slices raise
 ``NotImplementedError`` naming their ROADMAP item; none is ignored.
@@ -15,6 +24,7 @@ Options of the JAX loop that belong to later slices raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import sys
@@ -28,8 +38,10 @@ from crnn_ocr_torch.config import ModelConfig
 from crnn_ocr_torch.data.codec import LabelCodec
 from crnn_ocr_torch.ops import ctc
 from crnn_ocr_torch.train import step as step_lib
+from crnn_ocr_torch.train.checkpoint import CheckpointManager
 from crnn_ocr_torch.train.state import TrainState
 from crnn_ocr_torch.utils import metrics as metrics_lib
+from crnn_ocr_torch.utils.profiling import StepTimer, xplane_trace
 
 
 @dataclasses.dataclass
@@ -40,12 +52,14 @@ class FitConfig:
     early_stop_patience: int = 0  # 0 = off; evaluations without a better CER
     log_every: int = 50
     metrics_path: Optional[str] = None  # JSONL stream
-    seed: int = 0  # the dropout generator's seed
+    seed: int = 0  # the dropout stream's seed
     exact_keras_loss: bool = False
+    checkpoint_dir: Optional[str] = None
+    tensorboard_dir: Optional[str] = None  # needs tensorboardX, else off
+    profile_dir: Optional[str] = None  # a torch.profiler Chrome trace
+    profile_at: int = 5  # the trace starts this many batches in
+    profile_steps: int = 20  # and ends this many batches later
     # Not ported yet: each raises NotImplementedError when set.
-    checkpoint_dir: Optional[str] = None  # ROADMAP item 8
-    tensorboard_dir: Optional[str] = None  # ROADMAP item 8
-    profile_dir: Optional[str] = None  # ROADMAP item 8
     steps_per_call: int = 1  # ROADMAP item 9 (K steps per dispatch)
     device_corpus: object = None  # ROADMAP item 9
     on_device_cer: bool = False  # ROADMAP item 12
@@ -53,9 +67,6 @@ class FitConfig:
 
 
 _NOT_PORTED = (
-    ("checkpoint_dir", 8, "checkpoints"),
-    ("tensorboard_dir", 8, "TensorBoard logging"),
-    ("profile_dir", 8, "the profiler window"),
     ("device_corpus", 9, "the device-resident corpus"),
     ("on_device_cer", 12, "on-device CER"),
     ("mesh", 13, "data parallelism"),
@@ -74,6 +85,18 @@ def _check_ported(cfg: FitConfig) -> None:
             "ported yet (ROADMAP item 9)")
 
 
+def _summary_writer(logdir: Optional[str]):
+    """tensorboardX's ``SummaryWriter`` on ``logdir``, or None where it
+    does not import (as the JAX loop behaves)."""
+    if not logdir:
+        return None
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(logdir)
+
+
 def fit(
     state: TrainState,
     model_cfg: ModelConfig,
@@ -87,20 +110,43 @@ def fit(
     _check_ported(cfg)
     train_step = step_lib.make_train_step(model_cfg, cfg.exact_keras_loss)
     eval_step = step_lib.make_eval_step(model_cfg)
-    generator = torch.Generator(device=state.device).manual_seed(cfg.seed)
+    generator = torch.Generator(device=state.device)
+    ckpt = (CheckpointManager(cfg.checkpoint_dir, track_metric="cer")
+            if cfg.checkpoint_dir else None)
+    timer = StepTimer(window=cfg.log_every)
     best_cer = float("inf")
     evals_since_improve = 0
     ema_loss = None
     lines_seen = 0
     t_start = time.time()
     mfile = open(cfg.metrics_path, "a") if cfg.metrics_path else None
+    tb = _summary_writer(cfg.tensorboard_dir)
+    trace = contextlib.ExitStack()  # holds the profiler window while open
+
+    def log(rec: dict) -> None:
+        if mfile:
+            mfile.write(json.dumps(rec) + "\n")
+            mfile.flush()
+        if tb is not None:
+            for k, v in rec.items():
+                if isinstance(v, (int, float)) and k != "step":
+                    tb.add_scalar(f"{rec['kind']}/{k}", v, rec["step"])
+
     try:
         for i, batch in enumerate(train_iter):
             if state.step >= cfg.steps:
                 break
+            if cfg.profile_dir and i == cfg.profile_at:
+                trace.enter_context(xplane_trace(cfg.profile_dir))
             batch = {k: v for k, v in batch.items()
                      if k not in ("texts", "bucket")}
-            m = train_step(state, batch, generator)
+            generator.manual_seed(step_lib.step_seed(cfg.seed, state.step))
+            with timer:
+                m = train_step(state, batch, generator)
+            if cfg.profile_dir and i == cfg.profile_at + cfg.profile_steps:
+                trace.close()
+                print(f"profile trace written to {cfg.profile_dir}",
+                      file=sys.stderr)
             lines_seen += int(batch["x"].shape[0])
             gstep = state.step
             if gstep % cfg.log_every == 0 or i == 0:
@@ -111,13 +157,13 @@ def fit(
                 rec = {"kind": "train", "step": gstep, "loss": loss,
                        "ema_loss": ema_loss,
                        "grad_norm": float(m["grad_norm"]),
-                       "lines_per_sec": lines_seen / wall, "wall": wall}
+                       "lines_per_sec": lines_seen / wall, "wall": wall,
+                       **{f"host_step_{k}": v
+                          for k, v in timer.stats().items()}}
                 print(f"step {gstep:6d} loss {loss:9.4f} ema {ema_loss:9.4f} "
                       f"gnorm {rec['grad_norm']:8.3f} "
                       f"{rec['lines_per_sec']:8.1f} lines/s", file=sys.stderr)
-                if mfile:
-                    mfile.write(json.dumps(rec) + "\n")
-                    mfile.flush()
+                log(rec)
             if eval_iter_fn and gstep % cfg.eval_every == 0:
                 ev = evaluate(state, eval_step, eval_iter_fn(), codec,
                               cfg.eval_batches)
@@ -125,9 +171,9 @@ def fit(
                 print(f"eval  step {gstep}: loss {ev['loss']:.4f} "
                       f"CER {ev['cer']:.4f} WER {ev['wer']:.4f} "
                       f"acc {ev['seq_acc']:.4f}", file=sys.stderr)
-                if mfile:
-                    mfile.write(json.dumps({"kind": "eval", **ev}) + "\n")
-                    mfile.flush()
+                log({"kind": "eval", **ev})
+                if ckpt:
+                    ckpt.save(gstep, state, model_cfg, codec, metrics=ev)
                 if ev["cer"] < best_cer - 1e-6:
                     best_cer = ev["cer"]
                     evals_since_improve = 0
@@ -137,9 +183,16 @@ def fit(
                             >= cfg.early_stop_patience):
                         print("early stopping", file=sys.stderr)
                         break
+        trace.close()  # where the loop ended inside the window
+        if ckpt:
+            ckpt.save(state.step, state, model_cfg, codec)
+            ckpt.wait()
     finally:
+        trace.close()
         if mfile:
             mfile.close()
+        if tb is not None:
+            tb.close()
     return state
 
 

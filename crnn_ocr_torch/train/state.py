@@ -1,9 +1,15 @@
-"""Train state: the model, its Adam optimizer, the learning-rate schedule
-and the step count (``crnn_ocr_tpu/train/state.py:26-128``).
+"""Train state: the model, its optimizer, the learning-rate schedule and
+the step count (``crnn_ocr_tpu/train/state.py:26-128``).
 
-The JAX package's ``optax.chain(clip_by_global_norm(5.0), adam(lr))``
-becomes ``torch.optim.Adam`` (betas 0.9 / 0.999, eps 1e-8) behind a
-clip written as optax writes it: every gradient is scaled by
+The JAX package's ``optax.chain(clip_by_global_norm(5.0), <optimizer>)``
+menu (``make_optimizer``) becomes a ``torch.optim`` optimizer with optax's
+defaults (``make_optimizer`` here): ``adam`` (betas 0.9 / 0.999, eps
+1e-8), ``sgd`` (momentum 0.9), ``rmsprop`` (decay 0.9, eps 1e-8 inside
+the square root: ``RMSprop`` below, since ``torch.optim.RMSprop`` decays
+at 0.99 and adds eps outside the root), ``adadelta`` (rho 0.9, eps 1e-6)
+and ``adamw`` (Adam's, with weight decay 1e-4 on every parameter, biases
+and BatchNorm included, as optax's unmasked default), each behind a clip
+written as optax writes it: every gradient is scaled by
 ``max_norm / g_norm``, as ``(g / g_norm) * max_norm``, only when
 ``g_norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to
 the norm and clips whenever the norm exceeds it, so it does not match).
@@ -35,6 +41,7 @@ from crnn_ocr_torch.models.stn import IDENTITY
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
+OPTIMIZERS = ("adam", "sgd", "rmsprop", "adadelta", "adamw")
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -93,6 +100,55 @@ def make_schedule(name: str, learning_rate: float, total_steps: int = 10_000,
     return sched
 
 
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop``'s update (not centered, no momentum): per element
+    ``nu = (1 - decay) * g**2 + decay * nu`` from ``nu = 0``, then
+    ``p -= lr * g * rsqrt(nu + eps)``. Its one slot is ``state[p]["nu"]``.
+    """
+
+    def __init__(self, params, lr: float = 1e-3, decay: float = 0.9,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("RMSprop.step takes no closure")
+        for group in self.param_groups:
+            lr, decay, eps = group["lr"], group["decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                g, nu = p.grad, state["nu"]
+                nu.copy_((1 - decay) * g.square() + decay * nu)
+                p.sub_(lr * (g * torch.rsqrt(nu + eps)))
+
+
+def make_optimizer(name: str, params, learning_rate: float = 1e-3
+                   ) -> torch.optim.Optimizer:
+    """One of the JAX package's optimizers (``OPTIMIZERS``) over
+    ``params``, with optax's defaults; the clip and the schedule are
+    ``apply_gradients``'s."""
+    name = name.lower()
+    lr = learning_rate
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr, momentum=0.9)
+    if name == "rmsprop":
+        return RMSprop(params, lr=lr)
+    if name == "adadelta":
+        return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6)
+    if name == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=ADAM_BETAS,
+                                 eps=ADAM_EPS, weight_decay=1e-4)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
 @dataclasses.dataclass
 class TrainState:
     model: CRNN
@@ -113,8 +169,8 @@ def global_norm(tensors) -> torch.Tensor:
 
 def apply_gradients(state: TrainState) -> torch.Tensor:
     """Clip the gradients by their global norm (optax's rule, on the device
-    with no host sync), take one Adam update at the schedule's rate, count
-    the step. Returns the global norm before clipping."""
+    with no host sync), take one optimizer update at the schedule's rate,
+    count the step. Returns the global norm before clipping."""
     params = [p for p in state.model.parameters() if p.grad is not None]
     grads = [p.grad for p in params]
     g_norm = global_norm(grads)
@@ -201,12 +257,8 @@ def create_train_state(
     warmup_steps: int = 0,
 ) -> TrainState:
     """A model in training mode on ``device`` (CUDA unless the caller asks
-    for the CPU), from ``state_dict`` or a seeded init, with its
-    optimizer."""
-    if optimizer.lower() != "adam":
-        raise NotImplementedError(
-            f"optimizer {optimizer!r}: only adam is ported; sgd, rmsprop, "
-            "adadelta and adamw are still to port (ROADMAP item 7)")
+    for the CPU), from ``state_dict`` or a seeded init, with its optimizer
+    (one of ``OPTIMIZERS``)."""
     dev = resolve_device(device)
     model = CRNN(cfg)
     if state_dict is None:
@@ -214,10 +266,10 @@ def create_train_state(
     else:
         model.load_state_dict(state_dict)
     model.to(dev).train()
-    opt = torch.optim.Adam(model.parameters(), lr=learning_rate,
-                           betas=ADAM_BETAS, eps=ADAM_EPS)
     return TrainState(
-        model=model, optimizer=opt,
+        model=model,
+        optimizer=make_optimizer(optimizer, model.parameters(),
+                                 learning_rate),
         schedule=make_schedule(schedule, learning_rate, total_steps,
                                warmup_steps),
         clipnorm=clipnorm)

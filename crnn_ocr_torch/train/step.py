@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from crnn_ocr_torch.config import ModelConfig
@@ -32,6 +33,16 @@ from crnn_ocr_torch.ops import ctc
 from crnn_ocr_torch.train.state import TrainState, apply_gradients
 
 LOSS_CLIP = 1e4  # an infeasible line's ~1e30 loss may not swamp the step
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for update ``step`` of a run seeded
+    ``seed``: a hash of the pair (numpy's ``SeedSequence``), as the JAX
+    step draws its key as ``fold_in(key(seed), step)``. A stream that
+    depends on nothing else makes a resumed run draw a straight run's
+    masks."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0])
 
 
 def ctc_loss_vec(logits, labels, input_length, label_length,

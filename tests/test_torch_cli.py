@@ -8,6 +8,11 @@ against the JAX package's, on the CPU.
   decimals) within rtol 1e-4 / atol 1e-4 and span confidences (2 decimals)
   within 0.01; ``--validate`` prints the same CER, WER and sequence
   accuracy.
+* ``--model`` on a checkpoint directory of the port (the same reference
+  weights saved by ``CheckpointManager``): the rows equal
+  ``predict_many``'s texts (scores to the 4 printed decimals) and the
+  reference directory's rows. Both CLIs' ``--model`` help names
+  checkpoint directories.
 * The serve CLI's parser defaults equal JAX's, apart from ``--device``.
 * ``python -m crnn_ocr_torch.cli.serve`` as a subprocess on the CPU: it
   answers a request and exits 0 on SIGTERM. Every wait has a timeout.
@@ -104,6 +109,36 @@ def test_predict_cli_matches_jax(image_dir, tmp_path, capsys, flags):
         for r in got:
             assert "".join(s.split("@")[0] for s in r[-1].split(" ")
                            if s) == r[1]
+
+
+def test_predict_cli_reads_a_port_checkpoint(image_dir, tmp_path, capsys):
+    from crnn_ocr_torch.infer.keras_json import load_reference_model
+    from crnn_ocr_torch.infer.predictor import init_predictor
+    from crnn_ocr_torch.infer.weights import params_from_jax
+    from crnn_ocr_torch.train import CheckpointManager, create_train_state
+
+    cfg, params, stats, codec = load_reference_model(MODEL)
+    state = create_train_state(cfg, params_from_jax(params, stats),
+                               device="cpu")
+    ck = str(tmp_path / "ck")
+    assert CheckpointManager(ck).save(0, state, cfg, codec)
+    argv = ["--image_dir", image_dir, "--greedy"]
+    got, _ = _run(tpredict.main, ["--model", ck, *argv], tmp_path / "c.tsv",
+                  capsys, device="cpu")
+    ref, _ = _run(tpredict.main, ["--model", MODEL, *argv],
+                  tmp_path / "r.tsv", capsys, device="cpu")
+    names = [r[0] for r in got]
+    images = [cv2.imread(os.path.join(image_dir, n), cv2.IMREAD_GRAYSCALE)
+              for n in names]
+    many = init_predictor(ck, device="cpu").predict_many(images)
+    assert [r[1] for r in got] == [p.text for p in many]
+    np.testing.assert_allclose([float(r[2]) for r in got],
+                               [p.score for p in many], atol=1e-4)
+    assert got == ref and len(got) == 10
+    for mod in (tpredict, tserve):
+        action = next(a for a in mod.build_parser()._actions
+                      if a.dest == "model")
+        assert "checkpoint" in action.help
 
 
 def test_predict_cli_needs_a_model(image_dir, capsys):

@@ -936,3 +936,90 @@ def test_migration_forward_on_card(card, variant):
         1, 1, int(variant.endswith("stn")))
     np.testing.assert_allclose(y.cpu().numpy(), data["y"], rtol=1e-4,
                                atol=2e-5)
+
+
+def _small_lstm_setup(device, seed=0):
+    """A narrow BiLSTM CRNN (dropout 0.2) on ``device`` and a function of
+    its synthetic batch stream (``skip`` batches in)."""
+    from crnn_ocr_torch.config import ModelConfig
+    from crnn_ocr_torch.data import pipeline
+    from crnn_ocr_torch.data.synthetic import (
+        SyntheticConfig,
+        SyntheticTextlines,
+    )
+    from crnn_ocr_torch.train import create_train_state
+
+    synth = SyntheticTextlines(SyntheticConfig(alphabet="0123456789",
+                                               min_len=2, max_len=4))
+    cfg = ModelConfig(num_classes=10, width=64, stem_filters=8,
+                      block_filters=(8, 8, 12, 12), time_dense_size=16,
+                      n_units=32, rnn_layers=1, rnn_cell="lstm",
+                      dropout_rate=0.2)
+
+    def state():
+        return create_train_state(cfg, seed=seed, device=device,
+                                  learning_rate=3e-3)
+
+    def stream(skip=0):
+        return pipeline.device_batches(pipeline.synthetic_batches(
+            batch_size=16, bucket=64, seed=4, synth=synth, skip=skip),
+            device, cfg, prefetch=0)
+
+    return cfg, state, stream
+
+
+def _state_tensors(state):
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    for i, slots in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer/{i}/{k}": v for k, v in slots.items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_restores_bitwise(card, tmp_path):
+    """A checkpoint written on the card restores bit for bit into a state
+    on the card and into one on the CPU: parameters, BatchNorm statistics,
+    Adam's slots and step counts, and the step."""
+    from crnn_ocr_torch.train import CheckpointManager, FitConfig, fit
+
+    cfg, state, stream = _small_lstm_setup("cuda")
+    s = fit(state(), cfg, stream(), cfg=FitConfig(steps=3, log_every=100))
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    assert mgr.save(s.step, s)
+    want = {k: v.cpu() for k, v in _state_tensors(s).items()}
+    _, cpu_state, _ = _small_lstm_setup("cpu", seed=1)
+    for fresh in (state(), cpu_state()):
+        got = mgr.restore(fresh)
+        assert got.step == 3
+        tensors = _state_tensors(got)
+        assert tensors.keys() == want.keys()
+        for k, v in tensors.items():
+            assert v.device.type == fresh.device.type or k.endswith("step")
+            assert torch.equal(v.cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_resume_on_card_matches_straight(card, tmp_path):
+    """2 steps, a checkpoint, a restore into a fresh state and 2 more
+    against 4 straight, on the card with dropout 0.2 (each step's masks
+    from the run's seed and the step): the parameters and slots at
+    ``chip_smoke.py`` phase 27 (c)'s tolerance, rtol 2e-4 / atol 2e-5 (the
+    card's convolution backward may sum in another order between runs)."""
+    from crnn_ocr_torch.train import CheckpointManager, FitConfig, fit
+
+    cfg, state, stream = _small_lstm_setup("cuda")
+    straight = fit(state(), cfg, stream(), cfg=FitConfig(steps=4,
+                                                         log_every=100))
+    ck = str(tmp_path / "ck")
+    fit(state(), cfg, stream(), cfg=FitConfig(steps=2, log_every=100,
+                                              checkpoint_dir=ck))
+    resumed = CheckpointManager(ck).restore(state())
+    resumed = fit(resumed, cfg, stream(skip=2),
+                  cfg=FitConfig(steps=4, log_every=100))
+    assert resumed.step == straight.step == 4
+    want, got = _state_tensors(straight), _state_tensors(resumed)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k].float().cpu().numpy(),
+                                   want[k].float().cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)

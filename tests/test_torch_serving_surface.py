@@ -136,9 +136,10 @@ def test_predictor_from_cli_routes_and_refuses(tmp_path):
     with pytest.raises(NotImplementedError, match="item 13"):
         predictor_from_cli(None, "fonts-small", n_devices=2, device="cpu")
     (tmp_path / "model_config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         predictor_from_cli(str(tmp_path), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    (tmp_path / "7" / "default").mkdir(parents=True)  # orbax's layout
+    with pytest.raises(NotImplementedError, match="orbax.*item 15"):
         init_predictor(str(tmp_path), device="cpu")
     pred = predictor_from_cli(None, "fonts-small", normalize=False,
                               device="cpu")

@@ -416,10 +416,11 @@ def test_schedules_match_optax(name, warmup):
 
 def test_unported_options_raise():
     cfg = TorchConfig(**NARROW)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tstate.create_train_state(cfg, device="cpu", optimizer="sgd")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        tstate.create_train_state(cfg, device="cpu", optimizer="lamb")
     state = tstate.create_train_state(cfg, device="cpu")
-    for kw, item in ((dict(checkpoint_dir="x"), 8), (dict(steps_per_call=4), 9),
+    for kw, item in ((dict(device_corpus=object()), 9),
+                     (dict(steps_per_call=4), 9),
                      (dict(on_device_cer=True), 12), (dict(mesh=object()), 13)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             tloop.fit(state, cfg, iter([]), cfg=tloop.FitConfig(**kw))

@@ -33,7 +33,8 @@ from crnn_ocr_tpu.infer.pretrained import pretrained_dir
 from crnn_ocr_tpu.models import CRNN, ModelConfig
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "crnn_ocr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+             "crnn_ocr_tpu")
 
 
 def _flat(tree, prefix=""):
@@ -187,7 +188,11 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/infer/pretrained.py",
             "crnn_ocr_torch/serve/batcher.py", "crnn_ocr_torch/serve/http.py",
             "crnn_ocr_torch/cli/predict.py", "crnn_ocr_torch/cli/serve.py",
-            "crnn_ocr_torch/infer/keras_json.py"} <= names
+            "crnn_ocr_torch/infer/keras_json.py",
+            "crnn_ocr_torch/data/reader.py", "crnn_ocr_torch/data/packed.py",
+            "crnn_ocr_torch/data/fontgen.py",
+            "crnn_ocr_torch/train/checkpoint.py",
+            "crnn_ocr_torch/utils/profiling.py"} <= names
     assert not bad, bad
 
 
@@ -203,7 +208,11 @@ def test_importing_the_port_loads_no_jax():
         "crnn_ocr_torch.models.stn, crnn_ocr_torch.infer.hdf5, "
         "crnn_ocr_torch.serve, crnn_ocr_torch.serve.batcher, "
         "crnn_ocr_torch.serve.http, crnn_ocr_torch.cli.predict, "
-        "crnn_ocr_torch.cli.serve, crnn_ocr_torch.infer.keras_json\n"
+        "crnn_ocr_torch.cli.serve, crnn_ocr_torch.infer.keras_json, "
+        "crnn_ocr_torch.data, crnn_ocr_torch.data.reader, "
+        "crnn_ocr_torch.data.packed, crnn_ocr_torch.data.fontgen, "
+        "crnn_ocr_torch.train, crnn_ocr_torch.train.checkpoint, "
+        "crnn_ocr_torch.utils.profiling\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-small', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-warp-stn', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-hard-lstm', device='cpu')\n"
