@@ -275,6 +275,44 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     the slots filled, 2 K3 and one each of K6-K10 and K1 a step. To run it
     alone: ``phase_build(card)`` then ``phase_files(card, g)``.
 
+28. Fine-tuning ``fonts-hard`` (bf16, dropout 0.2, Adam at ``TRAIN_LR``)
+    with the augmentation (``ops/augment.py``: jitter, noise and an affine
+    warp through K11), K = 4 steps a call, from phase 27's 1,024 PNGs held
+    on the card (``DeviceResidentCorpus``, buckets 64-256, B 128), in a
+    temporary directory outside the repo: (a) the corpus's stacks
+    (``stacked_index_batches(4)``) gathered on the card against the host
+    path's (``stack_host_batches`` of ``run_generator``) byte for byte over
+    two epochs; one cached K = 4 call against 4 streamed single steps on
+    the same batches in f32 (losses rtol 1e-5 / atol 1e-6, parameters rtol
+    1e-3 / atol 1e-6, Adam's slots atol 2e-5, the largest differences
+    printed); 8 steps over a corpus with half its pixel rows resident
+    against full residency, bit for bit; the augmentation through K11
+    against its CPU twin on the card's own draws (atol 1e-5), the draws in
+    their ranges and the noise's mean and std within 3 standard errors;
+    ``batched_levenshtein`` on 4,096 random pairs against the native
+    ``editdistance``, equal; (b) ``fit`` with ``device_corpus``,
+    ``steps_per_call=4``, ``augment``, ``on_device_cer``, a checkpoint and
+    an evaluation every ``AUG_EVAL_EVERY`` steps, counted: each step 1
+    K11, 1 K8, 1 K1 (``"conv9"``), 1 K9, 1 K10, 2 K3, 1 K6 and 1 K7, each
+    evaluation batch 1 K1 (``"mma"``), 2 K2 and 1 K6; before each
+    evaluation the same state is evaluated with the host's CER (its
+    launches taken back out of the counts), and the two CERs must be
+    equal; finite losses, the last CER at most the first's + 0.02; (c) 48
+    steps of ``fit`` from the same state in five modes, in turns (1-5 then
+    5-1): single streamed steps with and without augmentation, K = 4
+    streamed stacks, the corpus at full and at half residency (all three
+    augmented): lines/s and the host's p50 ms a call, a traced window of
+    modes 2 and 4 (the device's idle share, K11's device ms a step), the
+    corpus's bytes and ``torch.cuda.memory_allocated``, beside phase 22's
+    in-memory lines/s; (d) one evaluation pass's CER sums on the card
+    against the host's loop (ms, launches), and one ``batched_levenshtein``
+    at B 128, La = Lb = 32; (e) on a single-bucket corpus (256), fit 8
+    steps with a checkpoint, restore into a fresh state, fit to 16 from
+    ``stacked_index_batches(4, skip=8)``, against a straight 16-step run:
+    ``bitwise: true``, else the largest difference and two straight runs
+    compared. To run it alone: ``phase_build(card)`` then ``phase_aug(card,
+    g)``.
+
 Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24, 25) requires
 each recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
@@ -306,7 +344,8 @@ which computes both; K8's, K9's and K10's rows add their ``design`` and
 and ``kernel_ms_old_host_path``; K1's adds ``train_call`` (phase 15's
 training call at ``fonts-small``'s shape, with phase 17's launches and
 its cuDNN yardstick); K11's adds ``kernel_ms_old_host_path`` and
-``cold_ms``, K12's phase 9's ``design``, ``plan``, ``ptxas``,
+``cold_ms`` and ``augment_launches`` (phase 28's fine-tune), K12's
+phase 9's ``design``, ``plan``, ``ptxas``,
 ``image_ms``, ``cold_ms``, ``image_cold_ms``, ``image_equal`` and
 ``kernel_ms_old_host_path`` and phase 13's ``design_launches``. The
 recurrences' rows
@@ -2785,13 +2824,14 @@ def tier_mix(probs, il) -> dict:
                 sample_frames_bound=float(bound[live].float().mean()))
 
 
-def lean_trace(run) -> dict:
+def lean_trace(run, kernels=()) -> dict:
     """torch.profiler (host and card) over one ``run()``, read off the raw
     kineto records: building ``prof.events()``'s tree for a beam decode's
     ~60,000 ops took ~30 s on the card machine's host. The wall ms, the
     device's busy ms (the union of kernel and copy intervals), the host's
-    waits on the card (synchronize calls; the window's closing one counts)
-    and the kernel launches with their host ms."""
+    waits on the card (synchronize calls; the window's closing one counts),
+    the kernel launches with their host ms, and for each name in
+    ``kernels`` the device ms of the kernels whose names hold it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2816,10 +2856,15 @@ def lean_trace(run) -> dict:
             busy += e - max(s, end)
             end = e
     launch = [e.duration_ns() for e in evs if e.name() == "cudaLaunchKernel"]
+    dev_evs = [e for e in evs
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
     return dict(wall_ms=wall, device_busy_ms=busy / 1e6,
                 syncs=sum("Synchronize" in e.name() for e in evs),
                 kernel_launches=len(launch),
-                launch_host_ms=sum(launch) / 1e6)
+                launch_host_ms=sum(launch) / 1e6,
+                kernel_device_ms={k: sum(e.duration_ns() for e in dev_evs
+                                         if k in e.name()) / 1e6
+                                  for k in kernels})
 
 
 def decode_split(pred, probs, il, rounds: int = 2) -> dict:
@@ -3943,6 +3988,709 @@ def phase_files(card: str, g, in_memory: dict = None) -> dict:
     return dict(speed, host=host)
 
 
+# ---- phase 28: fonts-hard fine-tuned with augmentation from a corpus on
+# ---- the card, K steps a call, evaluated on the card
+
+AUG_K = 4  # steps a call
+AUG_STEPS, AUG_EVAL_EVERY, AUG_LOG_EVERY = 160, 40, 8
+AUG_SEED = 5  # the augmentation stream's
+AUG_SPEED_STEPS = 48  # each throughput mode's steps
+AUG_RESUME = 8  # resume at step 8 of 16
+# per step: phase 8's kernels and the augmentation's warp (K11); per
+# evaluation batch: the served forward (K1 on "mma", 2 K2) and the loss (K6)
+AUG_TRAIN_KERNELS = dict(TRAIN_KERNELS, grid_sample=1)
+AUG_EVAL_KERNELS = {"fused_stem": 1, "bigru": 2, "ctc_alpha": 1}
+# a cached K-step call against single streamed steps: the CPU tests'
+# tolerances (tests/test_torch_train_multi.py, test_torch_device_cache.py)
+AUG_LOSS_RTOL, AUG_LOSS_ATOL = 1e-5, 1e-6
+AUG_PARAM_RTOL, AUG_PARAM_ATOL, AUG_SLOT_ATOL = 1e-3, 1e-6, 2e-5
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def launch_state():
+    """Every launch counter's value, to put back with
+    :func:`restore_launches` (launches made only to compare do not count)."""
+    from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import grid_sample as gs
+
+    return (read_launches(), collections.Counter(fused_stem.design_launches),
+            collections.Counter(bigru.design_launches),
+            collections.Counter(ctc_loss.design_launches),
+            collections.Counter(gs.design_launches))
+
+
+def restore_launches(snap) -> None:
+    from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
+    from crnn_ocr_torch.kernels import fused_stem_train as fst
+    from crnn_ocr_torch.kernels import grid_sample as gs
+
+    counts, stem, rnn, ctc, sampler = snap
+    bigru.launches, bigru.train_launches = (counts["bigru"],
+                                            counts["bigru_train"])
+    bigru.lstm_launches = counts["bilstm"]
+    bigru.lstm_train_launches = counts["bilstm_train"]
+    ctc_loss.alpha_launches = counts["ctc_alpha"]
+    ctc_loss.beta_launches = counts["ctc_beta"]
+    gs.launches, gs.bwd_launches = (counts["grid_sample"],
+                                    counts["grid_sample_bwd"])
+    fst.stats_launches = counts["stem_stats"]
+    fst.partials_launches = counts["stem_bwd_partials"]
+    fst.final_launches = counts["stem_bwd_final"]
+    for live, saved in ((fused_stem.design_launches, stem),
+                        (bigru.design_launches, rnn),
+                        (ctc_loss.design_launches, ctc),
+                        (gs.design_launches, sampler)):
+        live.clear()
+        live.update(saved)
+    require(read_launches() == counts, "the launch counts were not restored")
+
+
+def flat_batches(stream):
+    """Each batch of a stream of stacks and single batches, in order, with
+    its stack's ``batch_index`` entry: (bucket, index, k, item)."""
+    for item in stream:
+        k_total = int(item.get("stacked", 0))
+        if not k_total:
+            yield int(item["bucket"]), int(item["batch_index"]), None, item
+        for k in range(k_total):
+            yield int(item["bucket"]), int(item["batch_index"][k]), k, item
+
+
+def aug_stream_parity(reader, corpus, dev) -> dict:
+    """Phase 28 (a): the stacks of ``stacked_index_batches(AUG_K)``
+    gathered on the card against ``stack_host_batches`` of the host path
+    (``run_generator``) over two epochs: each batch's pixel rows, widths,
+    labels and label lengths byte for byte, and its ``batch_index``."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch.data.pipeline import stack_host_batches
+
+    host = flat_batches(stack_host_batches(
+        reader.run_generator(train=True, epochs=2), AUG_K, prefetch=0))
+    devs = flat_batches(corpus.stacked_index_batches(AUG_K, epochs=2))
+    n = 0
+    for (hb, hi, hk, h), (db, di, dk, d) in zip(host, devs, strict=True):
+        require((hb, hi) == (db, di), f"batch {n}: host (bucket {hb}, index "
+                                      f"{hi}), corpus ({db}, {di})")
+        arrs = corpus.arrays(db)
+        rows = torch.from_numpy(np.asarray(d["rows"][dk], np.int64)).to(dev)
+        px = arrs["pixels"].index_select(0, rows).cpu().numpy()
+        canvas = h["the_input"] if hk is None else h["the_input"][hk]
+        pick = (lambda key: h[key]) if hk is None else (lambda key: h[key][hk])
+        w = min(canvas.shape[2], px.shape[2])
+        same = (np.array_equal(px[:, :canvas.shape[1], :w],
+                               canvas[:, :px.shape[1], :w])
+                and (px[:, :, w:] == 255).all()
+                and (canvas[:, :, w:] == 255).all()
+                and (canvas[:, px.shape[1]:] == 255).all())
+        for key, tkey in (("widths", "widths"), ("the_labels", "labels"),
+                          ("label_length", "lab_len")):
+            same = same and np.array_equal(
+                arrs[tkey].index_select(0, rows).cpu().numpy(), pick(key))
+        require(same, f"batch {n} (bucket {db}, index {di}): the corpus's "
+                      f"rows differ from the host path's")
+        n += 1
+    return dict(batches=n, equal=True)
+
+
+def aug_cached_parity(reader, corpus, cfg32, fresh32, dev) -> dict:
+    """Phase 28 (a): one cached K = 4 call (augmented) against 4 single
+    streamed steps of the same 4 batches (one bucket) in f32, TF32 off:
+    losses at rtol 1e-5 / atol 1e-6, parameters and BatchNorm statistics
+    at rtol 1e-3 / atol 1e-6, Adam's slots at atol 2e-5."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch.data.pipeline import produce_batch
+    from crnn_ocr_torch.train import step as step_lib
+
+    groups: dict = {}
+    for i, b in enumerate(reader.run_generator(train=True, epochs=2)):
+        group = groups.setdefault(int(b["bucket"]), [])
+        group.append((i, b))
+        if len(group) == AUG_K:
+            break
+    stack = next(corpus.stacked_index_batches(AUG_K))
+    require([i for i, _ in group] == list(stack["batch_index"]),
+            f"the first stack's batches {list(stack['batch_index'])}, the "
+            f"host's {[i for i, _ in group]}")
+    a, b = fresh32(), fresh32()
+    single = step_lib.make_train_step(cfg32)
+    gen = torch.Generator(device=dev)
+    losses = []
+    for i, raw in group:
+        batch = produce_batch(dict(raw), dev, cfg32, augment=True,
+                              augment_seed=AUG_SEED, index=i)
+        batch.pop("texts"), batch.pop("bucket")
+        gen.manual_seed(step_lib.step_seed(0, a.step))
+        losses.append(float(single(a, batch, gen)["loss"]))
+    arrs = corpus.arrays(stack["bucket"])
+    ms = step_lib.make_cached_multi_train_step(
+        cfg32, augment=True, augment_seed=AUG_SEED)(
+        b, arrs["pixels"], arrs["widths"], arrs["labels"], arrs["lab_len"],
+        stack["rows"], stack["batch_index"], 0, stack["bucket"])
+    got = ms["loss"].cpu().numpy()
+    loss_diff = float(np.max(np.abs(got - losses)))
+    loss_ok = bool(np.allclose(got, losses, rtol=AUG_LOSS_RTOL,
+                               atol=AUG_LOSS_ATOL))
+    worst = {}
+    ok = loss_ok
+    ta, tb = state_tensors(a), state_tensors(b)
+    for key in ta:
+        x = ta[key].detach().float().cpu().numpy()
+        y = tb[key].detach().float().cpu().numpy()
+        slot = key.startswith("optimizer")
+        rtol, atol = (0, AUG_SLOT_ATOL) if slot else (AUG_PARAM_RTOL,
+                                                      AUG_PARAM_ATOL)
+        ok = ok and bool(np.allclose(y, x, rtol=rtol, atol=atol))
+        kind = "slots" if slot else "params"
+        d = float(np.max(np.abs(x - y))) if x.size else 0.0
+        if d >= worst.get(kind, (0.0, None))[0]:
+            worst[kind] = (d, key)
+    res = dict(bucket=int(stack["bucket"]), losses=losses,
+               cached_losses=got.tolist(), max_loss_diff=loss_diff,
+               max_param_diff=worst["params"][0],
+               max_param_diff_tensor=worst["params"][1],
+               max_slot_diff=worst["slots"][0],
+               max_slot_diff_tensor=worst["slots"][1],
+               bitwise=compare_states(a, b)["bitwise"], within=ok)
+    require(ok, f"a cached K-step call differs from single steps: {res}")
+    return res
+
+
+def aug_fit_steps(state, cfg, stream, steps, **kw):
+    from crnn_ocr_torch.train import FitConfig, fit
+
+    return fit(state, cfg, stream, cfg=FitConfig(
+        steps=steps, log_every=10 ** 6, steps_per_call=AUG_K, augment=True,
+        augment_seed=AUG_SEED, **kw))
+
+
+def aug_partial_parity(corpus, half, cfg, fresh) -> dict:
+    """Phase 28 (a): 8 steps (2 calls) over the corpus with about half its
+    pixel rows resident against the same over full residency: bitwise."""
+    full = aug_fit_steps(fresh(), cfg, corpus.stacked_index_batches(AUG_K),
+                         2 * AUG_K, device_corpus=corpus)
+    part = aug_fit_steps(fresh(), cfg, half.stacked_index_batches(AUG_K),
+                         2 * AUG_K, device_corpus=half)
+    res = dict(resident_fraction=half.resident_fraction,
+               resident_rows=dict(half._n_resident),
+               rows=corpus._n_resident, **compare_states(full, part))
+    require(res["bitwise"], f"partial residency differs from full: {res}")
+    return res
+
+
+def aug_sampler_check(reader, cfg, dev) -> dict:
+    """Phase 28 (a): ``augment_with_draws`` on the card (K11) against its
+    CPU twin on the same draws (the card's own, copied), atol 1e-5, on a
+    training batch's frames at bucket 256; the draws in their ranges, the
+    noise's mean and std within 3 standard errors."""
+    import math
+
+    from crnn_ocr_torch.data.pipeline import produce_batch
+    from crnn_ocr_torch.kernels import grid_sample as gs
+    from crnn_ocr_torch.ops import augment
+
+    raw = next(b for b in reader.run_generator(train=True)
+               if int(b["bucket"]) == BUCKET)
+    x = produce_batch(dict(raw), dev, cfg)["x"]
+    B, H, W = x.shape
+    acfg = augment.AugmentConfig()
+    draws = augment.augment_draws(B, H, W,
+                                  augment.augment_generator(dev, AUG_SEED, 0))
+    n = gs.launches
+    got = augment.augment_with_draws(x, draws)
+    sync(dev)
+    launches = gs.launches - n
+    want = augment.augment_with_draws(
+        x.cpu(), {k: v.cpu() for k, v in draws.items()})
+    err = float((got.cpu() - want).abs().max())
+    ranges = {}
+    for key, lo, hi in (
+            ("brightness", -acfg.brightness, acfg.brightness),
+            ("contrast", 1 - acfg.contrast, 1 + acfg.contrast),
+            ("shear", -acfg.shear, acfg.shear),
+            ("rotation", -acfg.rotate, acfg.rotate),
+            ("translation", -acfg.translate, acfg.translate)):
+        v = draws[key]
+        ranges[key] = [float(v.min()), float(v.max())]
+        require(lo <= ranges[key][0] and ranges[key][1] <= hi,
+                f"augmentation draw {key} {ranges[key]} outside [{lo}, {hi}]")
+    noise = draws["noise"].double()
+    nn_ = noise.numel()
+    mean, std = float(noise.mean()), float(noise.std())
+    se_mean = acfg.noise_std / math.sqrt(nn_)
+    se_std = acfg.noise_std / math.sqrt(2 * nn_)
+    res = dict(shape=[B, H, W], max_abs_err=err, tolerance=1e-5,
+               k11_launches=launches, ranges=ranges, noise_mean=mean,
+               noise_std=std, noise_mean_se=se_mean, noise_std_se=se_std)
+    require(err <= 1e-5 and launches == (1 if x.is_cuda else 0)
+            and abs(mean) <= 3 * se_mean
+            and abs(std - acfg.noise_std) <= 3 * se_std,
+            f"the augmentation on the card: {res}")
+    return res
+
+
+def aug_levenshtein_check(dev, pairs: int = 4096) -> dict:
+    """Phase 28 (a): ``batched_levenshtein`` on the card against the
+    native ``editdistance`` on ``pairs`` random pairs, lengths 0-64, half
+    over 2 labels and half over 60: equal."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch import native
+    from crnn_ocr_torch.ops.editdistance import batched_levenshtein
+
+    rng = np.random.default_rng(28)
+    out = {}
+    for vocab in (2, 60):
+        n = pairs // 2
+        a = rng.integers(0, vocab, (n, 64)).astype(np.int32)
+        b = rng.integers(0, vocab, (n, 64)).astype(np.int32)
+        la = rng.integers(0, 65, n).astype(np.int32)
+        lb = rng.integers(0, 65, n).astype(np.int32)
+        got = batched_levenshtein(*(torch.from_numpy(v).to(dev)
+                                    for v in (a, la, b, lb))).cpu().numpy()
+        want = np.array([native.editdistance(a[i, :la[i]].tolist(),
+                                             b[i, :lb[i]].tolist())
+                         for i in range(n)])
+        out[f"vocab_{vocab}"] = dict(pairs=n, equal=int((got == want).sum()),
+                                     mean_distance=float(want.mean()))
+        require(np.array_equal(got, want), f"batched_levenshtein differs "
+                                           f"from editdistance: {out}")
+    return out
+
+
+def aug_fit(card, reader, corpus, cfg, codec, fresh, tmp, dev) -> dict:
+    """Phase 28 (b): ``fit`` over the corpus on the card, K = 4 a call,
+    augmented, evaluated with ``on_device_cer`` every ``AUG_EVAL_EVERY``
+    steps and checkpointed, counted. Before each evaluation the same state
+    is evaluated on the same batches with the host's CER (its launches are
+    taken back out of the counts): the two CERs must be equal."""
+    import math
+
+    from crnn_ocr_torch.data.pipeline import device_batches
+    from crnn_ocr_torch.kernels import bigru, fused_stem
+    from crnn_ocr_torch.train import (
+        CheckpointManager,
+        FitConfig,
+        evaluate,
+        fit,
+    )
+    from crnn_ocr_torch.train import step as step_lib
+
+    held = list(device_batches(reader.run_generator(train=False, epochs=1),
+                               dev, cfg, prefetch=0))
+    n_eval = len(held)
+    eval_step = step_lib.make_eval_step(cfg)
+    state = fresh()
+    host_cers = []
+
+    def eval_iter():
+        snap = launch_state()
+        host_cers.append(evaluate(state, eval_step, iter(held), codec,
+                                  n_eval)["cer"])
+        restore_launches(snap)
+        return iter(held)
+
+    ck, metrics_path = os.path.join(tmp, "aug_ckpt"), os.path.join(
+        tmp, "aug_fit.jsonl")
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    fit(state, cfg, corpus.stacked_index_batches(AUG_K), eval_iter, codec,
+        FitConfig(steps=AUG_STEPS, eval_every=AUG_EVAL_EVERY,
+                  eval_batches=n_eval, log_every=AUG_LOG_EVERY,
+                  metrics_path=metrics_path, checkpoint_dir=ck,
+                  steps_per_call=AUG_K, device_corpus=corpus, augment=True,
+                  augment_seed=AUG_SEED, on_device_cer=True))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    n_evals = AUG_STEPS // AUG_EVAL_EVERY
+    what = f"fonts-hard from the device corpus: {AUG_STEPS} steps"
+    want = {k: v * AUG_STEPS for k, v in AUG_TRAIN_KERNELS.items()}
+    for k, v in AUG_EVAL_KERNELS.items():
+        want[k] = want.get(k, 0) + v * n_eval * n_evals
+    emit("launches", model="fonts-hard", path="device_corpus_k4_aug",
+         train_steps=AUG_STEPS, eval_batches=n_eval * n_evals, **counts)
+    with open(metrics_path) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r["kind"] == "train"]
+    ev = [r for r in recs if r["kind"] == "eval"]
+    device_cers = [r["cer"] for r in ev]
+    losses = [r["loss"] for r in train]
+    res = dict(steps=state.step, steps_per_call=AUG_K, evals=len(ev),
+               eval_steps=[r["step"] for r in ev], eval_batches=n_eval,
+               device_cer=device_cers, host_cer=host_cers,
+               eval_loss=[r["loss"] for r in ev], first_loss=losses[0],
+               last_loss=losses[-1], wall_s=wall,
+               fit_lines_per_s=train[-1]["lines_per_sec"],
+               host_call_p50_ms=train[-1]["host_step_p50_ms"],
+               checkpoints=CheckpointManager(ck).all_steps(), card=card)
+    emit("aug_fit", **res)
+    if dev.type == "cuda":
+        require_launches(counts, want, what)
+        stem = {d: n for d, n in fused_stem.design_launches.items() if n}
+        require(stem == {STEM_PATH_DESIGN["train"]: AUG_STEPS,
+                         STEM_PATH_DESIGN["serve"]: n_eval * n_evals},
+                f"{what}: K1 launched {stem} by design")
+        rnn = {d: n for d, n in bigru.design_launches.items() if n}
+        require(all(d.name == PATH_DESIGN["bigru"] for d in rnn),
+                f"{what}: recurrence launches by design {rnn}")
+        read_ctc_design({"ctc_alpha": counts["ctc_alpha"],
+                         "ctc_beta": counts["ctc_beta"]}, what)
+    require(state.step == AUG_STEPS and len(ev) == n_evals >= 3,
+            f"{what}: {state.step} steps, {len(ev)} evaluations")
+    require(device_cers == host_cers,
+            f"{what}: the on-device CER {device_cers} differs from the "
+            f"host's {host_cers}")
+    require(all(map(math.isfinite, losses)), f"{what}: losses {losses}")
+    require(device_cers[-1] <= device_cers[0] + 0.02,
+            f"{what}: the CER rose from {device_cers[0]} to "
+            f"{device_cers[-1]}")
+    return dict(res, held=held, launches=counts)
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def sync_sites(run, top: int = 8, calls=SYNC_CALLS) -> dict:
+    """The host's waits on the card in ``run()`` (the CUDA runtime's
+    synchronize calls), by where they come from: torch.profiler with
+    Python stacks, each wait charged to the innermost ``crnn_ocr_torch``
+    function and the innermost ``aten::`` op whose intervals on its thread
+    hold it (``"other"`` where none does)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        run()
+    evs = prof.events()
+    frames = [e for e in evs if "crnn_ocr_torch/" in e.name
+              or e.name.startswith("aten::")]
+    sites = collections.Counter()
+    for e in evs:
+        if e.name not in calls:
+            continue
+        r = e.time_range
+        holders = sorted((f for f in frames if f.thread == e.thread
+                          and f.time_range.start <= r.start
+                          and f.time_range.end >= r.end),
+                         key=lambda f: f.time_range.start, reverse=True)
+        fn = next((f.name.split("crnn_ocr_torch/")[-1] for f in holders
+                   if "crnn_ocr_torch/" in f.name), "other")
+        op = next((f.name for f in holders if f.name.startswith("aten::")),
+                  "")
+        sites[f"{fn} {op}".strip()] += 1
+    return dict(sites.most_common(top))
+
+
+def aug_throughput(card, reader, corpus, half, cfg, fresh, dev, tmp,
+                   in_memory=None) -> dict:
+    """Phase 28 (c): ``AUG_SPEED_STEPS`` steps of ``fit`` from a fresh
+    state in five modes, in turns (1-5, then 5-1): lines/s over the
+    synchronized wall time, and the host's p50 ms a call (``fit``'s
+    timer); then a traced window of modes 2 and 4 (the device's idle share
+    and K11's device ms a step), the corpus's bytes on the card and the
+    memory allocated."""
+    import torch
+    from crnn_ocr_torch.data.pipeline import device_batches, \
+        stack_host_batches
+    from crnn_ocr_torch.train import FitConfig, fit
+
+    aug = dict(augment=True, augment_seed=AUG_SEED)
+    modes = {
+        "1_streamed": (lambda: device_batches(
+            reader.run_generator(train=True), dev, cfg, prefetch=2), {}),
+        "2_streamed_aug": (lambda: device_batches(
+            reader.run_generator(train=True), dev, cfg, prefetch=2, **aug),
+            dict(aug)),
+        "3_stacked_k4_aug": (lambda: stack_host_batches(
+            reader.run_generator(train=True), AUG_K, prefetch=2),
+            dict(aug, steps_per_call=AUG_K)),
+        "4_corpus_k4_aug": (lambda: corpus.stacked_index_batches(AUG_K),
+                            dict(aug, steps_per_call=AUG_K,
+                                 device_corpus=corpus)),
+        "5_partial_k4_aug": (lambda: half.stacked_index_batches(AUG_K),
+                             dict(aug, steps_per_call=AUG_K,
+                                  device_corpus=half)),
+    }
+
+    runs = iter(range(10 ** 6))
+
+    def run(key, steps, state=None, trace=False, sites=False):
+        make, kw = modes[key]
+        state = state or fresh()
+        stream = make()
+        path = os.path.join(tmp, f"speed_{next(runs)}.jsonl")
+        fitcfg = FitConfig(steps=state.step + steps,
+                           log_every=steps, metrics_path=path, **kw)
+        sync(dev)
+        t0 = time.perf_counter()
+        if sites:
+            tr = sync_sites(lambda: fit(state, cfg, stream, cfg=fitcfg))
+        elif trace:
+            tr = lean_trace(lambda: fit(state, cfg, stream, cfg=fitcfg),
+                            kernels=("sample_fwd",))
+        else:
+            fit(state, cfg, stream, cfg=fitcfg)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        if hasattr(stream, "close"):
+            stream.close()
+        with open(path) as f:
+            last = [json.loads(line) for line in f][-1]
+        out = dict(lines_per_s=steps * TRAIN_BATCH / wall,
+                   host_call_p50_ms=last["host_step_p50_ms"],
+                   host_step_p50_ms=last["host_step_p50_ms"]
+                   / kw.get("steps_per_call", 1))
+        return (out, tr, state) if trace else out
+
+    rounds = {key: [] for key in modes}
+    for order in (list(modes), list(reversed(modes))):
+        for key in order:
+            rounds[key].append(run(key, AUG_SPEED_STEPS))
+    res = {key: dict(
+        lines_per_s=[r["lines_per_s"] for r in rs],
+        mean_lines_per_s=statistics.mean(r["lines_per_s"] for r in rs),
+        host_call_p50_ms=[r["host_call_p50_ms"] for r in rs],
+        host_step_p50_ms=[r["host_step_p50_ms"] for r in rs])
+        for key, rs in rounds.items()}
+    if dev.type == "cuda":
+        for key in ("2_streamed_aug", "4_corpus_k4_aug"):
+            _, _, warm = run(key, 8, trace=True)  # a warm state and stream
+            _, tr, _ = run(key, 16, state=warm, trace=True)
+            k11 = tr["kernel_device_ms"]["sample_fwd"]
+            res[key]["trace"] = dict(
+                tr, steps=16,
+                device_idle_share=1 - tr["device_busy_ms"] / tr["wall_ms"],
+                k11_ms_per_step=k11 / 16)
+            # the same window's host waits by source line (8 steps)
+            _, sites, _ = run(key, 8, state=warm, trace=True, sites=True)
+            res[key]["sync_sites_8_steps"] = sites
+        res["memory"] = dict(
+            corpus_resident_bytes=corpus.resident_bytes(),
+            corpus_total_bytes=corpus.total_bytes,
+            partial_resident_bytes=half.resident_bytes(),
+            partial_resident_fraction=half.resident_fraction,
+            cuda_memory_allocated=torch.cuda.memory_allocated())
+    res["in_memory_phase_22"] = in_memory
+    return res
+
+
+def aug_cer_timing(state, held, eval_step, dev) -> dict:
+    """Phase 28 (d): one evaluation pass's CER sums on the card
+    (``cer_sums_on_device`` on each batch's greedy decode; wall ms,
+    synchronized, and the kernel launches of a traced pass) against the
+    host's loop (the decodes copied to the host, each line's distance by
+    the native ``editdistance``); then one ``batched_levenshtein`` call at
+    B 128, La = Lb = 32 against the host loop on the same rows."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch.ops.editdistance import (
+        batched_levenshtein,
+        cer_sums_on_device,
+    )
+    from crnn_ocr_torch.utils.metrics import levenshtein
+
+    decoded = [eval_step(state, b)[1] for b in held]
+    labels = [(b["the_labels"], b["label_length"]) for b in held]
+
+    def on_device():
+        s = r = 0
+        for dec, (lab, ln) in zip(decoded, labels):
+            d, n = cer_sums_on_device(dec, lab, ln)
+            s, r = s + d, r + n
+        return int(s), int(r)
+
+    def on_host():
+        s = r = 0
+        for dec, (lab, ln) in zip(decoded, labels):
+            dec, lab, ln = dec.cpu().numpy(), lab.cpu().numpy(), \
+                ln.cpu().numpy()
+            for row, lr, m in zip(dec, lab, ln):
+                s += levenshtein(row[row >= 0].tolist(), lr[:m].tolist())
+                r += int(m)
+        return s, r
+
+    def timed(fn, reps=5):
+        fn()
+        out, times = None, []
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    (dev_sums, dev_ms), (host_sums, host_ms) = timed(on_device), timed(on_host)
+    require(dev_sums == host_sums, f"CER sums: device {dev_sums}, host "
+                                   f"{host_sums}")
+    rng = np.random.default_rng(32)
+    a = rng.integers(0, 60, (TRAIN_BATCH, 32)).astype(np.int32)
+    b = rng.integers(0, 60, (TRAIN_BATCH, 32)).astype(np.int32)
+    la = rng.integers(16, 33, TRAIN_BATCH).astype(np.int32)
+    lb = rng.integers(16, 33, TRAIN_BATCH).astype(np.int32)
+    ta = [torch.from_numpy(v).to(dev) for v in (a, la, b, lb)]
+    (one, one_ms) = timed(lambda: batched_levenshtein(*ta).cpu().numpy())
+    (ref, ref_ms) = timed(lambda: np.array([
+        levenshtein(a[i, :la[i]].tolist(), b[i, :lb[i]].tolist())
+        for i in range(TRAIN_BATCH)]))
+    require(np.array_equal(one, ref), "batched_levenshtein at B 128 differs")
+    res = dict(eval_batches=len(held), lines=sum(len(d) for d in decoded),
+               sums=list(dev_sums), device_ms=dev_ms, host_loop_ms=host_ms,
+               b128_l32=dict(device_ms=one_ms, host_loop_ms=ref_ms,
+                             diagonals=63))
+    if dev.type == "cuda":
+        res["launches"] = lean_trace(on_device)["kernel_launches"]
+        res["b128_l32"]["launches"] = lean_trace(
+            lambda: batched_levenshtein(*ta))["kernel_launches"]
+    return res
+
+
+def aug_resume(corpus_dir, codec, cfg, fresh, tmp) -> dict:
+    """Phase 28 (e): a single-bucket corpus (bucket 256, on a copy of the
+    PNGs): fit 8 steps (K = 4, augmented) with ``checkpoint_dir``, restore
+    into a fresh state, fit to 16 from ``stacked_index_batches(4,
+    skip=8)``, against a straight 16-step run."""
+    import shutil
+
+    from crnn_ocr_torch.data.device_cache import DeviceResidentCorpus
+    from crnn_ocr_torch.data.reader import Reader, ReaderConfig
+    from crnn_ocr_torch.train import CheckpointManager
+
+    d = os.path.join(tmp, "corpus_256")
+    shutil.copytree(corpus_dir, d, ignore=shutil.ignore_patterns(
+        ".crnn_pack", ".crnn_sizes.json"))
+    reader = Reader(ReaderConfig(d, batch_size=TRAIN_BATCH,
+                                 val_fraction=FILES_VAL, buckets=(BUCKET,),
+                                 max_label_len=TRAIN_MAX_LABEL,
+                                 pack_cache=True), codec=codec)
+    one = DeviceResidentCorpus(reader, device=fresh().device)
+    k = AUG_RESUME
+
+    def run(state, steps, skip=0, ck=None):
+        return aug_fit_steps(state, cfg, one.stacked_index_batches(
+            AUG_K, skip=skip), steps, device_corpus=one, checkpoint_dir=ck)
+
+    ck = os.path.join(tmp, "aug_resume")
+    straight = run(fresh(), 2 * k)
+    first = run(fresh(), k, ck=ck)
+    restored = CheckpointManager(ck).restore(fresh())
+    restore = compare_states(first, restored)
+    require(restore["bitwise"], f"the restored state differs: {restore}")
+    resumed = run(restored, 2 * k, skip=k)
+    res = dict(k=k, buckets=[BUCKET], restore_bitwise=True,
+               **compare_states(straight, resumed))
+    if not res["bitwise"]:  # the resume, or any two runs?
+        res["straight_vs_straight"] = compare_states(straight,
+                                                     run(fresh(), 2 * k))
+    emit("aug_resume", **res)
+    require(res["bitwise"] or res["within_tolerance"],
+            f"the resumed run disagrees with the straight one: {res}")
+    print(f"bitwise: {'true' if res['bitwise'] else 'false'}"
+          + ("" if res["bitwise"] else
+             f" (max |diff| {res['max_abs_diff']} in "
+             f"{res['max_diff_tensor']})"), flush=True)
+    return res
+
+
+def phase_aug(card: str, g, in_memory: dict = None, dev="cuda") -> dict:
+    """Phase 28: fine-tune ``fonts-hard`` (bf16, dropout 0.2, Adam at
+    ``TRAIN_LR``) with augmentation, K = 4 steps a call, from phase 27's
+    1,024 PNGs held on the card (``DeviceResidentCorpus``), evaluated on
+    the card; its parity checks, throughput in five modes, the CER's
+    timing and a resume. Everything is written to a temporary directory
+    outside the repo. ``in_memory``: phase 22's lines/s and p50 in this
+    call."""
+    import tempfile
+
+    import torch
+    from crnn_ocr_torch.data.device_cache import DeviceResidentCorpus
+    from crnn_ocr_torch.data.reader import Reader, ReaderConfig
+    from crnn_ocr_torch.infer.pretrained import model_weights
+    from crnn_ocr_torch.infer.weights import params_from_jax
+    from crnn_ocr_torch.train import create_train_state
+    from crnn_ocr_torch.train import step as step_lib
+
+    dev = torch.device(dev)
+
+    def setup(dtype):
+        cfg, params, stats, codec = model_weights("fonts-hard", dtype)
+        cfg = dataclasses.replace(cfg, dropout_rate=0.2)
+        weights = params_from_jax(params, stats)
+
+        def fresh():
+            return create_train_state(cfg, weights, device=dev,
+                                      learning_rate=TRAIN_LR)
+        return cfg, codec, fresh
+
+    cfg, codec, fresh = setup("bfloat16")
+    secs = {}
+    t0 = time.perf_counter()
+
+    def lap(key):
+        nonlocal t0
+        t1 = time.perf_counter()
+        secs[key] = t1 - t0
+        t0 = t1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus_dir = os.path.join(tmp, "corpus")
+        os.makedirs(corpus_dir)
+        write_corpus(g, corpus_dir)
+        reader = Reader(ReaderConfig(
+            corpus_dir, batch_size=TRAIN_BATCH, val_fraction=FILES_VAL,
+            buckets=FILES_BUCKETS, max_label_len=TRAIN_MAX_LABEL,
+            pack_cache=True), codec=codec)
+        t1 = time.perf_counter()
+        corpus = DeviceResidentCorpus(reader, device=dev)
+        upload_s = time.perf_counter() - t1
+        pixels = sum(mm.nbytes for mm in corpus._mm.values())
+        half = DeviceResidentCorpus(
+            reader, max_bytes=corpus.total_bytes - pixels + pixels // 2,
+            device=dev)
+        emit("aug_corpus", files=len(reader.samples),
+             total_bytes=corpus.total_bytes,
+             resident_bytes=corpus.resident_bytes(), upload_s=upload_s,
+             rows=corpus._n_resident, partial_rows=half._n_resident,
+             partial_resident_fraction=half.resident_fraction)
+        lap("corpus")
+        parity = dict(stream=aug_stream_parity(reader, corpus, dev))
+        cfg32, _, fresh32 = setup("float32")
+        parity["cached_vs_streamed_f32"] = aug_cached_parity(
+            reader, corpus, cfg32, fresh32, dev)
+        parity["partial_vs_full"] = aug_partial_parity(corpus, half, cfg,
+                                                       fresh)
+        parity["augment"] = aug_sampler_check(reader, cfg, dev)
+        parity["levenshtein"] = aug_levenshtein_check(dev)
+        emit("aug_parity", card=card, **parity)
+        lap("parity")
+        fitted = aug_fit(card, reader, corpus, cfg, codec, fresh, tmp, dev)
+        lap("fit")
+        speed = aug_throughput(card, reader, corpus, half, cfg, fresh, dev,
+                               tmp, in_memory)
+        emit("aug_throughput", card=card, **speed)
+        lap("throughput")
+        timing = aug_cer_timing(fresh(), fitted["held"],
+                                step_lib.make_eval_step(cfg), dev)
+        emit("aug_cer_timing", card=card, **timing)
+        lap("cer_timing")
+        aug_resume(corpus_dir, codec, cfg, fresh, tmp)
+        lap("resume")
+    emit("aug_seconds", **secs)
+    return fitted["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -4112,8 +4860,12 @@ def main() -> int:
     phase_daemon(card, g)
 
     # phase 27: fonts-hard-lstm fine-tuned from image files, resumed, served
-    phase_files(card, g, {k: train[k] for k in ("lines_per_s",
-                                                 "p50_step_ms")})
+    in_memory = {k: train[k] for k in ("lines_per_s", "p50_step_ms")}
+    phase_files(card, g, in_memory)
+
+    # phase 28: fonts-hard fine-tuned with augmentation from a corpus on
+    # the card, K steps a call, evaluated on the card, resumed
+    aug = phase_aug(card, g, in_memory)
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
@@ -4185,6 +4937,8 @@ def main() -> int:
                 bound_by=k1["bound_by"], library_ms=k1["library_ms"],
                 library_device_ms=k1["library_device_ms"],
                 library=k1["library"], max_abs_err=k1["max_abs_err"])
+        if name == "grid_sample":  # the augmentation's warp, phase 28
+            kernels[-1]["augment_launches"] = aug["grid_sample"]
         if name == "grid_sample_bwd":  # phase 13's launches by design
             require({c["design"]: counts[name]} == sampler_design,
                     f"{name}: timed on {c['design']}, but the counted run "

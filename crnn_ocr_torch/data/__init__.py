@@ -1,11 +1,17 @@
 from crnn_ocr_torch.data.codec import LabelCodec, default_ocr_codec
+from crnn_ocr_torch.data.device_cache import DeviceResidentCorpus
 from crnn_ocr_torch.data.fontgen import FontConfig, FontTextlines
 from crnn_ocr_torch.data.packed import PackedCache
-from crnn_ocr_torch.data.pipeline import device_batches, synthetic_batches
+from crnn_ocr_torch.data.pipeline import (
+    device_batches,
+    stack_host_batches,
+    synthetic_batches,
+)
 from crnn_ocr_torch.data.reader import Reader, ReaderConfig
 from crnn_ocr_torch.data.synthetic import SyntheticConfig, SyntheticTextlines
 
 __all__ = [
+    "DeviceResidentCorpus",
     "FontConfig",
     "FontTextlines",
     "LabelCodec",
@@ -16,5 +22,6 @@ __all__ = [
     "SyntheticConfig",
     "SyntheticTextlines",
     "device_batches",
+    "stack_host_batches",
     "synthetic_batches",
 ]

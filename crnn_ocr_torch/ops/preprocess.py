@@ -1,7 +1,8 @@
 """Batch preprocessing: resize to height, pad to the bucket, standardize.
 
 Port of ``crnn_ocr_tpu/ops/preprocess.py`` (``preprocess_batch``,
-``quantize_dim``, ``pack_canvas``). The JAX package resizes with
+``preprocess_resident``, ``quantize_dim``, ``pack_canvas``). The JAX
+package resizes with
 ``jax.image.scale_and_translate(method="linear", antialias=False)`` and a
 per-image scale; here each image gets its own sampling matrices
 ``Wy (out_h, Hmax)`` and ``Wx (out_w, Wmax)``, built with that function's
@@ -75,6 +76,22 @@ def preprocess_batch(
         std = x.std(dim=(1, 2), keepdim=True, correction=0)  # jnp.std
         x = (x - mean) / (std + NORM_EPSILON)
     return x, w_new.to(torch.int32)
+
+
+def preprocess_resident(images: torch.Tensor, widths: torch.Tensor,
+                        normalize: bool = True):
+    """``preprocess_batch`` of rows that are already height-normalized and
+    white-padded to the bucket (the device corpus's packed rows,
+    ``data/device_cache.py``), where the resample is an identity: /255 and,
+    with ``normalize``, the per-image standardization. Within a few ulps of
+    ``preprocess_batch(rows, out_h, widths, out_h, bucket)``, whose identity
+    resample still rounds in f32. Returns (x, content widths int32)."""
+    x = images.float() / 255.0
+    if normalize:
+        mean = x.mean(dim=(1, 2), keepdim=True)
+        std = x.std(dim=(1, 2), keepdim=True, correction=0)  # jnp.std
+        x = (x - mean) / (std + NORM_EPSILON)
+    return x, widths.to(torch.int32)
 
 
 def quantize_dim(n: int, base: int = 16) -> int:

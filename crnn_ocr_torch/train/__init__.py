@@ -12,7 +12,13 @@ from crnn_ocr_torch.train.state import (
     create_train_state,
     make_optimizer,
 )
-from crnn_ocr_torch.train.step import make_eval_step, make_train_step
+from crnn_ocr_torch.train.step import (
+    make_cached_multi_train_step,
+    make_eval_step,
+    make_multi_train_step,
+    make_partial_cached_multi_train_step,
+    make_train_step,
+)
 
 __all__ = [
     "CheckpointManager",
@@ -23,7 +29,10 @@ __all__ = [
     "fit",
     "load_codec",
     "load_model_config",
+    "make_cached_multi_train_step",
     "make_eval_step",
+    "make_multi_train_step",
     "make_optimizer",
+    "make_partial_cached_multi_train_step",
     "make_train_step",
 ]

@@ -82,9 +82,9 @@ def test_failed_build_raises_with_the_compiler_message(tmp_path,
                                                        monkeypatch):
     bad = tmp_path / "broken.cc"
     bad.write_text("int main( {\n")
-    monkeypatch.setattr(native, "SRC", str(bad))
+    monkeypatch.setitem(native.SOURCES, "ctc_beam_tf", str(bad))
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_libs", {})
     with pytest.raises(RuntimeError,
                        match="(?s)g\\+\\+ failed for .*broken.cc.*error:"):
         native.ctc_beam_decode_tf(np.full((1, 2, 3), 1 / 3, np.float32),

@@ -28,7 +28,10 @@ orders), and its autograd Function on the card against the CPU as
 ``tests/test_torch_stem_train.py`` holds the CPU to JAX; the beam search
 (plain PyTorch, no kernel) on the card against the CPU: labels equal,
 scores rtol 1e-5 / atol 1e-6 (f32 ``log``/``exp`` ulps), and greedy and
-forced alignment to rtol 1e-6. TF32 is off.
+forced alignment to rtol 1e-6; the device edit distance equal to the
+CPU's; the augmentation on given draws to 1e-5 of its CPU twin; a cached
+K-step call to streamed steps as the CPU tests hold them, and a resume
+over a partly resident corpus bit for bit. TF32 is off.
 """
 
 import collections
@@ -1023,3 +1026,178 @@ def test_resume_on_card_matches_straight(card, tmp_path):
         np.testing.assert_allclose(got[k].float().cpu().numpy(),
                                    want[k].float().cpu().numpy(),
                                    rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+# ---- on-device evaluation, augmentation and the device corpus ----
+
+
+@pytest.mark.cuda
+def test_batched_levenshtein_on_card_matches_cpu(card):
+    from crnn_ocr_torch.ops.editdistance import batched_levenshtein
+
+    rng = np.random.default_rng(0)
+    for B, La, Lb, vocab in ((256, 32, 32, 2), (64, 40, 17, 60),
+                             (8, 1, 0, 3)):
+        args = [rng.integers(0, vocab, (B, La)).astype(np.int32),
+                rng.integers(0, La + 1, B).astype(np.int32),
+                rng.integers(0, vocab, (B, Lb)).astype(np.int32),
+                rng.integers(0, Lb + 1, B).astype(np.int32)]
+        want = batched_levenshtein(*map(torch.from_numpy, args))
+        got = batched_levenshtein(*(torch.from_numpy(a).to(card)
+                                    for a in args))
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_augmentation_on_card_matches_cpu(card):
+    """The augmentation through K11 on the card, on draws made on the
+    CPU, against its CPU twin: 1e-5 (the jitter's elementwise f32 the
+    same, the sampler's to 1e-6 + 1e-6 * |value|); one K11 a batch. The
+    card's own draws lie in their ranges."""
+    from crnn_ocr_torch.ops import augment
+
+    B, H, W = 128, 32, 256
+    x = torch.randn((B, H, W), generator=torch.Generator().manual_seed(3))
+    draws = augment.augment_draws(B, H, W,
+                                  augment.augment_generator("cpu", 1, 2))
+    want = augment.augment_with_draws(x, draws)
+    n = tgs.launches
+    got = augment.augment_with_draws(
+        x.to(card), {k: v.to(card) for k, v in draws.items()})
+    torch.cuda.synchronize()
+    assert tgs.launches - n == 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    cfg = augment.AugmentConfig()
+    own = augment.augment_draws(B, H, W,
+                                augment.augment_generator(card, 1, 2), cfg)
+    assert all(v.device.type == "cuda" for v in own.values())
+    for key, bound in (("brightness", cfg.brightness),
+                       ("shear", cfg.shear), ("rotation", cfg.rotate),
+                       ("translation", cfg.translate)):
+        assert float(own[key].abs().max()) <= bound, key
+    assert float((own["contrast"] - 1).abs().max()) <= cfg.contrast
+
+
+def _corpus_setup(tmp_path, device, max_bytes=8 << 30):
+    """24 synthetic lines as PNGs, one bucket (128), a corpus on
+    ``device`` and a narrow BiGRU CRNN (dropout 0.1) config."""
+    import cv2
+
+    from crnn_ocr_torch.config import ModelConfig
+    from crnn_ocr_torch.data.device_cache import DeviceResidentCorpus
+    from crnn_ocr_torch.data.reader import Reader, ReaderConfig
+    from crnn_ocr_torch.data.synthetic import (
+        SyntheticConfig,
+        SyntheticTextlines,
+    )
+
+    d = tmp_path / "corpus"
+    if not d.exists():
+        d.mkdir()
+        synth = SyntheticTextlines(SyntheticConfig(alphabet="0123456789",
+                                                   min_len=2, max_len=4))
+        rng = np.random.default_rng(5)
+        rows = []
+        for i in range(24):
+            images, texts = synth.sample_batch(1, rng)
+            assert cv2.imwrite(str(d / f"l{i}.png"), images[0])
+            rows.append(f"l{i}.png\t{texts[0]}")
+        (d / "annotation.txt").write_text("\n".join(rows))
+    reader = Reader(ReaderConfig(path=str(d), batch_size=4,
+                                 val_fraction=0.0, buckets=(128,),
+                                 max_label_len=8, pack_cache=True))
+    corpus = DeviceResidentCorpus(reader, max_bytes=max_bytes, device=device)
+    cfg = ModelConfig(num_classes=10, width=128, stem_filters=8,
+                      block_filters=(8, 8, 12, 12), time_dense_size=16,
+                      n_units=32, rnn_layers=1, dropout_rate=0.1)
+    return reader, corpus, cfg
+
+
+@pytest.mark.cuda
+def test_cached_k_step_on_card_matches_streamed_steps(card, tmp_path):
+    """A cached K = 2 call on the card against 2 streamed single steps on
+    the same batches: losses rtol 1e-5 / atol 1e-6, parameters rtol 1e-3
+    / atol 1e-6 and Adam's slots atol 2e-5, as the CPU tests hold them."""
+    from crnn_ocr_torch.data.pipeline import produce_batch
+    from crnn_ocr_torch.train import create_train_state
+    from crnn_ocr_torch.train import step as step_lib
+
+    reader, corpus, cfg = _corpus_setup(tmp_path, card)
+    a = create_train_state(cfg, seed=0, device=card)
+    b = create_train_state(cfg, seed=0, device=card)
+    stack = next(corpus.stacked_index_batches(2, epochs=1))
+    host = reader.run_generator(epochs=1)
+    single = step_lib.make_train_step(cfg)
+    gen = torch.Generator(device=card)
+    losses = []
+    for _ in range(2):
+        batch = produce_batch(next(host), card, cfg)
+        batch.pop("texts"), batch.pop("bucket")
+        gen.manual_seed(step_lib.step_seed(0, a.step))
+        losses.append(float(single(a, batch, gen)["loss"]))
+    arrs = corpus.arrays(128)
+    ms = step_lib.make_cached_multi_train_step(cfg)(
+        b, arrs["pixels"], arrs["widths"], arrs["labels"], arrs["lab_len"],
+        stack["rows"], stack["batch_index"], 0, 128)
+    np.testing.assert_allclose(ms["loss"].cpu().numpy(), losses, rtol=1e-5,
+                               atol=1e-6)
+    want, got = _state_tensors(a), _state_tensors(b)
+    for k in want:
+        np.testing.assert_allclose(
+            got[k].float().cpu().numpy(), want[k].float().cpu().numpy(),
+            rtol=0 if k.startswith("optimizer") else 1e-3,
+            atol=2e-5 if k.startswith("optimizer") else 1e-6, err_msg=k)
+
+
+@pytest.fixture
+def cudnn_deterministic():
+    """cuDNN held to deterministic algorithms for the test: at these
+    narrow f32 shapes its default convolution backward may sum in another
+    order on every run (``test_resume_on_card_matches_straight`` holds its
+    resume at a tolerance for that reason)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+@pytest.mark.cuda
+def test_partial_residency_resume_on_card_is_bitwise(card, tmp_path,
+                                                     cudnn_deterministic):
+    """fit 4 steps (K = 2, augmented) over a corpus with about half its
+    rows resident, checkpoint, restore, fit to 8 from
+    ``stacked_index_batches(skip=4)``: bit for bit a straight 8-step
+    run."""
+    from crnn_ocr_torch.train import (
+        CheckpointManager,
+        FitConfig,
+        create_train_state,
+        fit,
+    )
+
+    _, corpus, cfg = _corpus_setup(tmp_path, card,
+                                   max_bytes=960 + 24 * 32 * 64)
+    assert corpus.partial
+
+    def run(state, steps, skip=0, ck=None):
+        return fit(state, cfg, corpus.stacked_index_batches(2, skip=skip),
+                   cfg=FitConfig(steps=steps, log_every=100,
+                                 steps_per_call=2, device_corpus=corpus,
+                                 augment=True, augment_seed=4,
+                                 checkpoint_dir=ck))
+
+    def fresh(seed=0):
+        return create_train_state(cfg, seed=seed, device=card)
+
+    straight = run(fresh(), 8)
+    ck = str(tmp_path / "ck")
+    run(fresh(), 4, ck=ck)
+    resumed = run(CheckpointManager(ck).restore(fresh(seed=1)), 8, skip=4)
+    want, got = _state_tensors(straight), _state_tensors(resumed)
+    assert resumed.step == straight.step == 8 and got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k

@@ -419,11 +419,13 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown optimizer"):
         tstate.create_train_state(cfg, device="cpu", optimizer="lamb")
     state = tstate.create_train_state(cfg, device="cpu")
-    for kw, item in ((dict(device_corpus=object()), 9),
-                     (dict(steps_per_call=4), 9),
-                     (dict(on_device_cer=True), 12), (dict(mesh=object()), 13)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            tloop.fit(state, cfg, iter([]), cfg=tloop.FitConfig(**kw))
+    # items 9 and 12 are ported: only data parallelism (item 13) raises
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        tloop.fit(state, cfg, iter([]), cfg=tloop.FitConfig(mesh=object()))
+    for kw in (dict(steps_per_call=4), dict(on_device_cer=True),
+               dict(augment=True, normalize=False)):
+        tloop.fit(state, cfg, iter([]), cfg=tloop.FitConfig(**kw))
+    assert state.step == 0
     if not torch.cuda.is_available():  # entry points default to cuda
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tstate.create_train_state(cfg)

@@ -192,7 +192,13 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/data/reader.py", "crnn_ocr_torch/data/packed.py",
             "crnn_ocr_torch/data/fontgen.py",
             "crnn_ocr_torch/train/checkpoint.py",
-            "crnn_ocr_torch/utils/profiling.py"} <= names
+            "crnn_ocr_torch/utils/profiling.py",
+            "crnn_ocr_torch/ops/editdistance.py",
+            "crnn_ocr_torch/ops/augment.py",
+            "crnn_ocr_torch/data/device_cache.py"} <= names
+    # the host C++ the port builds is its own copy, inside the package
+    for src in ("ctc_beam_tf.cc", "editdistance.cc", "imgproc.cc"):
+        assert (REPO / "crnn_ocr_torch" / "native" / src).is_file(), src
     assert not bad, bad
 
 
