@@ -313,6 +313,40 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     compared. To run it alone: ``phase_build(card)`` then ``phase_aug(card,
     g)``.
 
+29. Data parallelism on the one card (``phase_dp``; no kernel of its own,
+    no kernel changed). Two ranks are spawned on ``cuda:0`` over gloo
+    (NCCL refuses two ranks on one card), after ``phase_build`` built the
+    kernels, with a deadline on every collective and on the join; each
+    writes its results to a temporary directory and any failed check
+    fails its rank and the phase. (a) Each rank's backend (gloo),
+    ``all_reduce`` and ``broadcast`` of CUDA tensors, the port's autograd
+    ``all_reduce`` (value and gradient) and ``gather_rows``. (b)
+    ``fonts-hard`` in f32, TF32 and the backbone's cuDNN off as in phase
+    7: one DP step on the global batch of 128 (64 rows a rank) against
+    the single-device step (``compare_steps``: loss rtol 2e-5, gradients,
+    parameters and running statistics as phase 7); 120 lines padded to
+    128 on the mesh against the 120 lines on one device, unpadded (the
+    fused stem) and with an all-ones mask (the masked plain stem), its
+    launches counted (no K8, K9, K10 or training K1); 3 steps with
+    dropout 0.2, twice on the mesh (bitwise equal) and against one
+    device; every rank holding one state. (c) 20 counted DP steps of
+    ``fonts-hard`` in bf16, dropout 0.2 (``produce_batch`` on the global
+    batch, the rank's rows, the DP step, synchronized): per rank and step
+    2 K3, 1 each of K6-K10 and K1 (``"conv9"``), K2 never, every launch
+    on its path's design; the loss falls; lines/s and the p50 step per
+    rank beside phase 8's (two ranks sharing one card: the collectives'
+    overhead, not a speed-up); then ``fit`` on the mesh, 8 steps with an
+    evaluation and a checkpoint every 4 (rank 0 alone writes), and a
+    fresh state restored at step 4 and fitted on to 8: bitwise. (d) A
+    local mesh of ``cuda:0`` twice serving ``fonts-hard``: bf16 at B 255
+    (a blank row pads it to 256) with texts equal to one device's and 1
+    K1 (``"mma"``) and 2 K2 a shard; f32 texts and scores against
+    ``greedy_goldens.npz`` at phase 3's tolerance. (e) ``python -m
+    crnn_ocr_torch.cli.train --dataset synthetic --n_devices 1 --steps
+    20`` (bf16 by ``--dtype auto``), ``cli.predict --model`` on its save
+    path, and ``--n_devices 2``, which must exit non-zero with
+    ``make_mesh``'s message.
+
 Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24, 25) requires
 each recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
@@ -1373,11 +1407,12 @@ TRAIN_STEPS, TRAIN_WARMUP = 30, 3
 
 def train_setup(g, dtype: str, dropout: float, name: str = "fonts-hard",
                 key: str = "hard", bucket: int = BUCKET,
-                optimizer: str = "adam"):
+                optimizer: str = "adam", mesh=None):
     """A train state of bundled model ``name`` on the card (its shipped
-    weights, ``dtype`` and ``dropout``, ``optimizer`` at ``TRAIN_LR``), its
-    raw host batch (the 64 golden ``key`` lines repeated to 128, labels
-    padded to 32, at ``bucket``) and the device batch produced from it."""
+    weights, ``dtype`` and ``dropout``, ``optimizer`` at ``TRAIN_LR``; on a
+    process ``mesh``: the rank's replica), its raw host batch (the 64
+    golden ``key`` lines repeated to 128, labels padded to 32, at
+    ``bucket``) and the device batch produced from it."""
     import dataclasses
 
     import numpy as np
@@ -1398,7 +1433,7 @@ def train_setup(g, dtype: str, dropout: float, name: str = "fonts-hard",
             "bucket": bucket, "texts": truth}
     state = create_train_state(cfg, params_from_jax(params, stats),
                                device="cuda", optimizer=optimizer,
-                               learning_rate=TRAIN_LR)
+                               learning_rate=TRAIN_LR, mesh=mesh)
     return cfg, codec, state, host, produce_batch(dict(host), "cuda", cfg)
 
 
@@ -4691,6 +4726,536 @@ def phase_aug(card: str, g, in_memory: dict = None, dev="cuda") -> dict:
     return fitted["launches"]
 
 
+DP_WORLD = 2  # ranks sharing the one card over gloo
+DP_STEPS, DP_WARMUP = 20, 3  # the counted DP run's timed steps
+DP_DROPOUT_STEPS = 3
+DP_PAD_LINES = 120  # the padded leg: 120 lines padded to 128
+DP_FIT_STEPS, DP_RESUME_AT = 8, 4
+DP_COLLECTIVE_S = 120  # a collective that waits longer fails its rank
+DP_SPAWN_S = 420  # the ranks' deadline
+DP_SERVE_BATCH = 255  # odd: the batch does not divide the local mesh
+# a step on a padded batch: the masked plain stem (no K8-K10, no training
+# K1), the head's kernels as ever
+DP_PADDED_KERNELS = dict(HEAD_TRAIN_KERNELS)
+
+
+def dp_batch(batch) -> dict:
+    """A device batch's tensors (``produce_batch`` adds ``texts`` and
+    ``bucket``)."""
+    return {k: v for k, v in batch.items() if k not in ("texts", "bucket")}
+
+
+def dp_steps(g, mesh, dtype: str, dropout: float, batch, n: int = 1,
+             shard: bool = True, seed: int = 0):
+    """``n`` train steps of a fresh ``fonts-hard`` state (``train_setup``:
+    shipped weights, ``TRAIN_LR``) on ``batch``, through
+    ``make_train_step(mesh=mesh)``: on the rank's shard (``shard``) or, with
+    ``mesh`` None, on one device; dropout drawn as ``fit`` draws it. Returns
+    ``((loss, None, grad_norm, grads, state dict), [grads of each step],
+    [loss of each step])``, the last step's, as ``compare_steps`` takes
+    them."""
+    import torch
+    from crnn_ocr_torch.parallel import mesh as mesh_lib
+    from crnn_ocr_torch.train import step as step_lib
+
+    cfg, _, state, _, _ = train_setup(g, dtype, dropout, mesh=mesh)
+    step = step_lib.make_train_step(cfg, mesh=mesh)
+    gen = torch.Generator(device="cuda")
+    b = mesh_lib.shard_batch(batch, mesh) if shard else batch
+    grads, losses = [], []
+    for _ in range(n):
+        gen.manual_seed(step_lib.step_seed(seed, state.step))
+        m = step(state, b, gen)
+        grads.append({k: p.grad.detach().clone()
+                      for k, p in state.model.named_parameters()})
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    return (losses[-1], None, float(m["grad_norm"]), grads[-1], sd), grads, \
+        losses
+
+
+def dp_same_on_ranks(mesh, sd: dict) -> bool:
+    """Whether every rank holds rank 0's ``sd``, bit for bit (rank 0's
+    flat tensor broadcast and compared on each rank, the verdicts summed)."""
+    import torch
+    from crnn_ocr_torch.parallel import mesh as mesh_lib
+
+    flat = torch.cat([v.detach().reshape(-1).float().to(mesh.device)
+                      for v in sd.values()])
+    ref = mesh_lib.broadcast_(flat.clone(), mesh)
+    same = torch.tensor([float(torch.equal(ref, flat))], device=mesh.device)
+    return bool(mesh_lib.all_reduce_(same, mesh).item() == mesh.world)
+
+
+def dp_states_close(k_sd: dict, p_sd: dict, k_grads: list, p_grads: list,
+                    steps: int) -> dict:
+    """Several steps' states, as ``compare_steps`` holds one step's: the
+    BatchNorm statistics rtol 2e-4 / atol 2e-5; each parameter rtol 2e-4 /
+    atol 2e-5 (at lr 1e-4 a step moves an element by up to 1e-4, so the
+    check can fail), but for its noise elements (at most 1e-5 of their
+    tensor's largest gradient in any step, at most 0.1 % of it), whose
+    Adam step can take either sign, within ``2 * lr`` a step. Each step's
+    gradients are reported, not gated: compare_steps' measure, the
+    smallest atol as a share of each leaf's largest gradient that passes
+    it at rtol 1e-4. Only the first step starts from one state; after it
+    the two states differ at rounding level, which the later steps'
+    gradients amplify (measured 1.1e-4, 2.4e-3, 7.9e-4)."""
+    needed = [{leaf: float(((kg[leaf] - want).abs() - 1e-4 * want.abs())
+                           .clamp(min=0).max())
+               / max(float(want.abs().max()), 1e-30)
+               for leaf, want in pg.items()}
+              for kg, pg in zip(k_grads, p_grads)]
+    bad = []
+    for leaf, want in p_sd.items():
+        got = k_sd[leaf]
+        off = (got - want).abs() > 2e-5 + 2e-4 * want.abs()
+        if leaf not in p_grads[0]:
+            if bool(off.any()):
+                bad.append(leaf)
+            continue
+        noise = None
+        for gr in p_grads:
+            n = gr[leaf].abs() <= 1e-5 * gr[leaf].abs().max()
+            noise = n if noise is None else noise | n
+        err_off = (got - want).abs()[off]
+        if (bool((off & ~noise).any()) or float(off.float().mean()) > 1e-3
+                or (err_off.numel() and float(err_off.max())
+                    > 2 * TRAIN_LR * steps)):
+            bad.append(leaf)
+    return dict(
+        grad_atol_needed_max=[max(n.values()) for n in needed],
+        grad_atol_needed_worst=[max(n, key=n.get) for n in needed],
+        params_off=bad, max_param_abs_err=max(
+            float((k_sd[n] - p_sd[n]).abs().max()) for n in p_sd))
+
+
+def dp_collectives(mesh) -> dict:
+    """Phase 29 (a): the process group's backend; ``all_reduce`` and
+    ``broadcast`` of CUDA tensors, the port's autograd ``all_reduce``
+    (value and gradient) and ``gather_rows``, each against its known
+    result."""
+    import torch
+    import torch.distributed as dist
+    from crnn_ocr_torch.parallel import mesh as mesh_lib
+
+    dev, r, w = mesh.device, mesh.rank, mesh.world
+    t = torch.full((4,), float(r + 1), device=dev)
+    dist.all_reduce(t)
+    total = float(w * (w + 1) // 2)
+    b = torch.arange(4.0, device=dev) * (r + 1)
+    dist.broadcast(b, src=0)
+    x = torch.full((3,), float(r + 1), device=dev, requires_grad=True)
+    c = torch.arange(1.0, 4.0, device=dev)
+    y = mesh_lib.all_reduce(2 * x, mesh)
+    (y * c).sum().backward()  # every rank's loss reads y: d/dx = 2 * w * c
+    rows = mesh_lib.gather_rows(torch.full((2, 3), r, device=dev), mesh)
+    res = dict(
+        backend=dist.get_backend(), device=str(dev),
+        all_reduce=bool(torch.equal(t, torch.full_like(t, total))),
+        broadcast=bool(torch.equal(b, torch.arange(4.0, device=dev))),
+        autograd_value=bool(torch.equal(y, torch.full_like(y, 2 * total))),
+        autograd_grad=bool(torch.equal(x.grad, 2 * w * c)),
+        gather_rows=bool(torch.equal(rows, torch.arange(w, device=dev)
+                                     .repeat_interleave(2)[:, None]
+                                     .expand(2 * w, 3))))
+    require(res["backend"] == "gloo" and all(
+        v for k, v in res.items() if k not in ("backend", "device")),
+        f"rank {r}: collectives on {dev}: {res}")
+    return res
+
+
+def dp_parity(g, mesh) -> dict:
+    """Phase 29 (b), f32, TF32 off, the backbone off cuDNN (as phase 7):
+    the DP step on the global batch of 128 (64 rows a rank) against the
+    single-device step (rank 0 runs it); the padded leg, 120 lines padded
+    to 128, against the 120 lines on one device, unpadded and with an
+    all-ones mask (the same masked plain stem), its launches counted; and
+    3 steps with dropout 0.2, twice on the mesh (bitwise equal) and once
+    on one device. Each rank checks that the ranks hold one state."""
+    import torch
+    from crnn_ocr_torch.parallel import mesh as mesh_lib
+
+    rank0 = mesh.rank == 0
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        _, _, _, _, full = train_setup(g, "float32", 0.0)
+        full = dp_batch(full)
+        small = {k: v[:DP_PAD_LINES] for k, v in full.items()}
+        padded = mesh_lib.pad_batch_to(dict(small), TRAIN_BATCH)
+        ones = dict(small, valid_mask=torch.ones(DP_PAD_LINES,
+                                                 device=mesh.device))
+        single = dp_steps(g, None, "float32", 0.0, full, shard=False) \
+            if rank0 else None
+        dp = dp_steps(g, mesh, "float32", 0.0, full)
+        if rank0:
+            pad_single = dp_steps(g, None, "float32", 0.0, small,
+                                  shard=False)
+            pad_ones = dp_steps(g, None, "float32", 0.0, ones, shard=False)
+        reset_launches()
+        pad_dp = dp_steps(g, mesh, "float32", 0.0, padded)
+        pad_counts = read_launches()
+        drop = [dp_steps(g, mesh, "float32", 0.2, full, DP_DROPOUT_STEPS)
+                for _ in range(2)]
+        drop_single = (dp_steps(g, None, "float32", 0.2, full,
+                                DP_DROPOUT_STEPS, shard=False)
+                       if rank0 else None)
+    finally:
+        torch.backends.cudnn.enabled = cudnn
+    require_launches(pad_counts, DP_PADDED_KERNELS,
+                     f"rank {mesh.rank}: the padded DP step")
+    same = {k: dp_same_on_ranks(mesh, run[0][4]) for k, run in
+            (("dp", dp), ("padded", pad_dp), ("dropout", drop[0]))}
+    drop_bitwise = drop[0][2] == drop[1][2] and all(
+        torch.equal(v, drop[1][0][4][k]) for k, v in drop[0][0][4].items())
+    res = dict(ranks_hold_one_state=same, padded_launches=pad_counts,
+               dropout_runs_bitwise=drop_bitwise)
+    require(all(same.values()) and drop_bitwise,
+            f"rank {mesh.rank}: DP states: {res}")
+    if not rank0:
+        return res
+    res["dp_vs_single"], ok = compare_steps(dp[0], single[0])
+    res["padded_vs_ones_mask"], ok_ones = compare_steps(pad_dp[0],
+                                                        pad_ones[0])
+    res["padded_vs_unpadded"], ok_unpad = compare_steps(pad_dp[0],
+                                                        pad_single[0])
+    drop_losses = [abs(a / b - 1) for a, b in zip(drop[0][2],
+                                                  drop_single[2])]
+    res["dropout_vs_single"] = dict(
+        loss_rel_err=max(drop_losses), losses=drop[0][2],
+        single_losses=drop_single[2],
+        **dp_states_close(drop[0][0][4], drop_single[0][4], drop[0][1],
+                          drop_single[1], DP_DROPOUT_STEPS))
+    res["ok"] = dict(dp_vs_single=ok, padded_vs_ones_mask=ok_ones,
+                     padded_vs_unpadded=ok_unpad,
+                     dropout_vs_single=max(drop_losses) <= 2e-5
+                     and not res["dropout_vs_single"]["params_off"])
+    require(all(res["ok"].values()), f"phase 29 (b): {res}")
+    return res
+
+
+def dp_counted(g, mesh, card: str) -> dict:
+    """Phase 29 (c), timed and counted: ``fonts-hard`` in bf16, dropout
+    0.2, ``DP_STEPS`` steps of ``produce_batch`` on the global batch of 128,
+    the rank's 64 rows and the DP train step, synchronized; the launch
+    counts set to 0 before the timed steps and read after, per rank; the
+    loss must fall."""
+    import torch
+    from crnn_ocr_torch.data.pipeline import produce_batch
+    from crnn_ocr_torch.parallel import mesh as mesh_lib
+    from crnn_ocr_torch.train import step as step_lib
+
+    cfg, _, state, host, _ = train_setup(g, "bfloat16", 0.2, mesh=mesh)
+    train_step = step_lib.make_train_step(cfg, mesh=mesh)
+    gen = torch.Generator(device="cuda")
+    losses = []
+
+    def step():
+        b = mesh_lib.shard_batch(dp_batch(produce_batch(dict(host), "cuda",
+                                                        cfg)), mesh)
+        gen.manual_seed(step_lib.step_seed(0, state.step))
+        losses.append(train_step(state, b, gen)["loss"])
+
+    for _ in range(DP_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    reset_launches()
+    step_ms = []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_launches()
+    what = f"rank {mesh.rank}: {DP_STEPS} DP train steps"
+    require_launches(counts, {k: v * DP_STEPS
+                              for k, v in TRAIN_KERNELS.items()}, what)
+    design = read_design(counts, what)
+    stem = read_stem_design(counts, "train", what)
+    ctc = read_ctc_design(counts, what)
+    curve = [float(x) for x in losses]
+    first, last5 = curve[0], statistics.mean(curve[-5:])
+    require(all(v == v for v in curve) and last5 < first,
+            f"{what}: the loss did not fall: {curve}")
+    return dict(launches=counts, design=[*design[0], design[1]],
+                stem_designs=stem, ctc_designs={k: {d: n for d, n in v.items()}
+                                                for k, v in ctc.items()},
+                rows_per_rank=TRAIN_BATCH // mesh.world,
+                lines_per_s=TRAIN_BATCH * DP_STEPS / (sum(step_ms) / 1e3),
+                p50_step_ms=statistics.median(step_ms),
+                min_step_ms=min(step_ms), max_step_ms=max(step_ms),
+                first_loss=first, last5_mean_loss=last5, loss_curve=curve,
+                card=card)
+
+
+def dp_resume(g, mesh, out: str) -> dict:
+    """Phase 29 (c), ``fit`` on the mesh (bf16, dropout 0.2): a straight
+    run of ``DP_FIT_STEPS`` steps with an evaluation and a checkpoint every
+    ``DP_RESUME_AT`` (rank 0 alone writes), and a fresh state restored at
+    step ``DP_RESUME_AT`` and fitted on to the end; the two final states
+    must be equal bit for bit (parameters, statistics, Adam's slots, step),
+    and the evaluations equal on every rank."""
+    import torch
+    from crnn_ocr_torch.train import CheckpointManager
+    from crnn_ocr_torch.train import loop as loop_lib
+
+    cfg, codec, _, _, batch = train_setup(g, "bfloat16", 0.2)
+
+    def fresh():
+        return train_setup(g, "bfloat16", 0.2, mesh=mesh)[2]
+
+    writes = []
+    real_save = CheckpointManager._save
+
+    def counted(self, *a, **kw):
+        writes.append(int(a[0]))
+        return real_save(self, *a, **kw)
+
+    def run(state, steps, d):
+        return loop_lib.fit(
+            state, cfg, iter([batch] * steps), lambda: iter([batch]), codec,
+            loop_lib.FitConfig(steps=steps, eval_every=DP_RESUME_AT,
+                               eval_batches=1, log_every=DP_RESUME_AT,
+                               checkpoint_dir=d, seed=3, mesh=mesh,
+                               metrics_path=os.path.join(d, "m.jsonl")))
+
+    CheckpointManager._save = counted
+    try:
+        d1, d2 = os.path.join(out, "straight"), os.path.join(out, "resumed")
+        straight = run(fresh(), DP_FIT_STEPS, d1)
+        resumed = CheckpointManager(d1).restore(fresh(), step=DP_RESUME_AT)
+        from_step = resumed.step
+        resumed = run(resumed, DP_FIT_STEPS, d2)  # a total step budget
+    finally:
+        CheckpointManager._save = real_save
+    a = {**{f"model/{k}": v for k, v in straight.model.state_dict().items()},
+         **{f"opt/{i}/{k}": v for i, s in enumerate(
+             straight.optimizer.state.values()) for k, v in s.items()}}
+    b = {**{f"model/{k}": v for k, v in resumed.model.state_dict().items()},
+         **{f"opt/{i}/{k}": v for i, s in enumerate(
+             resumed.optimizer.state.values()) for k, v in s.items()}}
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    evals = []
+    if mesh.writer:  # rank 0 alone writes the metrics
+        with open(os.path.join(d1, "m.jsonl")) as f:
+            evals = [r for r in map(json.loads, f) if r["kind"] == "eval"]
+    res = dict(resumed_from=from_step, steps=straight.step,
+               bitwise=not diff and straight.step == resumed.step,
+               differing=diff[:5], checkpoint_writes=writes,
+               ranks_hold_one_state=dp_same_on_ranks(mesh, a),
+               evaluations=evals)
+    require(res["bitwise"] and res["ranks_hold_one_state"],
+            f"rank {mesh.rank}: the resumed DP run differs from the "
+            f"straight one: {res}")
+    require(bool(writes) == mesh.writer,
+            f"rank {mesh.rank} wrote checkpoints {writes}")
+    return res
+
+
+def dp_rank(rank: int, world: int, store: str, out: str, card: str) -> None:
+    """Phase 29 (a)-(c) on one of ``world`` ranks sharing ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one card); its results go to
+    ``<out>/rank<r>.json``. A failed check raises: the rank exits non-zero
+    and the phase fails."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    from crnn_ocr_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_lib.init_process_mesh(rank, world, f"file://{store}",
+                                      device="cuda:0",
+                                      timeout_s=DP_COLLECTIVE_S)
+    try:
+        g = np.load(os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                                 "greedy_goldens.npz"))
+        res = {"rank": rank, "collectives": dp_collectives(mesh)}
+        t0 = time.perf_counter()
+        res["parity"] = dp_parity(g, mesh)
+        res["counted"] = dp_counted(g, mesh, card)
+        res["resume"] = dp_resume(g, mesh, out)
+        res["rank_s"] = time.perf_counter() - t0
+    finally:
+        mesh_lib.close_process_mesh(mesh)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f, default=str)
+
+
+def dp_serve(card: str, g) -> dict:
+    """Phase 29 (d): ``fonts-hard`` on a local mesh of ``cuda:0`` twice
+    (one process, one replica, the two shards one after the other): bf16
+    at B 255 (padded to 256 with a blank row) against the single-device
+    predictor's texts, with K1 once and K2 twice per shard; f32 on the 64
+    golden lines against the JAX predictor's texts and scores (phase 3's
+    tolerance). Times are two shards on one card: the mesh's overhead, not
+    a speed-up."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.parallel import make_mesh
+
+    lines = golden_lines(g, "hard")
+    batch = (lines * (DP_SERVE_BATCH // len(lines) + 1))[:DP_SERVE_BATCH]
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    single = load_pretrained("fonts-hard", device="cuda")
+    dp = load_pretrained("fonts-hard", mesh=mesh)
+    want = [p.text for p in single.predict(batch)]
+    dp.predict(batch)  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    got = [p.text for p in dp.predict(batch)]
+    counts = read_launches()
+    shards = mesh.size
+    what = f"local mesh of {shards}: one predict of {DP_SERVE_BATCH} lines"
+    require_launches(counts, {"fused_stem": shards, "bigru": 2 * shards},
+                     what)
+    design = read_design(counts, what)
+    stem = read_stem_design(counts, "serve", what)
+
+    def ms(pred):
+        return statistics.median(
+            time_host(lambda: pred.predict(batch)) for _ in range(5))
+
+    texts32, scores32 = [], []
+    for p in load_pretrained("fonts-hard", dtype="float32",
+                             mesh=mesh).predict(lines):
+        texts32.append(p.text)
+        scores32.append(p.score)
+    want_t = [str(t) for t in g["hard_texts_f32"]]
+    want_s = g["hard_scores_f32"]
+    bad32 = [(i, a, b) for i, (a, b) in enumerate(zip(texts32, want_t))
+             if a != b]
+    res = dict(mesh=str(mesh), batch=DP_SERVE_BATCH, launches=counts,
+               design=[*design[0], design[1]], stem_designs=stem,
+               bf16_texts_off_single=sum(a != b for a, b in zip(got, want)),
+               f32_text_mismatches=bad32,
+               f32_max_score_rel_err=float((np.abs(np.array(scores32)
+                                                   - want_s)
+                                            / (np.abs(want_s) + 1e-30))
+                                           .max()),
+               f32_scores_ok=bool(np.allclose(scores32, want_s, rtol=1e-4,
+                                              atol=1e-5)),
+               single_ms=ms(single), mesh_ms=ms(dp),
+               note="two shards on one card: the mesh's overhead, not a "
+                    "DP speed-up", card=card)
+    emit("dp_serve", **res)
+    require(res["bf16_texts_off_single"] == 0 and not bad32
+            and res["f32_scores_ok"], f"phase 29 (d): {res}")
+    return res
+
+
+def time_host(fn) -> float:
+    """One call of ``fn`` on the host clock, synchronized, in ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def dp_clis(card: str, tmp: str) -> dict:
+    """Phase 29 (e): ``python -m crnn_ocr_torch.cli.train --dataset
+    synthetic --n_devices 1 --steps 20`` on the card (bf16 by ``--dtype
+    auto``), then ``cli.predict --model <its save path>`` on 16 synthetic
+    lines as PNGs; and ``--n_devices 2`` on this one-card machine, which
+    must exit non-zero with ``make_mesh``'s message."""
+    import cv2
+    import numpy as np
+    from crnn_ocr_torch.data.synthetic import SyntheticTextlines
+
+    save = os.path.join(tmp, "cli_model")
+    train = [sys.executable, "-m", "crnn_ocr_torch.cli.train", "--dataset",
+             "synthetic", "--steps", "20", "--eval_every", "20",
+             "--log_every", "10", "--batch_size", "64"]
+    t0 = time.perf_counter()
+    r = subprocess.run([*train, "--n_devices", "1", "--save_path", save],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    train_s = time.perf_counter() - t0
+    imgs = os.path.join(tmp, "cli_lines")
+    os.makedirs(imgs)
+    images, _ = SyntheticTextlines().sample_batch(
+        16, np.random.default_rng(0))
+    for i, im in enumerate(images):
+        require(cv2.imwrite(os.path.join(imgs, f"l{i:02d}.png"), im),
+                "imwrite")
+    out = os.path.join(tmp, "cli_preds.tsv")
+    p = subprocess.run([sys.executable, "-m", "crnn_ocr_torch.cli.predict",
+                        "--model", save, "--image_dir", imgs, "--greedy",
+                        "--result", out], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    rows = (open(out).read().splitlines() if os.path.exists(out) else [])
+    two = subprocess.run([*train, "--n_devices", "2", "--save_path",
+                          os.path.join(tmp, "cli_two")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    res = dict(train_rc=r.returncode, train_s=train_s,
+               train_steps=[x["step"] for x in recs if x["kind"] == "train"],
+               train_losses=[x["loss"] for x in recs if x["kind"] == "train"],
+               dtype_auto="dtype: auto -> bfloat16" in r.stderr,
+               predict_rc=p.returncode, predict_rows=len(rows),
+               two_rc=two.returncode,
+               two_message=two.stderr.strip().splitlines()[-1:],
+               card=card)
+    emit("dp_clis", **res)
+    require(r.returncode == 0 and res["dtype_auto"]
+            and res["train_steps"][-1] == 20, f"train CLI: {r.stderr[-2000:]}")
+    require(p.returncode == 0 and len(rows) == 16,
+            f"predict CLI: {p.stderr[-2000:]}")
+    require(two.returncode != 0 and "requested a 2-device mesh but only 1 "
+            "devices are available" in two.stderr,
+            f"--n_devices 2 on one card: {two.returncode} {two.stderr[-800:]}")
+    return res
+
+
+def phase_dp(card: str, g, single_train: dict) -> dict:
+    """Phase 29: data parallelism on the one card. Two gloo ranks share
+    ``cuda:0`` (spawned; the kernels were built by ``phase_build`` before):
+    (a) the collectives, (b) DP against one device in f32, the padded leg
+    and dropout, (c) the counted DP fine-tune and a bitwise resume of
+    ``fit``; then, in this process, (d) local-mesh serving and (e) the
+    training and predict CLIs. ``single_train``: phase 8's single-device
+    lines/s and p50 in this call."""
+    import tempfile
+
+    import torch
+    from crnn_ocr_torch.parallel import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(dp_rank, DP_WORLD,
+                    args=(DP_WORLD, os.path.join(tmp, "store"), tmp, card),
+                    timeout_s=DP_SPAWN_S)
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        spawn_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        emit("dp_collectives", ranks=[r["collectives"] for r in ranks],
+             card=card)
+        emit("dp_parity", **r0["parity"], other_ranks=[
+            r["parity"] for r in ranks[1:]], card=card)
+        emit("dp_train", ranks=DP_WORLD, per_rank=[r["counted"]
+                                                   for r in ranks],
+             single_device=single_train,
+             note="two ranks sharing one H100 over gloo: the collectives' "
+                  "overhead, not a DP speed-up", card=card)
+        emit("dp_resume", ranks=[r["resume"] for r in ranks], card=card)
+        serve = dp_serve(card, g)
+        clis = dp_clis(card, tmp)
+    emit("dp_phase", spawn_s=spawn_s, rank_s=[r["rank_s"] for r in ranks],
+         total_s=time.perf_counter() - t0, card=card)
+    return dict(counted=r0["counted"], serve=serve, clis=clis)
+
+
 def main() -> int:
     try:
         import torch
@@ -4748,6 +5313,7 @@ def main() -> int:
     checks += phase_train_kernels(g)
     phase_train_parity(g)
     train = phase_train(g, card)
+    hard_train = {k: train[k] for k in ("lines_per_s", "p50_step_ms")}
     counts.update({k: train[k] for k in ("bigru_train", "ctc_alpha",
                                          "ctc_beta")})
     designs["bigru_train"] = train["design"]
@@ -4866,6 +5432,10 @@ def main() -> int:
     # phase 28: fonts-hard fine-tuned with augmentation from a corpus on
     # the card, K steps a call, evaluated on the card, resumed
     aug = phase_aug(card, g, in_memory)
+
+    # phase 29: data parallelism, two ranks sharing the card, a local mesh
+    # for serving and the training CLI
+    phase_dp(card, g, hard_train)
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",

@@ -55,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--no-norm", dest="norm", action="store_false")
     p.add_argument("--n_devices", type=int, default=1,
-                   help="data-parallel serving over several cards (only 1 "
-                        "is ported; more: ROADMAP item 13)")
+                   help="data-parallel serving mesh size: one process, one "
+                        "model replica a card, each batch padded to the "
+                        "mesh and split over it (0 = every card; with "
+                        "--device cpu, shards of the one CPU)")
     p.add_argument("--validate", action="store_true",
                    help="compute CER/WER vs annotation")
     p.add_argument("--alignments", action="store_true",

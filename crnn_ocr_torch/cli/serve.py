@@ -62,8 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip running every batch shape ahead of requests")
     p.add_argument("--request_timeout_s", type=float, default=30.0)
     p.add_argument("--n_devices", type=int, default=1,
-                   help="data-parallel serving over several cards (only 1 "
-                        "is ported; more: ROADMAP item 13)")
+                   help="data-parallel serving mesh size: one process, one "
+                        "model replica a card, each batch padded to the "
+                        "mesh and split over it (0 = every card; with "
+                        "--device cpu, shards of the one CPU)")
     p.add_argument("--verbose", action="store_true",
                    help="log each HTTP request")
     p.add_argument("--device", default="cuda",

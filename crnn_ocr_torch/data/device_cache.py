@@ -23,7 +23,14 @@ The bytes a step reads are the same either way.
 The guards raise rather than fall back to streamed pixels: a reader
 without ``pack_cache``, rows that could not be packed (a read-only data
 directory), tables over the budget, and one image named twice with two
-transcriptions. Sharding the tables over a mesh is ROADMAP item 13.
+transcriptions.
+
+Under a process mesh (``mesh=``, ``parallel/mesh.py``) each rank holds the
+full tables on its own device, JAX's replicated layout (``device_cache.py:
+151-154``), and each rank's K-step call gathers only its own columns of a
+stack's rows (``train.step.make_cached_multi_train_step(mesh=)``). Only
+rank 0 packs: the other ranks' readers must find the corpus packed
+(``cli/train.py`` has rank 0 pack it before the others build theirs).
 """
 
 from __future__ import annotations
@@ -51,10 +58,8 @@ class DeviceResidentCorpus:
     # H100's 80 GB
     def __init__(self, reader, max_bytes: int = 8 << 30, device="cuda",
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DeviceResidentCorpus(mesh=...): tables for data "
-                "parallelism are not ported yet (ROADMAP item 13)")
+        if mesh is not None:  # the tables whole on the rank's device
+            device = mesh.device
         if reader._pack is None:
             raise ValueError(
                 "device_cache requires pack_cache=True on the Reader "
@@ -65,12 +70,20 @@ class DeviceResidentCorpus:
         self.reader = reader
         self.device = resolve_device(device)
         pack = reader._pack
-        # pack every sample (a cold corpus decodes each image once here)
-        for path, _ in reader.samples:
-            reader._load_image(path)
-        pack.flush_index()
+        packer = mesh is None or not mesh.process or mesh.writer
+        if packer:
+            # pack every sample (a cold corpus decodes each image once here)
+            for path, _ in reader.samples:
+                reader._load_image(path)
+            pack.flush_index()
         missing = [reader._size_key(i) for i in range(len(reader.samples))
                    if reader._size_key(i) not in pack.entries]
+        if missing and not packer:
+            raise ValueError(
+                f"device_cache: rank {mesh.rank}'s reader finds "
+                f"{len(missing)} of {len(reader.samples)} samples unpacked; "
+                f"under a process mesh rank 0 packs the corpus, and the "
+                f"other ranks build their readers after it")
         if missing:
             raise ValueError(
                 f"device_cache: {len(missing)} of {len(reader.samples)} "

@@ -17,10 +17,21 @@ The serving surface (``bucket_for``, ``blank_row``, ``warmup``,
 ``predict_many``) is what the batcher (``serve/batcher.py``) and the CLIs
 call; ``init_predictor`` loads a checkpoint or reference artifacts and
 ``predictor_from_cli`` resolves the CLIs' ``--model``/``--pretrained``.
+
+Data-parallel serving (``mesh=``, a local mesh of ``parallel/mesh.py``;
+JAX ``predictor.py:66-87, 140-175``): one process, one model replica a
+distinct device. A request batch is padded with ``blank_row()`` to a
+multiple of the mesh before ``pack_canvas`` (a line's output depends on
+its batch's canvas, so the global canvas is packed and preprocessed as on
+one device), then its rows are split into the mesh's shards, each shard
+runs on its device's replica (a device named twice runs its shards one
+after another), and the outputs are concatenated on the first device with
+the pad rows dropped.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -83,11 +94,20 @@ class Predictor:
         normalize: bool = True,
         buckets: Sequence[int] = (64, 128, 192, 256),
         device="cuda",
+        mesh=None,
     ):
+        """``mesh``: a local mesh (``parallel.make_mesh``) to serve on, its
+        first device the predictor's ``device`` (``device`` is then
+        ignored)."""
         self.cfg = model_cfg
         self.codec = codec
         self.normalize = normalize
-        self.device = resolve_device(device)
+        if mesh is not None and mesh.process:
+            raise ValueError("serving runs on a local mesh "
+                             "(parallel.make_mesh), not a process mesh")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = (resolve_device(mesh.device) if mesh is not None
+                       else resolve_device(device))
         # an STN model's localization Dense is bound to the width it was
         # trained at: it serves at that width only (JAX predictor.py:76-81)
         self.buckets = ((model_cfg.width,) if model_cfg.use_stn
@@ -95,6 +115,11 @@ class Predictor:
         self.model = CRNN(model_cfg)
         self.model.load_state_dict(state_dict)
         self.model.eval().requires_grad_(False).to(self.device)
+        # one replica a distinct device of the mesh
+        self.replicas = {self.device: self.model}
+        for d in (self.mesh.devices if self.mesh is not None else ()):
+            if d not in self.replicas:
+                self.replicas[d] = copy.deepcopy(self.model).to(d)
 
     def bucket_for(self, image: np.ndarray) -> int:
         """The width bucket one image routes to: the one rule for
@@ -225,9 +250,20 @@ class Predictor:
         self, images: Sequence[np.ndarray], bucket: Optional[int] = None
     ):
         """Grayscale uint8 images -> (probs (B, T, C), input_len (B,)), both
-        on the predictor's device."""
+        on the predictor's device (on a mesh: the batch padded, sharded and
+        gathered as the module's docstring says)."""
+        if self.mesh is None:
+            x, w_new = self.preprocess(images, bucket)
+            return self.probs(self.model(x), w_new)
+        n_req = len(images)
+        size = self.mesh.size
+        images = list(images) + [self.blank_row()] * (-n_req % size)
         x, w_new = self.preprocess(images, bucket)
-        return self.probs(self.model(x), w_new)
+        logits = torch.cat([
+            self.replicas[d](x[self.mesh.rows(len(images), i)].to(d))
+            .to(self.device) for i, d in enumerate(self.mesh.devices)])
+        probs, input_len = self.probs(logits, w_new)
+        return probs[:n_req], input_len[:n_req]
 
     def predict(
         self,
@@ -393,11 +429,18 @@ def predictor_from_cli(
 ) -> Predictor:
     """The CLIs' loader (predict and serve): ``--pretrained`` goes to
     ``load_pretrained``, ``--model`` to :func:`init_predictor`
-    (``crnn_ocr_tpu/infer/predictor.py:478``)."""
-    if n_devices > 1:
-        raise NotImplementedError(
-            "data-parallel serving (n_devices > 1) is not ported yet "
-            "(ROADMAP item 13)")
+    (``crnn_ocr_tpu/infer/predictor.py:478``). ``n_devices`` other than 1
+    serves on a local mesh: on CUDA ``make_mesh(n_devices)`` over the
+    cards (0: all of them; too few raise JAX's message), on the CPU
+    ``n_devices`` shards of the one CPU device."""
+    if n_devices != 1:
+        from crnn_ocr_torch.parallel import make_mesh
+
+        dev = torch.device(device)
+        mesh = (make_mesh(n_devices) if dev.type == "cuda"
+                else make_mesh(devices=[dev] * max(n_devices, 1)))
+        if mesh.size > 1:
+            kw["mesh"] = mesh
     if pretrained:
         from crnn_ocr_torch.infer.pretrained import load_pretrained
 

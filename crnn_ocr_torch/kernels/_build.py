@@ -10,7 +10,10 @@ The library lands in ``crnn_ocr_torch/_build/`` (git-ignored) under a name
 keyed by a hash of the source and the flags, so an edited ``.cu`` builds
 anew; ptxas's report is kept beside it (``<library>.ptxas``). Builds
 happen at first use; ``build_all`` starts one nvcc per source at once. A
-failed build raises with nvcc's stderr: there is no fallback.
+failed build raises with nvcc's stderr: there is no fallback. Processes
+that start together build once: "check, build, rename" runs under the
+build directory's ``flock`` (``native.build_lock``), and each library is
+written under a temporary name and renamed into place.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, List, Sequence
+
+from crnn_ocr_torch.native import build_lock
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -103,7 +108,7 @@ def build_all(names: Sequence[str] = SOURCES) -> List[str]:
     """Build every named source that has no library for its current hash,
     one nvcc process per source, all started together. Returns the names
     that were built (the others were up to date)."""
-    with _lock:
+    with _lock, build_lock(BUILD_DIR):
         todo = {n: _lib_path(n) for n in names}
         todo = {n: p for n, p in todo.items() if not os.path.exists(p)}
         procs = {n: _start(n, p) for n, p in todo.items()}

@@ -43,6 +43,14 @@ output's dtype and is read as it comes.
 Each wrapper dispatches on the image's device and on nothing else: a CPU
 tensor goes through the plain version, a CUDA tensor through the kernel,
 or the call raises.
+
+Sync-BN on a process mesh (``parallel/mesh.py``; JAX ``:390-391, 426``):
+between the launches, the forward all-reduces K8's sums and counts every
+rank's positions in ``n``, and the backward all-reduces K9's partials into
+the global ``c2`` and ``c3`` that K10 reads. ``d_gamma`` and ``d_beta``
+stay the rank's own sums: the train step's gradient sum adds them. The
+kernels do not change; the plain versions on the CPU get the same
+reductions, so the CPU path is the same math.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import torch.nn.functional as F
 from crnn_ocr_torch.kernels import _stem_tiles as tiles
 from crnn_ocr_torch.kernels import fused_stem
 from crnn_ocr_torch.kernels.fused_stem import fold_bn
+from crnn_ocr_torch.parallel.mesh import all_reduce_, is_dp
 
 # Kernel launches: K8 (stem_stats), K9 (stem_bwd_partials) and K10
 # (stem_bwd_final). The plain versions are not counted.
@@ -251,17 +260,20 @@ class _FusedStemTrain(torch.autograd.Function):
     VJP, ``_fwd``/``_bwd``). mean and var are outputs without gradient."""
 
     @staticmethod
-    def forward(ctx, img, conv_w, gamma, beta, eps):
+    def forward(ctx, img, conv_w, gamma, beta, eps, mesh):
         B, H, W, _ = img.shape
         n = float(B * H * W)
         s = stem_stats(img, conv_w)
+        if is_dp(mesh):  # equal shards: every rank has n positions
+            s = all_reduce_(s, mesh)
+            n *= mesh.world
         mean = s[0] / n
         var = s[1] / n - mean * mean
         scale, bias = fold_bn(gamma, beta, mean, var, eps)
         # K1 on conv9: K9 and K10 recompute its z bit for bit
         pooled = fused_stem._forward(img, conv_w, scale, bias, "conv9")
         ctx.save_for_backward(img, conv_w, gamma, beta, mean, var)
-        ctx.eps, ctx.n = eps, n
+        ctx.eps, ctx.n, ctx.mesh = eps, n, mesh
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
@@ -272,21 +284,27 @@ class _FusedStemTrain(torch.autograd.Function):
             inv, scale, bias = bwd_affine(gamma, beta, mean, var, ctx.eps)
             g = g.contiguous()
             p = stem_bwd_partials(img, conv_w, g, mean, inv, scale, bias)
+            p_tot = (all_reduce_(p.clone(), ctx.mesh) if is_dp(ctx.mesh)
+                     else p)
             # c1 = gamma * inv is the folded scale
             d_w = stem_bwd_final(img, conv_w, g, mean, inv, scale, bias,
-                                 scale, p[0] / ctx.n, p[1] / ctx.n)
+                                 scale, p_tot[0] / ctx.n, p_tot[1] / ctx.n)
+        # d_gamma and d_beta: the rank's own sums (the gradient sum adds
+        # them)
         return (None, d_w.to(conv_w.dtype), p[1].to(gamma.dtype),
-                p[0].to(beta.dtype), None)
+                p[0].to(beta.dtype), None, None)
 
 
-def fused_stem_train(img, conv_w, gamma, beta, eps: float = 1e-3):
+def fused_stem_train(img, conv_w, gamma, beta, eps: float = 1e-3,
+                     mesh=None):
     """img (B, H, W, 1) -> (pooled (B, H/2, W/2, C) in the image's dtype,
     batch mean (C,), batch var (C,) f32, unclamped), differentiable in
-    ``conv_w``, ``gamma`` and ``beta``. Raises if the image requires a
-    gradient: none is computed."""
+    ``conv_w``, ``gamma`` and ``beta``; on a process ``mesh`` the
+    statistics are the global batch's (every rank holding an equal shard).
+    Raises if the image requires a gradient: none is computed."""
     if img.requires_grad:
         raise RuntimeError(
             "fused_stem_train computes no image gradient, and the image "
             "requires one (an STN model trains through the plain stem)")
     _check(img, conv_w, vecs=(gamma, beta))
-    return _FusedStemTrain.apply(img, conv_w, gamma, beta, eps)
+    return _FusedStemTrain.apply(img, conv_w, gamma, beta, eps, mesh)

@@ -13,16 +13,24 @@ hash of the source and the flags. A failed build raises with the
 compiler's message: there is no fallback to the plain Python versions
 (``ops/ctc_beam_exact.py``, ``utils/metrics.py::levenshtein_plain``), which
 give the same outputs and would hide behind this path in a timing.
+
+Processes that start together (the ranks of a data-parallel run) build
+once: "check, build, rename" runs under an exclusive ``fcntl.flock`` on
+``<build dir>/.lock`` (``build_lock``, which the CUDA kernels' builder
+takes too), and each library is written under a temporary name and
+renamed into place, so no process loads a library half written.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
@@ -58,19 +66,35 @@ def lib_path(src: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: str) -> Iterator[None]:
+    """Hold an exclusive ``flock`` on ``<build_dir>/.lock``: one process at
+    a time checks for, builds and renames a library there."""
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, ".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(src: str) -> str:
     """Compile ``src`` unless its library exists; returns its path."""
     out = lib_path(src)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {src} (exit {proc.returncode}):"
-                           f"\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
+    with build_lock(os.path.dirname(out)):
+        if os.path.exists(out):  # built by another process meanwhile
+            return out
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {src} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}"
+                               f"{proc.stdout}")
+        os.replace(tmp, out)
     return out
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from crnn_ocr_torch.ops.grid_sample import grid_sample_affine
+from crnn_ocr_torch.parallel.mesh import is_dp
 
 # hashed into the augmentation's seed beside (seed, index), so that with
 # augment_seed == seed and index == step its generator is not seeded as
@@ -109,10 +110,18 @@ def augment_with_draws(x: torch.Tensor, draws: Dict[str, torch.Tensor]
 
 
 def augment_batch(x: torch.Tensor, generator: Optional[torch.Generator],
-                  cfg: AugmentConfig = AugmentConfig()) -> torch.Tensor:
+                  cfg: AugmentConfig = AugmentConfig(),
+                  mesh=None) -> torch.Tensor:
     """``augment_with_draws`` of draws from ``generator`` (on x's
-    device); ``cfg.enabled=False`` returns x."""
+    device); ``cfg.enabled=False`` returns x. On a process ``mesh`` (a
+    ``parallel.mesh.Mesh``; x the rank's rows) the global batch's draws are
+    made and the rank's rows kept, so each row draws what it draws on one
+    device."""
     if not cfg.enabled:
         return x
     B, H, W = x.shape
-    return augment_with_draws(x, augment_draws(B, H, W, generator, cfg))
+    if not is_dp(mesh):
+        return augment_with_draws(x, augment_draws(B, H, W, generator, cfg))
+    rows = mesh.rows(B * mesh.world)
+    draws = augment_draws(B * mesh.world, H, W, generator, cfg)
+    return augment_with_draws(x, {k: v[rows] for k, v in draws.items()})

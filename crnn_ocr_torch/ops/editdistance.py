@@ -13,13 +13,18 @@ the loop never reads a value on the host (``.item()`` in the loop would
 wait for the card every diagonal); a step is ~14 small launches.
 
 The semantics are ``utils.metrics.levenshtein``'s (unit-cost insert,
-delete and substitute), and the outputs equal JAX's.
+delete and substitute), and the outputs equal JAX's. On a process mesh
+(``parallel/mesh.py``) each rank takes the distances of its own rows and
+``cer_sums_on_device`` all-reduces the two sums, which then equal the
+unsharded ones (integers: the order of the adds does not matter).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from crnn_ocr_torch.parallel.mesh import all_reduce_
 
 _BIG = 1 << 29  # an unreachable distance, far from int32's end
 
@@ -84,15 +89,19 @@ def batched_levenshtein(a: torch.Tensor, length_a: torch.Tensor,
 
 
 def cer_sums_on_device(decoded: torch.Tensor, ref_labels: torch.Tensor,
-                       ref_length: torch.Tensor):
+                       ref_length: torch.Tensor, mesh=None):
     """The CER's two sums over a batch, as device scalars: the summed edit
     distances between each line's decoded labels (``decoded`` (B, T) int,
     left-packed, padded with -1: the greedy decoder's dense output) and its
     reference ``ref_labels[:ref_length]``, and the summed reference
     lengths. The CER over any number of batches is their sums' ratio (over
     at least 1); the codec maps labels to characters one to one, so it
-    equals the text CER."""
+    equals the text CER. On a process ``mesh`` (a ``parallel.mesh.Mesh``;
+    the arguments the rank's rows) the sums are the global batch's."""
     dec_len = (decoded >= 0).sum(dim=1)
     ref_length = ref_length.to(decoded.device).reshape(-1)
     d = batched_levenshtein(decoded, dec_len, ref_labels, ref_length)
-    return d.sum(), ref_length.sum()
+    sums = torch.stack([d.sum().to(torch.int64),
+                        ref_length.sum().to(torch.int64)])
+    sums = all_reduce_(sums, mesh)
+    return sums[0], sums[1]

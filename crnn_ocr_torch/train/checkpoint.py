@@ -30,6 +30,10 @@ them into the given state on its own device, so a checkpoint written on
 the card restores on the CPU and the reverse. A directory that orbax wrote
 (``_CHECKPOINT_METADATA``, ``<step>/default``) raises ``OrbaxCheckpointError``:
 reading the JAX package's checkpoints is migration work (ROADMAP item 15).
+
+Under a process mesh (``mesh=``, ``parallel/mesh.py``) only rank 0 writes,
+and every rank then waits at a barrier, so that a restore after a save
+reads the same step on every rank.
 """
 
 from __future__ import annotations
@@ -73,11 +77,12 @@ def _refuse_orbax(directory: str) -> None:
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
                  track_metric: Optional[str] = None,
-                 track_mode: str = "min"):
+                 track_mode: str = "min", mesh=None):
         """``track_metric`` (e.g. ``"cer"``) makes rotation keep the best
         ``max_to_keep`` checkpoints by that metric (``track_mode`` "min" or
         "max") instead of the newest; saves without it are always kept, so
-        resume from the latest works beside them."""
+        resume from the latest works beside them. ``mesh``: a process mesh
+        whose rank 0 alone writes."""
         if track_mode not in ("min", "max"):
             raise ValueError(f"track_mode {track_mode!r}: 'min' or 'max'")
         self.directory = os.path.abspath(directory)
@@ -86,6 +91,7 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.track_metric = track_metric
         self.track_mode = track_mode
+        self.mesh = mesh
 
     # ---- the directory ----
 
@@ -148,7 +154,18 @@ class CheckpointManager:
         """Save ``state`` (a ``TrainState``) as step ``step``, and beside
         the checkpoints ``model_config.json``, ``classes.json`` and
         ``metrics_<step>.json`` where given. Returns whether a checkpoint
-        was written (not when ``step`` is not past the latest)."""
+        was written (not when ``step`` is not past the latest). On a
+        process mesh rank 0 writes, then every rank waits for it; the other
+        ranks return whether step ``step`` is then the latest."""
+        mesh = self.mesh
+        if mesh is not None and mesh.process:
+            saved = (self._save(step, state, model_cfg, codec, metrics)
+                     if mesh.writer else None)
+            mesh.barrier()
+            return saved if mesh.writer else self.latest_step() == int(step)
+        return self._save(step, state, model_cfg, codec, metrics)
+
+    def _save(self, step, state, model_cfg, codec, metrics) -> bool:
         step = int(step)
         latest = self.latest_step()
         saved = latest is None or step > latest

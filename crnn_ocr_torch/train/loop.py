@@ -1,5 +1,5 @@
 """The fit loop and evaluation (``crnn_ocr_tpu/train/loop.py:29-459``),
-on one device.
+on one device or on a process mesh.
 
 ``fit`` trains over a stream of batches of three kinds: device batches
 (``data.pipeline.device_batches``: one step each), raw host stacks of K
@@ -31,8 +31,24 @@ alone (``step.step_seed``), as the JAX step folds the step into its key
 draws the masks a straight run draws. The augmentation's draws depend on
 (``augment_seed``, the batch's index in the stream) alone.
 
-``mesh`` (data parallelism, ROADMAP item 13) raises
-``NotImplementedError``; no option is ignored.
+Data parallelism (``FitConfig.mesh``, a process mesh of
+``parallel/mesh.py``): every rank runs ``fit`` on the same stream of
+global batches. A single step pads a ragged batch to a multiple of the
+mesh (``pad_batch_to``, JAX ``:289-297``) and steps on the rank's rows
+(``shard_batch``); a stack is cut along its batch axis
+(``shard_stacked_batch``), and a device-corpus stack's rows are gathered
+by each rank for its own columns, both refused with JAX's messages when
+the batch does not divide the mesh (``:223-226, 256-266``). The state
+starts from rank 0's (``replicate_state``); the logged loss and gradient
+norm and the evaluation's metrics are the global ones, alike on every
+rank, so every rank takes the same branches (evaluation, early stopping).
+The host work is not sharded: every rank reads, decodes and (for single
+steps) uploads and preprocesses the whole global batch before it keeps
+its rows, so the host's share of a step does not shrink as ranks are
+added (ROADMAP B8). Only rank 0 prints, writes the metrics file, TensorBoard events, the
+profiler trace and the checkpoints (the others wait for each save at a
+barrier). ``debug_nans`` reads every step's loss and raises
+``FloatingPointError`` on the first that is not finite.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ from crnn_ocr_torch.data.codec import LabelCodec
 from crnn_ocr_torch.data.pipeline import produce_batch
 from crnn_ocr_torch.ops import ctc
 from crnn_ocr_torch.ops.editdistance import cer_sums_on_device
+from crnn_ocr_torch.parallel import mesh as mesh_lib
 from crnn_ocr_torch.train import step as step_lib
 from crnn_ocr_torch.train.checkpoint import CheckpointManager
 from crnn_ocr_torch.train.state import TrainState
@@ -85,7 +102,9 @@ class FitConfig:
     # a data.device_cache.DeviceResidentCorpus whose stacked_index_batches
     # the stream yields
     device_corpus: object = None
-    mesh: object = None  # not ported: ROADMAP item 13
+    # a process mesh (parallel.mesh.init_process_mesh): data parallelism
+    mesh: object = None
+    debug_nans: bool = False  # raise on the first non-finite step loss
 
 
 # the arrays of a stack with a leading K axis, cut when a stack is trimmed
@@ -93,11 +112,23 @@ _STACKED = ("the_input", "heights", "widths", "the_labels", "label_length",
             "batch_index", "rows", "pix_rows")
 
 
-def _check_ported(cfg: FitConfig) -> None:
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            "FitConfig.mesh: data parallelism is not ported yet "
-            "(ROADMAP item 13)")
+def _train_mesh(mesh) -> Optional[mesh_lib.Mesh]:
+    """``FitConfig.mesh`` as the steps take it: a process mesh, or None
+    for one device (a one-device local mesh); a local mesh of several
+    devices raises, as training runs one process per device."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(f"FitConfig.mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if not mesh.process:
+        if mesh.size > 1:
+            raise ValueError(
+                "training runs one process per device: pass a process mesh "
+                "(parallel.mesh.init_process_mesh), not a local mesh of "
+                f"{mesh.size} devices")
+        return None
+    return mesh
 
 
 def _summary_writer(logdir: Optional[str]):
@@ -131,11 +162,17 @@ def fit(
 ) -> TrainState:
     """Train ``state`` in place until ``cfg.steps`` steps in all (or early
     stopping, or the end of ``train_iter``); returns it."""
-    _check_ported(cfg)
-    train_step = step_lib.make_train_step(model_cfg, cfg.exact_keras_loss)
+    mesh = _train_mesh(cfg.mesh)
+    dp = mesh_lib.is_dp(mesh)
+    writer = mesh is None or mesh.writer
+    if mesh is not None:
+        mesh_lib.replicate_state(state, mesh)
+    train_step = step_lib.make_train_step(model_cfg, cfg.exact_keras_loss,
+                                          mesh)
     eval_step = step_lib.make_eval_step(model_cfg)
     k_kw = dict(exact_keras=cfg.exact_keras_loss, normalize=cfg.normalize,
-                augment=cfg.augment, augment_seed=cfg.augment_seed)
+                augment=cfg.augment, augment_seed=cfg.augment_seed,
+                mesh=mesh)
     multi_step = (step_lib.make_multi_train_step(model_cfg, **k_kw)
                   if cfg.steps_per_call > 1 else None)
     corpus = cfg.device_corpus
@@ -145,7 +182,8 @@ def fit(
         step_lib.make_partial_cached_multi_train_step(model_cfg, **k_kw)
         if corpus is not None and corpus.partial else None)
     generator = torch.Generator(device=state.device)
-    ckpt = (CheckpointManager(cfg.checkpoint_dir, track_metric="cer")
+    ckpt = (CheckpointManager(cfg.checkpoint_dir, track_metric="cer",
+                              mesh=mesh)
             if cfg.checkpoint_dir else None)
     timer = StepTimer(window=cfg.log_every)
     best_cer = float("inf")
@@ -153,9 +191,15 @@ def fit(
     ema_loss = None
     lines_seen = 0
     t_start = time.time()
-    mfile = open(cfg.metrics_path, "a") if cfg.metrics_path else None
-    tb = _summary_writer(cfg.tensorboard_dir)
+    mfile = open(cfg.metrics_path, "a") if cfg.metrics_path and writer \
+        else None
+    tb = _summary_writer(cfg.tensorboard_dir if writer else None)
+    profile_dir = cfg.profile_dir if writer else None
     trace = contextlib.ExitStack()  # holds the profiler window while open
+
+    def say(msg: str) -> None:
+        if writer:
+            print(msg, file=sys.stderr)
 
     def log(rec: dict) -> None:
         if mfile:
@@ -177,14 +221,24 @@ def fit(
             stacked = int(batch.get("stacked", 0))
             if stacked > remaining:
                 batch, stacked = _trim(batch, remaining), remaining
-            if cfg.profile_dir and i == cfg.profile_at:
-                trace.enter_context(xplane_trace(cfg.profile_dir))
+            if profile_dir and i == cfg.profile_at:
+                trace.enter_context(xplane_trace(profile_dir))
             prev_step = state.step
             if stacked:
                 bucket = int(batch["bucket"])
                 cached = batch.get("device_cached", False)
-                n_lines = stacked * int(np.shape(
-                    batch["rows" if cached else "the_labels"])[1])
+                B = int(np.shape(batch["rows" if cached else "the_labels"])[1])
+                n_lines = stacked * B
+                if mesh is not None and B % mesh.size:
+                    raise ValueError(
+                        f"device_cache under a mesh needs batch_size "
+                        f"divisible by the mesh ({B} % {mesh.size})" if cached
+                        else f"steps_per_call > 1 under a mesh needs "
+                        f"batch_size divisible by the mesh ({B} % "
+                        f"{mesh.size}); use steps_per_call=1 for ragged DP "
+                        f"batches")
+                if dp and not cached:
+                    batch = mesh_lib.shard_stacked_batch(batch, mesh)
                 with timer:
                     if cached:
                         arrs = corpus.arrays(bucket)
@@ -212,14 +266,21 @@ def fit(
                 batch = {k: v for k, v in batch.items()
                          if k not in ("texts", "bucket")}
                 n_lines = int(batch["x"].shape[0])
+                if dp:
+                    if n_lines % mesh.size:
+                        batch = mesh_lib.pad_batch_to(
+                            batch, -(-n_lines // mesh.size) * mesh.size)
+                    batch = mesh_lib.shard_batch(batch, mesh)
                 generator.manual_seed(step_lib.step_seed(cfg.seed,
                                                          state.step))
                 with timer:
                     last = train_step(state, batch, generator)
-            if cfg.profile_dir and i == cfg.profile_at + cfg.profile_steps:
+            if cfg.debug_nans and not torch.isfinite(last["loss"]):
+                raise FloatingPointError(
+                    f"step {state.step}: the loss is {float(last['loss'])}")
+            if profile_dir and i == cfg.profile_at + cfg.profile_steps:
                 trace.close()
-                print(f"profile trace written to {cfg.profile_dir}",
-                      file=sys.stderr)
+                say(f"profile trace written to {profile_dir}")
             lines_seen += n_lines
             gstep = state.step
             if crossed(cfg.log_every, prev_step, gstep) or i == 0:
@@ -233,18 +294,18 @@ def fit(
                        "lines_per_sec": lines_seen / wall, "wall": wall,
                        **{f"host_step_{k}": v
                           for k, v in timer.stats().items()}}
-                print(f"step {gstep:6d} loss {loss:9.4f} ema {ema_loss:9.4f} "
-                      f"gnorm {rec['grad_norm']:8.3f} "
-                      f"{rec['lines_per_sec']:8.1f} lines/s", file=sys.stderr)
+                say(f"step {gstep:6d} loss {loss:9.4f} ema {ema_loss:9.4f} "
+                    f"gnorm {rec['grad_norm']:8.3f} "
+                    f"{rec['lines_per_sec']:8.1f} lines/s")
                 log(rec)
             if eval_iter_fn and crossed(cfg.eval_every, prev_step, gstep):
                 ev = evaluate(state, eval_step, eval_iter_fn(), codec,
                               cfg.eval_batches,
-                              on_device_cer=cfg.on_device_cer)
+                              on_device_cer=cfg.on_device_cer, mesh=mesh)
                 ev["step"] = gstep
-                print(f"eval  step {gstep}: loss {ev['loss']:.4f} "
-                      f"CER {ev['cer']:.4f} WER {ev['wer']:.4f} "
-                      f"acc {ev['seq_acc']:.4f}", file=sys.stderr)
+                say(f"eval  step {gstep}: loss {ev['loss']:.4f} "
+                    f"CER {ev['cer']:.4f} WER {ev['wer']:.4f} "
+                    f"acc {ev['seq_acc']:.4f}")
                 log({"kind": "eval", **ev})
                 if ckpt:
                     ckpt.save(gstep, state, model_cfg, codec, metrics=ev)
@@ -255,7 +316,7 @@ def fit(
                     evals_since_improve += 1
                     if (cfg.early_stop_patience and evals_since_improve
                             >= cfg.early_stop_patience):
-                        print("early stopping", file=sys.stderr)
+                        say("early stopping")
                         break
         trace.close()  # where the loop ended inside the window
         if ckpt:
@@ -277,6 +338,7 @@ def evaluate(
     codec: Optional[LabelCodec],
     max_batches: int = 8,
     on_device_cer: bool = False,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> Dict[str, float]:
     """Validation: the mean per-line loss and the greedy decode's CER, WER
     and sequence accuracy, as JAX's ``evaluate``
@@ -293,37 +355,66 @@ def evaluate(
     one, so the two agree). With no texts and every batch on the device,
     the CER is label space's and WER and sequence accuracy are NaN; with
     neither, all three are NaN. The device sums are read once, at the
-    end."""
+    end.
+
+    On a process ``mesh`` each batch is padded to a multiple of the mesh
+    (its mask dropped: the pad rows are sliced off on the host instead,
+    JAX ``:410-418``) and each rank evaluates its rows: the per-line losses
+    are gathered, and the CER sums and the text metrics' sums
+    (``utils.metrics.error_sums``) are all-reduced, so every rank returns
+    the metrics of one device."""
+    dp = mesh_lib.is_dp(mesh)
     losses, preds, refs = [], [], []
     dist_sum = ref_len_sum = 0
-    device_batches = 0
+    device_batches = text_batches = 0
     device_cer_ok = True
     for j, batch in enumerate(eval_iter):
         if j >= max_batches:
             break
         texts = batch.get("texts")
+        n_own = n_lines = int(batch["x"].shape[0])
+        if dp:
+            size = mesh.size
+            if n_lines % size:
+                batch = mesh_lib.pad_batch_to(
+                    batch, -(-n_lines // size) * size)
+            batch = {k: v for k, v in batch.items() if k != "valid_mask"}
+            rows = mesh.rows(int(batch["x"].shape[0]))
+            n_own = max(0, min(n_lines, rows.stop) - rows.start)
+            if texts is not None:
+                texts = texts[rows.start:rows.start + n_own]
+            batch = mesh_lib.shard_batch(batch, mesh)
         loss_vec, decoded = eval_step(state, batch)
-        losses.append(loss_vec)
+        losses.append(mesh_lib.gather_rows(loss_vec, mesh)[:n_lines]
+                      if dp else loss_vec)
         if ((on_device_cer or texts is None or codec is None)
                 and "the_labels" in batch):
-            d, r = cer_sums_on_device(decoded, batch["the_labels"],
-                                      batch["label_length"])
+            d, r = cer_sums_on_device(decoded[:n_own],
+                                      batch["the_labels"][:n_own],
+                                      batch["label_length"][:n_own], mesh)
             dist_sum, ref_len_sum = dist_sum + d, ref_len_sum + r
             device_batches += 1
         else:
             device_cer_ok = False
         if codec is not None and texts is not None:
-            for row, ref in zip(ctc.trim_dense(decoded.cpu()), texts):
+            text_batches += 1
+            for row, ref in zip(ctc.trim_dense(decoded[:n_own].cpu()),
+                                texts):
                 preds.append(codec.labels_to_text(row))
                 refs.append(ref)
     out = {"loss": float(np.mean(torch.cat(losses).cpu().numpy()))}
     device_cer = (int(dist_sum) / max(int(ref_len_sum), 1)
                   if device_cer_ok and device_batches else None)
-    if refs:
-        out["wer"] = metrics_lib.wer(preds, refs)
-        out["seq_acc"] = metrics_lib.sequence_accuracy(preds, refs)
+    if text_batches:
+        sums = metrics_lib.error_sums(preds, refs)
+        if dp:
+            sums = mesh_lib.all_reduce_(
+                torch.from_numpy(sums).to(mesh.device), mesh).cpu().numpy()
+        rates = metrics_lib.rates_from_sums(sums)
+        out["wer"] = rates["wer"]
+        out["seq_acc"] = rates["seq_acc"]
         out["cer"] = (device_cer if on_device_cer and device_cer is not None
-                      else metrics_lib.cer(preds, refs))
+                      else rates["cer"])
     elif device_cer is not None:
         out.update(cer=device_cer, wer=float("nan"), seq_acc=float("nan"))
     else:

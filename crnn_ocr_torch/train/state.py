@@ -22,7 +22,9 @@ seeded init with flax's initializer families (lecun-normal convolutions
 and dense layers, glorot-uniform input and orthogonal recurrent GRU and
 LSTM kernels, zero biases but the LSTM's unit forget bias, unit BatchNorm
 scales; the STN's theta layer with a zero kernel and the identity bias): the same distributions as the JAX
-package's ``model.init``, not the same numbers.
+package's ``model.init``, not the same numbers. Under a process mesh
+(``mesh=``) every rank starts from rank 0's state
+(``parallel.mesh.replicate_state``), on its own device.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from crnn_ocr_torch.infer.predictor import resolve_device
 from crnn_ocr_torch.models.crnn import CRNN
 from crnn_ocr_torch.models.rnn import BiRNN
 from crnn_ocr_torch.models.stn import IDENTITY
+from crnn_ocr_torch.parallel.mesh import Mesh, replicate_state
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -255,21 +258,26 @@ def create_train_state(
     schedule: str = "constant",
     total_steps: int = 10_000,
     warmup_steps: int = 0,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """A model in training mode on ``device`` (CUDA unless the caller asks
     for the CPU), from ``state_dict`` or a seeded init, with its optimizer
-    (one of ``OPTIMIZERS``)."""
-    dev = resolve_device(device)
-    model = CRNN(cfg)
+    (one of ``OPTIMIZERS``). With a process ``mesh`` the model runs
+    sync-BN, lives on the rank's device (``device`` is ignored) and holds
+    rank 0's weights."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    model = CRNN(cfg, mesh)
     if state_dict is None:
         init_weights(model, seed)
     else:
         model.load_state_dict(state_dict)
     model.to(dev).train()
-    return TrainState(
+    state = TrainState(
         model=model,
         optimizer=make_optimizer(optimizer, model.parameters(),
                                  learning_rate),
         schedule=make_schedule(schedule, learning_rate, total_steps,
                                warmup_steps),
         clipnorm=clipnorm)
+    return replicate_state(state, mesh)
+

@@ -15,9 +15,21 @@ Loss modes, as in the JAX package:
   re-log-softmaxed): the reference's Keras loss;
 * otherwise ``log_softmax`` straight into the CTC loss.
 
-The masked mean and masked BatchNorm of padded data-parallel batches
-belong to the data-parallel slice (ROADMAP item 13); a batch carrying a
-``valid_mask`` raises.
+A batch may carry a ``valid_mask`` (``parallel.mesh.pad_batch_to``): the
+loss is then the masked mean ``sum(loss * mask) / max(sum(mask), 1)`` and
+the mask goes to the model, whose training BatchNorms take masked moments,
+so a padded step equals the unpadded one.
+
+Data parallelism (``mesh=``, a process mesh of ``parallel/mesh.py``): each
+rank steps on its own rows of the global batch. Its loss is the sum of its
+rows' clipped (masked) losses over the global count ``n_global``
+(``shard_batch`` writes it; ``max(sum(mask), 1)`` over the global batch),
+the gradients are summed across ranks in one flat ``all_reduce`` before
+the clip (``parallel.mesh.sum_gradients``), and the reported loss is
+all-reduced: what GSPMD computes for the global batch. The K-step calls
+under a mesh step on the rank's rows of each inner batch (JAX's
+``shard_b``, ``step.py:396-406, 494-504``), and the augmentation draws the
+global batch's draws and keeps the rank's rows.
 
 K steps a call (``make_multi_train_step``, ``make_cached_multi_train_step``,
 ``make_partial_cached_multi_train_step``): one call uploads a stack's
@@ -46,6 +58,12 @@ from crnn_ocr_torch.kernels.ctc_loss import ctc_loss
 from crnn_ocr_torch.ops import ctc
 from crnn_ocr_torch.ops.augment import augment_batch, augment_generator
 from crnn_ocr_torch.ops.preprocess import preprocess_batch, preprocess_resident
+from crnn_ocr_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    is_dp,
+    sum_gradients,
+)
 from crnn_ocr_torch.train.state import TrainState, apply_gradients
 
 LOSS_CLIP = 1e4  # an infeasible line's ~1e30 loss may not swamp the step
@@ -78,31 +96,53 @@ def ctc_loss_vec(logits, labels, input_length, label_length,
 def loss_fn(model, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             exact_keras: bool = False,
             generator: Optional[torch.Generator] = None):
-    """The forward half of a train step: (mean clipped loss, loss_vec)."""
-    if batch.get("valid_mask") is not None:
-        raise NotImplementedError(
-            "valid_mask (padded data-parallel batches): the masked mean and "
-            "masked BatchNorm are still to port (ROADMAP item 13)")
-    logits = model(batch["x"], generator)
+    """The forward half of a train step: (the loss, loss_vec). The loss is
+    the clipped losses' mean; with a ``valid_mask``, their masked sum over
+    ``max(sum(mask), 1)``; with ``n_global`` in the batch (a rank's shard),
+    their (masked) sum over ``n_global``."""
+    mask = batch.get("valid_mask")
+    logits = model(batch["x"], generator, valid_mask=mask)
     loss_vec = ctc_loss_vec(logits, batch["the_labels"],
                             batch["input_length"], batch["label_length"],
                             cfg.ctc_time_slice, exact_keras)
-    return torch.clamp(loss_vec, max=LOSS_CLIP).mean(), loss_vec
+    clipped = torch.clamp(loss_vec, max=LOSS_CLIP)
+    n_global = batch.get("n_global")
+    if mask is None and n_global is None:
+        return clipped.mean(), loss_vec
+    total = (clipped * mask).sum() if mask is not None else clipped.sum()
+    if n_global is None:
+        return total / torch.clamp(mask.sum(), min=1.0), loss_vec
+    return total / float(n_global), loss_vec
 
 
-def make_train_step(cfg: ModelConfig, exact_keras: bool = False):
+def make_train_step(cfg: ModelConfig, exact_keras: bool = False,
+                    mesh: Optional[Mesh] = None):
     """``train_step(state, batch, generator=None) -> metrics``: one update
     of ``state`` in place; ``metrics`` holds the ``loss`` and the
-    ``grad_norm`` before clipping, as device scalars (reading them syncs)."""
+    ``grad_norm`` before clipping, as device scalars (reading them syncs).
+    On a process ``mesh`` the batch is the rank's shard
+    (``parallel.mesh.shard_batch``, which adds ``n_global``), the model
+    runs sync-BN, the gradients are summed across ranks and the metrics
+    are the global batch's."""
+    dp = is_dp(mesh)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
+        if dp and batch.get("n_global") is None:
+            raise ValueError("a data-parallel step needs the rank's shard "
+                             "of the global batch (parallel.mesh."
+                             "shard_batch), with its n_global")
+        state.model.mesh = mesh
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, _ = loss_fn(state.model, batch, cfg, exact_keras, generator)
         loss.backward()
+        loss = loss.detach()
+        if dp:
+            sum_gradients(list(state.model.parameters()), mesh)
+            loss = all_reduce_(loss.clone(), mesh)
         gnorm = apply_gradients(state)
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 
@@ -122,20 +162,23 @@ def _upload(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 def _k_steps(state: TrainState, train_step, cfg: ModelConfig, seed: int,
              bucket: int, batch_index, augment: bool, augment_seed: int,
-             inner: Callable[[int], tuple]) -> Dict[str, torch.Tensor]:
+             inner: Callable[[int], tuple],
+             mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """Inner step k of a K-step call for each entry of ``batch_index``:
     ``inner(k)`` gives its preprocessed frames, content widths, labels and
-    label lengths on the device. Returns ``{"loss": (K,), "grad_norm":
-    (K,)}`` device tensors."""
+    label lengths on the device (on a process ``mesh``, the rank's rows).
+    Returns ``{"loss": (K,), "grad_norm": (K,)}`` device tensors."""
     gen = torch.Generator(device=state.device)
     losses, norms = [], []
     for k, index in enumerate(np.asarray(batch_index).reshape(-1)):
         x, w_new, labels, lab_len = inner(k)
         if augment:
             x = augment_batch(x, augment_generator(x.device, augment_seed,
-                                                   int(index)))
+                                                   int(index)), mesh=mesh)
         batch = {"x": x, "input_length": input_lengths(w_new, bucket, cfg),
                  "the_labels": labels, "label_length": lab_len}
+        if is_dp(mesh):
+            batch["n_global"] = float(x.shape[0] * mesh.world)
         gen.manual_seed(step_seed(seed, state.step))
         m = train_step(state, batch, gen)
         losses.append(m["loss"])
@@ -145,15 +188,17 @@ def _k_steps(state: TrainState, train_step, cfg: ModelConfig, seed: int,
 
 def make_multi_train_step(cfg: ModelConfig, exact_keras: bool = False,
                           normalize: bool = True, augment: bool = False,
-                          augment_seed: int = 0):
+                          augment_seed: int = 0,
+                          mesh: Optional[Mesh] = None):
     """``multi_step(state, stack, seed, bucket) -> metrics``: the K steps
     of a stack from ``data.pipeline.stack_host_batches`` (``the_input``
     (K, B, Hq, Wq) uint8, ``heights``, ``widths``, ``the_labels``,
     ``label_length``, ``batch_index``) in one call. The stack is uploaded
     whole, then each inner step preprocesses its canvas as
     ``produce_batch`` does. ``metrics`` is ``{"loss": (K,), "grad_norm":
-    (K,)}``, device tensors."""
-    train_step = make_train_step(cfg, exact_keras)
+    (K,)}``, device tensors. On a process ``mesh`` the stack is the rank's
+    part (``parallel.mesh.shard_stacked_batch``)."""
+    train_step = make_train_step(cfg, exact_keras, mesh)
 
     def multi_step(state: TrainState, stack: Dict[str, np.ndarray],
                    seed: int, bucket: int) -> Dict[str, torch.Tensor]:
@@ -168,28 +213,39 @@ def make_multi_train_step(cfg: ModelConfig, exact_keras: bool = False,
             return x, w_new, t["the_labels"][k], t["label_length"][k]
 
         return _k_steps(state, train_step, cfg, seed, bucket,
-                        stack["batch_index"], augment, augment_seed, inner)
+                        stack["batch_index"], augment, augment_seed, inner,
+                        mesh)
 
     return multi_step
+
+
+def _own_rows(rows: np.ndarray, mesh: Optional[Mesh]) -> np.ndarray:
+    """A (K, B) stack's columns this rank gathers: all of them off a
+    process mesh (JAX's ``shard_b``)."""
+    rows = np.asarray(rows)
+    return rows[:, mesh.rows(rows.shape[1])] if is_dp(mesh) else rows
 
 
 def make_cached_multi_train_step(cfg: ModelConfig, exact_keras: bool = False,
                                  normalize: bool = True,
                                  augment: bool = False,
-                                 augment_seed: int = 0):
+                                 augment_seed: int = 0,
+                                 mesh: Optional[Mesh] = None):
     """``cached_step(state, pixels, widths, labels, lab_len, rows,
     batch_index, seed, bucket) -> metrics``: K steps over a corpus held on
     the device (``data.device_cache.DeviceResidentCorpus.arrays(bucket)``'s
     tables). Only ``rows`` (K, B) is uploaded (``batch_index`` seeds the
     augmentation's generator on the host); each inner step gathers its
     rows and runs ``preprocess_resident`` on them (the rows are
-    height-normalized and padded already)."""
-    train_step = make_train_step(cfg, exact_keras)
+    height-normalized and padded already). On a process ``mesh`` each rank
+    gathers only its own columns of ``rows``."""
+    train_step = make_train_step(cfg, exact_keras, mesh)
 
     def cached_step(state: TrainState, pixels, widths, labels, lab_len,
                     rows: np.ndarray, batch_index, seed: int,
                     bucket: int) -> Dict[str, torch.Tensor]:
-        r = _upload({"rows": np.asarray(rows, np.int64)}, state.device)["rows"]
+        r = _upload({"rows": np.asarray(_own_rows(rows, mesh), np.int64)},
+                    state.device)["rows"]
 
         def inner(k):
             x, w_new = preprocess_resident(pixels.index_select(0, r[k]),
@@ -199,7 +255,7 @@ def make_cached_multi_train_step(cfg: ModelConfig, exact_keras: bool = False,
                     lab_len.index_select(0, r[k]))
 
         return _k_steps(state, train_step, cfg, seed, bucket, batch_index,
-                        augment, augment_seed, inner)
+                        augment, augment_seed, inner, mesh)
 
     return cached_step
 
@@ -208,7 +264,8 @@ def make_partial_cached_multi_train_step(cfg: ModelConfig,
                                          exact_keras: bool = False,
                                          normalize: bool = True,
                                          augment: bool = False,
-                                         augment_seed: int = 0):
+                                         augment_seed: int = 0,
+                                         mesh: Optional[Mesh] = None):
     """``cached_step(state, pixels, widths, labels, lab_len, miss_pixels,
     rows, pix_rows, batch_index, seed, bucket) -> metrics``: as
     ``make_cached_multi_train_step``'s over a partly resident corpus. The
@@ -216,15 +273,18 @@ def make_partial_cached_multi_train_step(cfg: ModelConfig,
     that are not resident, and ``pix_rows`` (K, B) (``>= 0``: a resident
     row; ``< 0``: miss slot ``-(i + 1)``). A batch's pixels are two gathers
     and a select on ``pix_rows < 0``; its widths and labels are gathered by
-    the original row, so its bytes are full residency's."""
-    train_step = make_train_step(cfg, exact_keras)
+    the original row, so its bytes are full residency's. On a process
+    ``mesh`` each rank gathers only its own columns of ``rows`` and
+    ``pix_rows`` (the miss payload comes whole)."""
+    train_step = make_train_step(cfg, exact_keras, mesh)
 
     def cached_step(state: TrainState, pixels, widths, labels, lab_len,
                     miss_pixels: np.ndarray, rows: np.ndarray,
                     pix_rows: np.ndarray, batch_index, seed: int,
                     bucket: int) -> Dict[str, torch.Tensor]:
-        t = _upload({"rows": np.asarray(rows, np.int64),
-                    "pix_rows": np.asarray(pix_rows, np.int64),
+        t = _upload({"rows": np.asarray(_own_rows(rows, mesh), np.int64),
+                    "pix_rows": np.asarray(_own_rows(pix_rows, mesh),
+                                           np.int64),
                     "miss": miss_pixels}, state.device)
         r = t["rows"]
 
@@ -241,7 +301,7 @@ def make_partial_cached_multi_train_step(cfg: ModelConfig,
                     lab_len.index_select(0, r[k]))
 
         return _k_steps(state, train_step, cfg, seed, bucket, batch_index,
-                        augment, augment_seed, inner)
+                        augment, augment_seed, inner, mesh)
 
     return cached_step
 

@@ -38,25 +38,60 @@ def levenshtein(a: Sequence, b: Sequence) -> int:
     return editdistance(a, b)
 
 
+def _char_sums(predictions, references) -> tuple:
+    """(total edit distance, total reference chars)."""
+    return (sum(levenshtein(p, r) for p, r in zip(predictions, references)),
+            sum(len(r) for r in references))
+
+
+def _word_sums(predictions, references) -> tuple:
+    """(total edit distance over whitespace tokens, total reference
+    words)."""
+    return (sum(levenshtein(p.split(), r.split())
+                for p, r in zip(predictions, references)),
+            sum(len(r.split()) for r in references))
+
+
+def _line_sums(predictions, references) -> tuple:
+    """(exact lines, lines)."""
+    return (sum(p == r for p, r in zip(predictions, references)),
+            len(references))
+
+
+def _rate(num, den) -> float:
+    return num / max(den, 1)
+
+
 def cer(predictions: Sequence[str], references: Sequence[str]) -> float:
     """Character error rate: total edit distance / total reference chars."""
-    dist = sum(levenshtein(p, r) for p, r in zip(predictions, references))
-    total = sum(len(r) for r in references)
-    return dist / max(total, 1)
+    return _rate(*_char_sums(predictions, references))
 
 
 def wer(predictions: Sequence[str], references: Sequence[str]) -> float:
     """Word error rate over whitespace tokens."""
-    dist = sum(
-        levenshtein(p.split(), r.split())
-        for p, r in zip(predictions, references)
-    )
-    total = sum(len(r.split()) for r in references)
-    return dist / max(total, 1)
+    return _rate(*_word_sums(predictions, references))
 
 
 def sequence_accuracy(
     predictions: Sequence[str], references: Sequence[str]
 ) -> float:
-    hits = sum(p == r for p, r in zip(predictions, references))
-    return hits / max(len(references), 1)
+    return _rate(*_line_sums(predictions, references))
+
+
+def error_sums(predictions: Sequence[str],
+               references: Sequence[str]) -> np.ndarray:
+    """The sums behind ``cer``, ``wer`` and ``sequence_accuracy``: (char
+    distance, reference chars, word distance, reference words, exact
+    lines, lines), float64. Shards' sums add up to the whole's (a
+    data-parallel evaluation all-reduces them); ``rates_from_sums`` turns
+    them into the three rates, equal to the functions' on the whole."""
+    return np.array([*_char_sums(predictions, references),
+                     *_word_sums(predictions, references),
+                     *_line_sums(predictions, references)], np.float64)
+
+
+def rates_from_sums(sums) -> dict:
+    """``{"cer", "wer", "seq_acc"}`` of ``error_sums``'s (summed) sums."""
+    s = [float(v) for v in sums]
+    return {"cer": _rate(s[0], s[1]), "wer": _rate(s[2], s[3]),
+            "seq_acc": _rate(s[4], s[5])}

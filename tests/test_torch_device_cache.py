@@ -32,6 +32,7 @@ from crnn_ocr_torch.data.synthetic import SyntheticConfig as TSynthCfg
 from crnn_ocr_torch.data.synthetic import SyntheticTextlines as TSynth
 from crnn_ocr_torch.ops.preprocess import preprocess_batch, \
     preprocess_resident
+from crnn_ocr_torch.parallel import Mesh, make_mesh
 from crnn_ocr_torch.train import CheckpointManager
 from crnn_ocr_torch.train import loop as tloop
 from crnn_ocr_torch.train import state as tstate
@@ -236,8 +237,16 @@ def test_guards(corpus_dirs, tmp_path):
     with pytest.raises(ValueError, match="pack_cache"):
         DeviceResidentCorpus(Reader(ReaderConfig(
             path=port, **dict(_cfg(), pack_cache=False))), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        DeviceResidentCorpus(_reader(port), device="cpu", mesh=object())
+    # on a mesh the tables go to the mesh's device; a rank other than 0
+    # packs nothing and refuses a corpus that rank 0 has not packed
+    assert DeviceResidentCorpus(_reader(port), mesh=make_mesh(
+        devices=["cpu"])).device.type == "cpu"
+    cold = tmp_path / "cold"
+    shutil.copytree(port, cold, ignore=shutil.ignore_patterns(".crnn_*"))
+    rank1 = Mesh((torch.device("cpu"),), group=object(), rank=1, world=2)
+    with pytest.raises(ValueError, match="rank 1's reader finds 24 of 24"):
+        DeviceResidentCorpus(_reader(str(cold)), mesh=rank1)
+    assert not (cold / ".crnn_pack" / "index.json").exists()
     if not torch.cuda.is_available():  # entry points default to cuda
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DeviceResidentCorpus(_reader(port))

@@ -15,6 +15,7 @@ import pathlib
 import jax
 import numpy as np
 import pytest
+import torch
 
 from crnn_ocr_torch.config import ModelConfig as TorchConfig
 from crnn_ocr_torch.data.codec import LabelCodec
@@ -133,8 +134,13 @@ def test_predictor_from_cli_routes_and_refuses(tmp_path):
     with pytest.raises(SystemExit) as got:
         predictor_from_cli(None, None, device="cpu")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        predictor_from_cli(None, "fonts-small", n_devices=2, device="cpu")
+    # n_devices > 1 serves on a local mesh: of the CUDA cards (too few raise
+    # JAX's message), or shards of the one CPU
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match=f"requested a {n}-device mesh"):
+        predictor_from_cli(None, "fonts-small", n_devices=n)
+    assert predictor_from_cli(None, "fonts-small", n_devices=2,
+                              device="cpu").mesh.size == 2
     (tmp_path / "model_config.json").write_text("{}")
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         predictor_from_cli(str(tmp_path), None, device="cpu")

@@ -51,6 +51,7 @@ from crnn_ocr_torch.infer.weights import params_from_jax
 from crnn_ocr_torch.kernels import bigru as tbg
 from crnn_ocr_torch.models.crnn import dropout
 from crnn_ocr_torch.models.rnn import BiRNN
+from crnn_ocr_torch.parallel import make_mesh
 from crnn_ocr_torch.train import loop as tloop
 from crnn_ocr_torch.train import state as tstate
 from crnn_ocr_torch.train import step as tstep
@@ -419,9 +420,13 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown optimizer"):
         tstate.create_train_state(cfg, device="cpu", optimizer="lamb")
     state = tstate.create_train_state(cfg, device="cpu")
-    # items 9 and 12 are ported: only data parallelism (item 13) raises
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    # data parallelism takes a parallel.mesh.Mesh: anything else raises, as
+    # does a local mesh of several devices (training runs a process each)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tloop.fit(state, cfg, iter([]), cfg=tloop.FitConfig(mesh=object()))
+    with pytest.raises(ValueError, match="one process per device"):
+        tloop.fit(state, cfg, iter([]), cfg=tloop.FitConfig(
+            mesh=make_mesh(devices=["cpu", "cpu"])))
     for kw in (dict(steps_per_call=4), dict(on_device_cer=True),
                dict(augment=True, normalize=False)):
         tloop.fit(state, cfg, iter([]), cfg=tloop.FitConfig(**kw))

@@ -195,7 +195,10 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/utils/profiling.py",
             "crnn_ocr_torch/ops/editdistance.py",
             "crnn_ocr_torch/ops/augment.py",
-            "crnn_ocr_torch/data/device_cache.py"} <= names
+            "crnn_ocr_torch/data/device_cache.py",
+            "crnn_ocr_torch/parallel/__init__.py",
+            "crnn_ocr_torch/parallel/mesh.py",
+            "crnn_ocr_torch/cli/train.py"} <= names
     # the host C++ the port builds is its own copy, inside the package
     for src in ("ctc_beam_tf.cc", "editdistance.cc", "imgproc.cc"):
         assert (REPO / "crnn_ocr_torch" / "native" / src).is_file(), src
@@ -218,7 +221,8 @@ def test_importing_the_port_loads_no_jax():
         "crnn_ocr_torch.data, crnn_ocr_torch.data.reader, "
         "crnn_ocr_torch.data.packed, crnn_ocr_torch.data.fontgen, "
         "crnn_ocr_torch.train, crnn_ocr_torch.train.checkpoint, "
-        "crnn_ocr_torch.utils.profiling\n"
+        "crnn_ocr_torch.utils.profiling, crnn_ocr_torch.parallel, "
+        "crnn_ocr_torch.parallel.mesh, crnn_ocr_torch.cli.train\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-small', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-warp-stn', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-hard-lstm', device='cpu')\n"
