@@ -347,6 +347,35 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     path, and ``--n_devices 2``, which must exit non-zero with
     ``make_mesh``'s message.
 
+30. Migration on the card (``phase_migration``; no kernel of its own, no
+    kernel changed; the card machine has no ``h5py``, ``tf_keras``,
+    ``orbax``, ``tensorstore`` or Python zstd). (a) ``fonts-hard``'s
+    bundled weights saved as a port model directory, ``python -m
+    crnn_ocr_torch.cli.migrate export`` of it (``model.h5`` by the port's
+    HDF5 writer; ``model.json`` skipped without ``tf_keras``), the ``.h5``
+    read back by the port's reader bit for bit, ``migrate import --device
+    cuda`` of the exported directory, and the import served on the
+    card: in bf16 (its config's dtype replaced, as ``fonts-hard`` ships)
+    texts equal to ``load_pretrained("fonts-hard")``'s with 1 K1
+    (``"mma"``) and 2 K2 (resident) a batch; through ``init_predictor``
+    (f32, as saved) texts equal to the JAX goldens, scores rtol 1e-4 /
+    atol 1e-5 (phase 3's gate); the export, read, import and
+    ``init_predictor`` ms and the file's bytes. (b) The committed orbax
+    fixture (``crnn_ocr_torch/testdata/orbax_small/``: the JAX package's
+    ``CheckpointManager`` directory of a 64-filter-stem, one-BiGRU (H 128)
+    model after 2 Adam steps, written by ``tools/gen_torch_goldens.py
+    --orbax``) restored into an Adam train state on the card (its read
+    ms), then one f32 step (TF32 and the backbone's cuDNN off, as phase 7)
+    against JAX's third step in ``orbax_goldens.npz``: loss rtol 1e-4,
+    every parameter rtol 2e-4 / atol 2e-5 but for elements whose JAX
+    gradient is at the f32 noise of its sum (at most 0.1 % of a tensor,
+    within 2 lr), the BatchNorm statistics likewise; the step launches
+    1 each of K8, K1 (``"conv9"``), K9, K10, K6 and K7 (``"pipelined"``)
+    and 1 K3 (resident); the fixture is left byte for byte unchanged.
+    A line names the zstd decoder that ran (ctypes, ``libzstd.so.1``
+    and its version). To run it alone: ``phase_build(card)`` then
+    ``phase_migration(card, g)``.
+
 Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24, 25) requires
 each recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
@@ -5256,6 +5285,244 @@ def phase_dp(card: str, g, single_train: dict) -> dict:
     return dict(counted=r0["counted"], serve=serve, clis=clis)
 
 
+# ---- phase 30: migration, both ways, and the JAX package's orbax
+# ---- checkpoints on the card (no kernel of its own)
+
+ORBAX_FIXTURE = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                             "orbax_small")
+ORBAX_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                             "orbax_goldens.npz")
+# the fixture's model has one BiGRU layer
+ORBAX_TRAIN_KERNELS = dict(TRAIN_KERNELS, bigru_train=1)
+
+
+def tree_digest(directory: str) -> str:
+    """sha256 over a directory's relative paths and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for root, dirs, files in sorted(os.walk(directory)):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            h.update(os.path.relpath(path, directory).encode())
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict's leaves keyed by their ``/``-joined paths."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def migrate_full_width(g, dev: str = "cuda") -> dict:
+    """Phase 30 (a): ``fonts-hard``'s bundled weights saved as a model
+    directory, ``cli.migrate export`` (the port's HDF5 writer: no h5py
+    here), the ``.h5`` read back by the port's reader, ``cli.migrate
+    import`` on the card, and the imported directory served: bf16 against
+    ``load_pretrained``'s texts with its launches counted, f32 against the
+    JAX goldens at phase 3's gate. ``dev="cpu"`` rehearses it on the CPU
+    (no launches to count there)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.cli import migrate
+    from crnn_ocr_torch.infer import init_predictor
+    from crnn_ocr_torch.infer.predictor import Predictor
+    from crnn_ocr_torch.infer.pretrained import model_weights
+    from crnn_ocr_torch.infer.weights import import_keras_h5, params_from_jax
+    from crnn_ocr_torch.train.checkpoint import (
+        CheckpointManager,
+        load_codec,
+        load_model_config,
+    )
+    from crnn_ocr_torch.train.state import create_train_state
+
+    cfg, params, stats, codec = model_weights("fonts-hard", "float32")
+    lines = golden_lines(g, "hard")
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="crnn_migrate_") as tmp:
+        native, ref, imported = (os.path.join(tmp, n)
+                                 for n in ("native", "ref", "imported"))
+        state = create_train_state(cfg, params_from_jax(params, stats),
+                                   device=dev)
+        CheckpointManager(native).save(0, state, cfg, codec)
+        t0 = time.perf_counter()
+        rc = migrate.main(["export", "--src", native, "--dest", ref])
+        res["export_ms"] = (time.perf_counter() - t0) * 1e3
+        require(rc == 0, f"migrate export exited {rc}")
+        h5 = os.path.join(ref, "model.h5")
+        res["h5_bytes"] = os.path.getsize(h5)
+        t0 = time.perf_counter()
+        back = import_keras_h5(h5, cfg)
+        res["h5_read_ms"] = (time.perf_counter() - t0) * 1e3
+        want = {**flat_tree(params, "params/"),
+                **flat_tree(stats, "stats/")}
+        got = {**flat_tree(back[0], "params/"),
+               **flat_tree(back[1], "stats/")}
+        res["h5_bit_equal"] = (sorted(got) == sorted(want) and all(
+            np.array_equal(got[k], want[k]) for k in want))
+        require(res["h5_bit_equal"], "model.h5 read back differs from the "
+                                     "bundled weights")
+        res["model_json"] = os.path.exists(os.path.join(ref, "model.json"))
+        t0 = time.perf_counter()
+        rc = migrate.main(["import", "--src", ref, "--dest", imported,
+                           "--device", dev])
+        res["import_ms"] = (time.perf_counter() - t0) * 1e3
+        require(rc == 0, f"migrate import exited {rc}")
+        # bf16 (as fonts-hard ships): load_pretrained's texts on the card
+        want_bf16 = [p.text for p in
+                     load_pretrained("fonts-hard", device=dev)
+                     .predict(lines)]
+        pred = Predictor(
+            dataclasses.replace(load_model_config(imported),
+                                dtype="bfloat16"),
+            CheckpointManager(imported).restore_inference(),
+            load_codec(imported), device=dev)
+        pred.predict(lines)  # warm
+        reset_launches()
+        out = pred.predict(lines)
+        counts = read_launches()
+        bad = [(i, a.text, b) for i, (a, b) in enumerate(zip(out, want_bf16))
+               if a.text != b]
+        res["bf16"] = dict(lines=len(out), text_mismatches=bad,
+                           launches={k: v for k, v in counts.items() if v})
+        if dev == "cuda":
+            what = "the imported fonts-hard, bf16"
+            require_launches(counts, {"fused_stem": 1, "bigru": 2}, what)
+            res["bf16"]["k1_design"] = read_stem_design(counts, "serve", what)
+            res["bf16"].update(design_fields(*read_design(counts, what)))
+        require(not bad, f"imported fonts-hard bf16 texts differ from "
+                         f"load_pretrained's: {bad}")
+        # f32: the JAX goldens at phase 3's gate
+        t0 = time.perf_counter()
+        pred = init_predictor(imported, device=dev)
+        res["init_predictor_ms"] = (time.perf_counter() - t0) * 1e3
+        out = pred.predict(lines)
+        texts, scores = [o.text for o in out], [o.score for o in out]
+        want_t = [str(t) for t in g["hard_texts_f32"]]
+        bad = [(i, a, b) for i, (a, b) in enumerate(zip(texts, want_t))
+               if a != b]
+        fields = _tolerance_fields(scores, g["hard_scores_f32"], 1e-4, 1e-5)
+        res["f32"] = dict(lines=len(out), text_mismatches=bad,
+                          max_score_rel_err=fields["max_rel_err"],
+                          scores_ok=fields["ok"])
+        require(not bad and fields["ok"],
+                f"imported fonts-hard f32 differs from the JAX golden: "
+                f"{res['f32']}")
+    return res
+
+
+def orbax_resume_on_card(dev: str = "cuda") -> dict:
+    """Phase 30 (b): the committed orbax fixture (JAX's train state after
+    2 Adam steps) restored into a train state on the card; one f32 step
+    (TF32 and the backbone's cuDNN off, as phase 7) through the kernels,
+    counted, against JAX's third step (``orbax_goldens.npz``).
+    ``dev="cpu"`` rehearses it on the CPU."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch.data.pipeline import produce_batch
+    from crnn_ocr_torch.train import checkpoint as ckpt
+    from crnn_ocr_torch.train.state import create_train_state
+    from crnn_ocr_torch.train.step import make_train_step
+
+    gold = np.load(ORBAX_GOLDENS)
+    lr = float(gold["lr"])
+    before = tree_digest(ORBAX_FIXTURE)
+    cfg = ckpt.load_model_config(ORBAX_FIXTURE)
+    codec = ckpt.load_codec(ORBAX_FIXTURE)
+    state = create_train_state(cfg, device=dev, learning_rate=lr)
+    t0 = time.perf_counter()
+    ckpt.CheckpointManager(ORBAX_FIXTURE).restore(state)
+    sync(dev)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    require(state.step == int(gold["step"]),
+            f"restored step {state.step}, the fixture's {int(gold['step'])}")
+    truth = [str(t) for t in gold["truth"]]
+    labels, lab_len = codec.encode_batch(truth, TRAIN_MAX_LABEL)
+    batch = produce_batch({"the_input": gold["canvas"],
+                           "heights": gold["heights"],
+                           "widths": gold["widths"], "the_labels": labels,
+                           "label_length": lab_len,
+                           "bucket": int(gold["bucket"]), "texts": truth},
+                          dev, cfg)
+    step = make_train_step(cfg)
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        reset_launches()
+        m = step(state, batch)
+        loss = float(m["loss"])
+        counts = read_launches()
+    finally:
+        torch.backends.cudnn.enabled = cudnn
+    designs = {}
+    if dev == "cuda":
+        what = "the resumed orbax step"
+        require_launches(counts, ORBAX_TRAIN_KERNELS, what)
+        designs = dict(k1=read_stem_design(counts, "train", what),
+                       k3=design_fields(*read_design(counts, what)),
+                       ctc=read_ctc_design(counts, what))
+    # JAX's third step: parameters rtol 2e-4 / atol 2e-5, but for elements
+    # whose JAX gradient is at the f32 noise of its sum (noise/), at most
+    # 0.1 % of a tensor, within 2 * lr (tests/test_torch_train.py)
+    params = dict(state.model.named_parameters())
+    off_leaves, max_err = [], 0.0
+    for k, v in state.model.state_dict().items():
+        got, want = v.detach().float().cpu().numpy(), gold[f"after/{k}"]
+        err = np.abs(got - want)
+        max_err = max(max_err, float(err.max()))
+        off = err > 2e-5 + 2e-4 * np.abs(want)
+        if k in params:
+            shape = tuple(gold[f"noise_shape/{k}"])
+            noise = np.unpackbits(gold[f"noise/{k}"])[:int(np.prod(shape))]
+            noise = noise.reshape(shape).astype(bool)
+            if (np.any(off & ~noise) or off.mean() > 1e-3
+                    or np.any(err[off] > 2 * lr)):
+                off_leaves.append(k)
+        elif off.any():
+            off_leaves.append(k)
+    res = dict(fixture=os.path.relpath(ORBAX_FIXTURE, REPO),
+               fixture_bytes=sum(os.path.getsize(os.path.join(d, f))
+                                 for d, _, fs in os.walk(ORBAX_FIXTURE)
+                                 for f in fs),
+               read_ms=read_ms, step=state.step, loss=loss,
+               jax_loss=float(gold["loss"]),
+               loss_rel_err=abs(loss / float(gold["loss"]) - 1),
+               max_param_abs_err=max_err, params_off=off_leaves,
+               launches={k: v for k, v in counts.items() if v},
+               designs=designs,
+               fixture_unchanged=tree_digest(ORBAX_FIXTURE) == before,
+               tolerance="loss rtol 1e-4; params rtol 2e-4 / atol 2e-5 "
+                         "(JAX-gradient noise elements: 2 * lr, at most "
+                         "0.1 % of a tensor)")
+    require(res["loss_rel_err"] <= 1e-4 and not off_leaves,
+            f"the resumed orbax step differs from JAX's third: {res}")
+    require(res["fixture_unchanged"], "the orbax fixture was changed")
+    return res
+
+
+def phase_migration(card: str, g) -> None:
+    """Phase 30: ``migrate_full_width`` and ``orbax_resume_on_card``,
+    with the zstd decoder that read the fixture."""
+    from crnn_ocr_torch.utils import zstd
+
+    full = migrate_full_width(g)
+    emit("migration_full_width", card=card, model="fonts-hard", **full)
+    resume = orbax_resume_on_card()
+    emit("orbax_resume", card=card, **resume)
+    emit("zstd", path=zstd.describe())
+
+
 def main() -> int:
     try:
         import torch
@@ -5436,6 +5703,9 @@ def main() -> int:
     # phase 29: data parallelism, two ranks sharing the card, a local mesh
     # for serving and the training CLI
     phase_dp(card, g, hard_train)
+
+    # phase 30: migration both ways, and JAX's orbax checkpoints
+    phase_migration(card, g)
 
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",

@@ -26,8 +26,10 @@ bf16 (its kernels' fast path); the CPU has no fast bf16. ``--debug_nans``
 (JAX's ``jax_debug_nans``) turns on ``torch.autograd``'s anomaly detection
 and makes ``fit`` read every step's loss and raise on the first that is not
 finite. ``--resume`` continues from the latest checkpoint in
-``--save_path``; a directory that the JAX package wrote with orbax raises
-``OrbaxCheckpointError`` (reading it is ROADMAP item 15).
+``--save_path``: the port's own, or the JAX package's orbax step (its
+parameters, BatchNorm statistics, optimizer slots and step,
+``train/orbax.py``); the port's checkpoints then land beside orbax's
+steps, which it never changes.
 
 Examples:
   python -m crnn_ocr_torch.cli.train --dataset synthetic --steps 500 \\
@@ -252,6 +254,7 @@ def _train(args, mesh) -> int:
     )
     from crnn_ocr_torch.infer.predictor import resolve_device
     from crnn_ocr_torch.train import FitConfig, create_train_state, fit
+    from crnn_ocr_torch.train.state import param_count
 
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     writer = mesh is None or mesh.writer
@@ -393,12 +396,16 @@ def _train(args, mesh) -> int:
         total_steps=args.steps, warmup_steps=args.warmup_steps, mesh=mesh)
     if args.resume:
         from crnn_ocr_torch.train import CheckpointManager
+        from crnn_ocr_torch.train.orbax import OrbaxCorruptError
 
         mgr = CheckpointManager(args.save_path)
         step0 = mgr.latest_step()
         if step0 is not None:
             try:
                 mgr.restore(state)
+            except OrbaxCorruptError as e:
+                print(f"resume failed: {e}", file=sys.stderr)
+                return 2
             except (ValueError, RuntimeError, KeyError) as e:
                 print("resume failed: the checkpoint was written with a "
                       "different optimizer or model configuration; pass "
@@ -408,9 +415,8 @@ def _train(args, mesh) -> int:
             say(f"resumed from step {step0}")
         else:
             say("no checkpoint found; starting fresh")
-    n_params = sum(p.numel() for p in state.model.parameters())
     say(f"device: {dev}  ranks: {mesh.size if mesh is not None else 1}  "
-        f"params: {n_params / 1e6:.2f}M")
+        f"params: {param_count(state) / 1e6:.2f}M")
     fit(
         state, cfg, train_iter(skip=int(state.step)),
         eval_iter_fn=eval_iter, codec=codec,

@@ -1,4 +1,5 @@
-"""A minimal HDF5 reader for Keras ``.h5`` weight files, in numpy alone.
+"""A minimal HDF5 reader and writer for Keras ``.h5`` weight files, in numpy
+alone.
 
 The machine with the card has no ``h5py``, and the bundled models ship as
 Keras ``.h5`` files (``crnn_ocr_tpu/pretrained/<dir>/weights.h5``). This
@@ -20,11 +21,27 @@ superblocks) raises ``NotImplementedError`` naming what it met.
     f = H5File(path)
     names = f.attrs("/")["layer_names"]       # list of str
     kernel = f.dataset("/stem_conv/stem_conv/kernel:0")  # np.ndarray
+
+``H5Writer`` writes the same subset, as ``h5py`` lays it out: superblock
+version 0 with 8-byte offsets, version-1 object headers (no continuation
+blocks), groups as symbol tables (one version-1 B-tree node over up to 32
+symbol-table nodes of 8 entries, names in byte order, over a local heap),
+contiguous little-endian float32 datasets (not empty, not scalar: what
+``export_keras_h5`` writes), and attributes of fixed-length (null-padded)
+strings and string arrays. The port's ``H5File`` and ``h5py`` both read
+its files
+(``tests/test_torch_hdf5_write.py``).
+
+    w = H5Writer()
+    w.set_attr("/", "layer_names", ["stem_conv"])
+    w.create_dataset("/stem_conv/stem_conv/kernel:0", kernel)
+    w.save(path)
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import struct
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -250,3 +267,191 @@ class H5File:
                 vals = vals.reshape(-1).tolist()
             out[name] = vals[0] if shape == () else vals
         return out
+
+
+# ---- the writer ----
+
+NIL, FILL_VALUE = 0x0, 0x5
+_LEAF_K, _NODE_K = 4, 16  # symbol-table node and group B-tree node K
+_SNOD_BYTES = 8 + 2 * _LEAF_K * 40
+_TREE_BYTES = 24 + (2 * _NODE_K + 1) * 8 + 2 * _NODE_K * 8
+_HEAP_FREE_NULL = 1  # libhdf5's "no free block" in a local heap
+# fill value message, version 2: allocation late, fill written if set,
+# the library's default fill (h5py's bytes)
+_FILL = b"\x02\x02\x02\x01\x00\x00\x00\x00"
+
+
+class _Group:
+    def __init__(self):
+        self.children: Dict[str, Union["_Group", "_Dataset"]] = {}
+        self.attrs: Dict[str, object] = {}
+
+
+class _Dataset:
+    def __init__(self, data: np.ndarray):
+        self.data = data
+        self.attrs: Dict[str, object] = {}
+
+
+def _padded(b: bytes) -> bytes:
+    return b + b"\0" * (_pad8(len(b)) - len(b))
+
+
+def _message(mtype: int, data: bytes, flags: int = 0) -> bytes:
+    data = _padded(data)
+    return struct.pack("<HHB3x", mtype, len(data), flags) + data
+
+
+def _dataspace(shape: Tuple[int, ...]) -> bytes:
+    """Version 1, no maximum dimensions; rank 0 is a scalar (a string
+    attribute)."""
+    return struct.pack("<BBBB4x", 1, len(shape), 0, 0) + b"".join(
+        struct.pack("<Q", int(d)) for d in shape)
+
+
+# little-endian IEEE f32: class 1 (floating point), version 1
+_F32_TYPE = (struct.pack("<BBBBI", 0x11, 0x20, 31, 0, 4)
+             + struct.pack("<HHBBBBI", 0, 32, 23, 8, 0, 23, 127))
+
+
+def _string_type(n: int) -> bytes:
+    return struct.pack("<BBBBI", 0x13, 0x01, 0, 0, n)  # null-padded ASCII
+
+
+def _attr_value(value) -> Tuple[bytes, Tuple[int, ...], bytes]:
+    """(datatype, shape, data) of a string attribute: str (a scalar) or a
+    list of str (an array), null-padded to the longest."""
+    items = [value] if isinstance(value, str) else value
+    if not (isinstance(items, (list, tuple))
+            and all(isinstance(v, str) for v in items)):
+        raise NotImplementedError(f"HDF5 writer: attribute {value!r} (only "
+                                  "str or a list of str)")
+    raw = [v.encode() for v in items]
+    n = max([len(r) for r in raw] + [1])
+    shape = () if isinstance(value, str) else (len(raw),)
+    return _string_type(n), shape, b"".join(r.ljust(n, b"\0") for r in raw)
+
+
+def _attribute(name: str, value) -> bytes:
+    dtype, shape, data = _attr_value(value)
+    space = _dataspace(shape)
+    nm = name.encode() + b"\0"
+    return _message(ATTRIBUTE, struct.pack(
+        "<BBHHH", 1, 0, len(nm), len(dtype), len(space))
+        + _padded(nm) + _padded(dtype) + _padded(space) + data)
+
+
+class H5Writer:
+    """An HDF5 file built in memory and written by ``save``: groups are
+    created along a dataset's path as ``h5py`` creates them."""
+
+    def __init__(self):
+        self._root = _Group()
+
+    def _node(self, path: str, make: bool = True):
+        node = self._root
+        for part in (p for p in path.split("/") if p):
+            if part not in node.children:
+                if not make:
+                    raise KeyError(path)
+                node.children[part] = _Group()
+            node = node.children[part]
+            if isinstance(node, _Dataset) and make:
+                raise ValueError(f"{path!r}: {part!r} is a dataset")
+        return node
+
+    def create_group(self, path: str) -> None:
+        self._node(path)
+
+    def create_dataset(self, path: str, data) -> None:
+        parent, _, name = path.rstrip("/").rpartition("/")
+        group = self._node(parent)
+        if name in group.children:
+            raise ValueError(f"{path!r} exists")
+        arr = np.asarray(data)
+        if arr.dtype != np.float32 or arr.ndim == 0 or arr.size == 0:
+            raise NotImplementedError(
+                f"HDF5 writer: a {arr.dtype} dataset of shape {arr.shape} "
+                "(only non-empty float32 arrays)")
+        group.children[name] = _Dataset(np.ascontiguousarray(arr, "<f4"))
+
+    def set_attr(self, path: str, name: str, value) -> None:
+        node = self._node(path, make=False)
+        _attr_value(value)  # refuses what it cannot write
+        node.attrs[name] = value
+
+    # ---- serialization ----
+
+    def _alloc(self, data: bytes) -> int:
+        addr = len(self._buf)
+        self._buf += _padded(data)
+        return addr
+
+    def _header(self, msgs: List[bytes]) -> int:
+        body = b"".join(msgs)
+        return self._alloc(struct.pack("<BBHII4x", 1, 0, len(msgs), 1,
+                                       len(body)) + body)
+
+    def _dataset(self, ds: _Dataset) -> int:
+        arr = ds.data
+        msgs = [_message(DATASPACE, _dataspace(arr.shape)),
+                _message(DATATYPE, _F32_TYPE, flags=1),
+                _message(FILL_VALUE, _FILL, flags=1),
+                _message(LAYOUT, struct.pack("<BBQQ", 3, 1,
+                                             self._alloc(arr.tobytes()),
+                                             arr.nbytes))]
+        msgs += [_attribute(k, v) for k, v in ds.attrs.items()]
+        return self._header(msgs)
+
+    def _group(self, g: _Group) -> Tuple[int, int, int]:
+        """(object header, B-tree, local heap) addresses of ``g``, its
+        children written first."""
+        entries = []
+        for name in sorted(g.children, key=str.encode):
+            child = g.children[name]
+            if isinstance(child, _Group):
+                hdr, bt, heap = self._group(child)
+                entries.append((name, hdr, (bt, heap)))
+            else:
+                entries.append((name, self._dataset(child), None))
+        names = bytearray(8)  # offset 0: the empty name
+        offsets = []
+        for name, _, _ in entries:
+            offsets.append(len(names))
+            names += _padded(name.encode() + b"\0")
+        heap = self._alloc(b"HEAP\0\0\0\0" + struct.pack(
+            "<QQQ", len(names), _HEAP_FREE_NULL, len(self._buf) + 32)
+            + bytes(names))
+        nodes = []
+        for i in range(0, len(entries), 2 * _LEAF_K):
+            chunk = list(zip(entries, offsets))[i:i + 2 * _LEAF_K]
+            body = b"SNOD\1\0" + struct.pack("<H", len(chunk))
+            for (_, addr, cache), off in chunk:
+                body += struct.pack("<QQI4x", off, addr, int(bool(cache)))
+                body += struct.pack("<QQ", *cache) if cache else bytes(16)
+            nodes.append((self._alloc(body.ljust(_SNOD_BYTES, b"\0")),
+                          chunk[-1][1]))
+        if len(nodes) > 2 * _NODE_K:
+            raise NotImplementedError(
+                f"HDF5 writer: a group of {len(entries)} members (at most "
+                f"{2 * _NODE_K * 2 * _LEAF_K})")
+        body = b"TREE\0\0" + struct.pack("<HQQQ", len(nodes), UNDEFINED,
+                                          UNDEFINED, 0)
+        for addr, last in nodes:
+            body += struct.pack("<QQ", addr, last)
+        tree = self._alloc(body.ljust(_TREE_BYTES, b"\0"))
+        msgs = [_message(SYMBOL_TABLE, struct.pack("<QQ", tree, heap))]
+        msgs += [_attribute(k, v) for k, v in g.attrs.items()]
+        return self._header(msgs), tree, heap
+
+    def save(self, path: str) -> None:
+        self._buf = bytearray(96)  # the superblock, filled in last
+        root, tree, heap = self._group(self._root)
+        self._buf[:96] = (
+            SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+            + struct.pack("<HHI", _LEAF_K, _NODE_K, 0)
+            + struct.pack("<QQQQ", 0, UNDEFINED, len(self._buf), UNDEFINED)
+            + struct.pack("<QQI4xQQ", 0, root, 1, tree, heap))
+        data, self._buf = bytes(self._buf), None
+        with open(path, "wb") as f:
+            f.write(data)

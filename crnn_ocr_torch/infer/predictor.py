@@ -385,11 +385,11 @@ def init_predictor(model_dir: str, device="cuda", **kw) -> Predictor:
     (``crnn_ocr_tpu/infer/predictor.py:389-443``):
 
     * a checkpoint directory (``model_config.json``, ``classes.json`` and
-      the port's step directories, ``train/checkpoint.py``): the config,
-      the codec and the latest step's model tensors, whatever optimizer
-      wrote them. A config without ``provenance`` loads as ``"native"``.
-      An orbax checkpoint of the JAX package raises
-      ``OrbaxCheckpointError``;
+      step directories, ``train/checkpoint.py``): the config, the codec
+      and the latest step's model tensors, whatever optimizer wrote them,
+      from the port's ``<step>/checkpoint.pt`` or from the JAX package's
+      orbax step (``train/orbax.py``). A config without ``provenance``
+      loads as ``"native"``;
     * reference artifacts (a Keras ``.h5``, its architecture JSON if
       present, and a class map), through
       ``infer/keras_json.py::load_reference_model``.

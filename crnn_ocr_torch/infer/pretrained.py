@@ -42,6 +42,15 @@ REGISTRY = {
 VARIANTS = {"fonts-hard-lstm": ("fonts-hard", 0)}
 
 
+def pretrained_dir(name: str) -> str:
+    """The directory of bundled model ``name``: its ``model_config.json``,
+    ``classes.json`` and ``weights.h5``. A variant has none, so it and an
+    unknown name raise ``KeyError``, as the JAX package's does."""
+    if name not in REGISTRY:
+        raise KeyError(f"unknown model {name!r}; have {sorted(REGISTRY)}")
+    return os.path.join(JAX_PRETRAINED, REGISTRY[name])
+
+
 def model_weights(name: str, dtype: Optional[str] = None):
     """``(cfg, params, batch_stats, codec)`` of a bundled model or a variant:
     its config (``dtype`` replacing the shipped compute dtype), its weights
@@ -52,7 +61,7 @@ def model_weights(name: str, dtype: Optional[str] = None):
         raise NotImplementedError(
             f"pretrained model {name!r} is not available in the port "
             f"(have {sorted(REGISTRY) + sorted(VARIANTS)})")
-    src = os.path.join(JAX_PRETRAINED, REGISTRY[base])
+    src = pretrained_dir(base)
     cfg = load_model_config(os.path.join(src, "model_config.json"))
     if seed is not None:
         cfg = dataclasses.replace(cfg, rnn_cell="lstm")

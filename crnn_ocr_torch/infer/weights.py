@@ -19,6 +19,13 @@ of their weights is kept. ``params_from_jax`` maps the trees onto
   stn/Conv_i, Dense_0, Dense_1             -> stn.convs.i, stn.dense,
                                               stn.theta (STN models)
 
+``params_to_jax`` is its exact inverse (transposes only, so the round
+trip is bit for bit), and ``export_keras_h5`` writes a state_dict as the
+Keras ``.h5`` that ``crnn_ocr_tpu/infer/h5_import.py::export_keras_h5``
+writes (its layers, weight names and order, through the port's HDF5
+writer): the file that ``tf_keras`` ``load_weights`` and either package's
+``import_keras_h5`` read.
+
 ``seeded_rnn_params`` makes BiLSTM layers from a seed, in the same JAX
 layout, for a configuration that has no weights of its own
 (``infer/pretrained.py``'s variants).
@@ -33,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from crnn_ocr_torch.infer.hdf5 import H5File
+from crnn_ocr_torch.infer.hdf5 import H5File, H5Writer
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -89,6 +96,123 @@ def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     sd["logits.weight"] = params["logits"]["kernel"].T
     sd["logits.bias"] = params["logits"]["bias"]
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """The JAX package's (params, batch_stats) trees, nested dicts of f32
+    numpy arrays, of a ``CRNN`` state_dict: ``params_from_jax`` read
+    backwards."""
+    a = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+
+    def conv(k: str) -> np.ndarray:  # OIHW -> HWIO
+        return np.ascontiguousarray(np.transpose(a[k], (2, 3, 1, 0)))
+
+    def dense(prefix: str) -> dict:
+        return {"kernel": np.ascontiguousarray(a[f"{prefix}.weight"].T),
+                "bias": a[f"{prefix}.bias"]}
+
+    def bn(prefix: str) -> Tuple[dict, dict]:
+        return ({"scale": a[f"{prefix}.weight"], "bias": a[f"{prefix}.bias"]},
+                {"mean": a[f"{prefix}.running_mean"],
+                 "var": a[f"{prefix}.running_var"]})
+
+    params: dict = {}
+    stats: dict = {}
+    if "stn.dense.weight" in a:
+        stn: dict = {}
+        i = 0
+        while f"stn.convs.{i}.weight" in a:
+            stn[f"Conv_{i}"] = {"kernel": conv(f"stn.convs.{i}.weight"),
+                                "bias": a[f"stn.convs.{i}.bias"]}
+            i += 1
+        stn["Dense_0"], stn["Dense_1"] = dense("stn.dense"), dense("stn.theta")
+        params["stn"] = stn
+    params["stem_conv"] = {"kernel": conv("stem_conv.weight")}
+    params["stem_bn"], stats["stem_bn"] = bn("stem_bn")
+    i = 0
+    while f"block{i}.bn.weight" in a:
+        p, st = bn(f"block{i}.bn")
+        params[f"block{i}"] = {
+            "depthwise": {"kernel": conv(f"block{i}.depthwise.weight")},
+            "pointwise": {"kernel": conv(f"block{i}.pointwise.weight")},
+            "BatchNorm_0": p}
+        stats[f"block{i}"] = {"BatchNorm_0": st}
+        i += 1
+    params["time_dense"] = dense("time_dense")
+    i = 0
+    while f"birnn{i}.kernel" in a:
+        params[f"birnn{i}"] = {k: a[f"birnn{i}.{k}"] for k in (
+            "kernel", "recurrent_kernel", "bias")}
+        params[f"rnn_bn{i}"], stats[f"rnn_bn{i}"] = bn(f"rnn_bn{i}")
+        i += 1
+    params["logits"] = dense("logits")
+    return params, stats
+
+
+def _keras_layers(params: dict, stats: dict, cfg
+                 ) -> Dict[str, List[Tuple[str, np.ndarray]]]:
+    """{layer: [(weight name, array)]} in the order and with the names
+    that ``crnn_ocr_tpu/infer/h5_import.py:159-235`` writes them."""
+    layers: Dict[str, List[Tuple[str, np.ndarray]]] = {}
+
+    def bn(layer: str, p: dict, s: dict) -> None:
+        layers[layer] = [(f"{layer}/gamma:0", p["scale"]),
+                         (f"{layer}/beta:0", p["bias"]),
+                         (f"{layer}/moving_mean:0", s["mean"]),
+                         (f"{layer}/moving_variance:0", s["var"])]
+
+    def dense(layer: str, p: dict) -> None:
+        layers[layer] = [(f"{layer}/kernel:0", p["kernel"]),
+                         (f"{layer}/bias:0", p["bias"])]
+
+    if "stn" in params:
+        stn = params["stn"]
+        for i in range(sum(1 for k in stn if k.startswith("Conv_"))):
+            dense(f"stn_conv{i}", stn[f"Conv_{i}"])
+        dense("stn_dense", stn["Dense_0"])
+        dense("stn_theta", stn["Dense_1"])
+    layers["stem_conv"] = [("stem_conv/kernel:0",
+                            params["stem_conv"]["kernel"])]
+    bn("stem_bn", params["stem_bn"], stats["stem_bn"])
+    for i in range(len(cfg.block_filters)):
+        p, s = params[f"block{i}"], stats[f"block{i}"]
+        layers[f"block{i}_depthwise"] = [(
+            f"block{i}_depthwise/depthwise_kernel:0",
+            np.transpose(p["depthwise"]["kernel"], (0, 1, 3, 2)))]
+        layers[f"block{i}_pointwise"] = [(f"block{i}_pointwise/kernel:0",
+                                          p["pointwise"]["kernel"])]
+        bn(f"block{i}_bn", p["BatchNorm_0"], s["BatchNorm_0"])
+    dense("time_dense", params["time_dense"])
+    cell = cfg.rnn_cell
+    for i in range(cfg.rnn_layers):
+        p = params[f"birnn{i}"]
+        layers[f"birnn{i}"] = [
+            (f"birnn{i}/{d}_{cell}/{cell}_cell/{k}:0", p[k][j])
+            for j, d in enumerate(("forward", "backward"))
+            for k in ("kernel", "recurrent_kernel", "bias")]
+        bn(f"rnn_bn{i}", params[f"rnn_bn{i}"], stats[f"rnn_bn{i}"])
+    dense("logits", params["logits"])
+    return layers
+
+
+def export_keras_h5(state_dict: Dict[str, torch.Tensor], cfg,
+                    path: str) -> None:
+    """Write a ``CRNN`` state_dict as a legacy-format Keras ``.h5``: the
+    root's ``layer_names``, ``backend`` and ``keras_version`` attributes,
+    each layer a group with its ``weight_names`` and one f32 dataset per
+    weight (``crnn_ocr_tpu/infer/h5_import.py::export_keras_h5``'s file,
+    written without ``h5py``)."""
+    layers = _keras_layers(*params_to_jax(state_dict), cfg)
+    w = H5Writer()
+    w.set_attr("/", "layer_names", list(layers))
+    w.set_attr("/", "backend", "tensorflow")
+    w.set_attr("/", "keras_version", "2.21.0")
+    for lname, weights in layers.items():
+        w.create_group(lname)
+        w.set_attr(lname, "weight_names", [wn for wn, _ in weights])
+        for wn, arr in weights:
+            w.create_dataset(f"{lname}/{wn}", np.asarray(arr, np.float32))
+    w.save(path)
 
 
 def _tree_np(tree):

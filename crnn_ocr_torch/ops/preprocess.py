@@ -1,7 +1,8 @@
 """Batch preprocessing: resize to height, pad to the bucket, standardize.
 
 Port of ``crnn_ocr_tpu/ops/preprocess.py`` (``preprocess_batch``,
-``preprocess_resident``, ``quantize_dim``, ``pack_canvas``). The JAX
+``preprocess_resident``, ``preprocess_host``, ``quantize_dim``,
+``pack_canvas``). The JAX
 package resizes with
 ``jax.image.scale_and_translate(method="linear", antialias=False)`` and a
 per-image scale; here each image gets its own sampling matrices
@@ -92,6 +93,28 @@ def preprocess_resident(images: torch.Tensor, widths: torch.Tensor,
         std = x.std(dim=(1, 2), keepdim=True, correction=0)  # jnp.std
         x = (x - mean) / (std + NORM_EPSILON)
     return x, widths.to(torch.int32)
+
+
+def preprocess_host(img: np.ndarray, out_h: int = 32, out_w: int = 128,
+                    normalize: bool = True) -> np.ndarray:
+    """One image on the host with cv2 (``crnn_ocr_tpu/ops/preprocess.py:
+    123``, the reference's ``utils.py#norm`` and its padding): gray, resized
+    to ``out_h`` with ``cv2.INTER_LINEAR`` keeping the aspect (width capped
+    at ``out_w``), white-padded to ``out_w``, /255 and, with ``normalize``,
+    standardized. Returns (out_h, out_w) float32; the oracle of tests."""
+    import cv2
+
+    if img.ndim == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    h, w = img.shape
+    w_new = min(max(1, int(round(w * out_h / h))), out_w)
+    resized = cv2.resize(img, (w_new, out_h), interpolation=cv2.INTER_LINEAR)
+    canvas = np.full((out_h, out_w), WHITE, np.float32)
+    canvas[:, :w_new] = resized
+    x = canvas / 255.0
+    if normalize:
+        x = (x - x.mean()) / (x.std() + NORM_EPSILON)
+    return x
 
 
 def quantize_dim(n: int, base: int = 16) -> int:

@@ -27,9 +27,18 @@ without it; otherwise the newest ``max_to_keep``. Saves are synchronous:
 The files hold tensors and plain values only and are read with
 ``torch.load(..., weights_only=True)`` onto the CPU; ``restore`` copies
 them into the given state on its own device, so a checkpoint written on
-the card restores on the CPU and the reverse. A directory that orbax wrote
-(``_CHECKPOINT_METADATA``, ``<step>/default``) raises ``OrbaxCheckpointError``:
-reading the JAX package's checkpoints is migration work (ROADMAP item 15).
+the card restores on the CPU and the reverse.
+
+The JAX package's directories (orbax steps: ``<step>/_CHECKPOINT_METADATA``
+and ``<step>/default``) are read too, through ``train/orbax.py``: their
+steps count in ``all_steps``, ``latest_step`` and ``best_step`` (the
+metrics saved with each step), and ``restore`` and ``restore_inference``
+read whichever format a step has. A save into such a directory (a JAX run
+resumed by ``cli.train --resume``) writes the port's ``<step>/
+checkpoint.pt`` beside orbax's steps; the port never writes into or
+deletes an orbax step, and rotation counts only its own steps.
+``OrbaxCheckpointError`` is raised for what the reader cannot read,
+``OrbaxCorruptError`` for a damaged file.
 
 Under a process mesh (``mesh=``, ``parallel/mesh.py``) only rank 0 writes,
 and every rank then waits at a barrier, so that a restore after a save
@@ -50,28 +59,14 @@ import torch
 from crnn_ocr_torch import config as config_lib
 from crnn_ocr_torch.config import ModelConfig
 from crnn_ocr_torch.data.codec import LabelCodec
+from crnn_ocr_torch.train import orbax
+from crnn_ocr_torch.train.orbax import (  # noqa: F401
+    OrbaxCheckpointError,
+    OrbaxCorruptError,
+)
 
 CKPT_FILE = "checkpoint.pt"
 METRICS_FILE = "metrics.json"
-
-
-class OrbaxCheckpointError(NotImplementedError):
-    """A checkpoint directory written by the JAX package's orbax."""
-
-
-def _refuse_orbax(directory: str) -> None:
-    """Raise where ``directory`` holds orbax's files: its
-    ``_CHECKPOINT_METADATA`` or a ``<step>/default`` item."""
-    names = os.listdir(directory) if os.path.isdir(directory) else []
-    if "_CHECKPOINT_METADATA" in names or any(
-            n.isdigit() and any(os.path.exists(os.path.join(directory, n, f))
-                                for f in ("default", "_CHECKPOINT_METADATA"))
-            for n in names):
-        raise OrbaxCheckpointError(
-            f"{directory}: an orbax checkpoint (the JAX package's); the port "
-            "reads only its own checkpoints (<step>/checkpoint.pt). Reading "
-            "orbax checkpoints is not ported yet (ROADMAP item 15, "
-            "migration)")
 
 
 class CheckpointManager:
@@ -86,7 +81,6 @@ class CheckpointManager:
         if track_mode not in ("min", "max"):
             raise ValueError(f"track_mode {track_mode!r}: 'min' or 'max'")
         self.directory = os.path.abspath(directory)
-        _refuse_orbax(self.directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.track_metric = track_metric
@@ -98,17 +92,35 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(int(step)))
 
-    def all_steps(self) -> List[int]:
-        """The saved steps, ascending."""
+    def own_steps(self) -> List[int]:
+        """The port's saved steps (``<step>/checkpoint.pt``), ascending."""
         return sorted(
             int(n) for n in os.listdir(self.directory)
             if n.isdigit() and os.path.exists(
                 os.path.join(self.directory, n, CKPT_FILE)))
 
+    def orbax_steps(self) -> List[int]:
+        """The JAX package's committed orbax steps, ascending."""
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and orbax.is_step(self._step_dir(n)))
+
+    def all_steps(self) -> List[int]:
+        """The saved steps of either format, ascending."""
+        return sorted(set(self.own_steps()) | set(self.orbax_steps()))
+
+    def _is_orbax(self, step: int) -> bool:
+        return not os.path.exists(os.path.join(self._step_dir(step),
+                                               CKPT_FILE))
+
     def _tracked(self, step: int) -> Optional[float]:
         try:
-            with open(os.path.join(self._step_dir(step), METRICS_FILE)) as f:
-                return float(json.load(f)[self.track_metric])
+            if self._is_orbax(step):
+                metrics = orbax.read_metrics(self._step_dir(step)) or {}
+            else:
+                with open(os.path.join(self._step_dir(step),
+                                       METRICS_FILE)) as f:
+                    metrics = json.load(f)
+            return float(metrics[self.track_metric])
         except (OSError, KeyError):
             return None
 
@@ -133,7 +145,7 @@ class CheckpointManager:
         return self.latest_step()
 
     def _rotate(self) -> None:
-        steps = self.all_steps()
+        steps = self.own_steps()
         n = self.max_to_keep
         if n is None or len(steps) <= n:
             return
@@ -207,23 +219,40 @@ class CheckpointManager:
 
     # ---- restore ----
 
-    def _load(self, step: Optional[int]) -> dict:
-        step = self.latest_step() if step is None else int(step)
+    def _resolve(self, step: Optional[int]) -> int:
         if step is None:
-            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        elif int(step) not in self.all_steps():
+            raise FileNotFoundError(f"no checkpoint of step {step} in "
+                                    f"{self.directory}")
+        return int(step)
+
+    def _load(self, step: int) -> dict:
         path = os.path.join(self._step_dir(step), CKPT_FILE)
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def restore(self, state, step: Optional[int] = None):
         """Fill ``state`` (a ``TrainState`` of the same model and optimizer)
-        in place from step ``step`` (default: the latest), on the state's
-        own device; returns it."""
-        payload = self._load(step)
-        name = type(state.optimizer).__name__
-        if payload["optimizer_name"] != name:
-            raise ValueError(
-                f"the checkpoint's optimizer is {payload['optimizer_name']}, "
-                f"the state's {name}")
+        in place from step ``step`` (default: the latest), the port's or
+        orbax's, on the state's own device; returns it. A checkpoint of
+        another optimizer raises ``ValueError``."""
+        step = self._resolve(step)
+        if self._is_orbax(step):
+            where = self._step_dir(step)
+            tree = orbax.read_train_state(where)
+            payload = {"step": int(tree["step"]),
+                       "model": orbax.state_dict_of(tree),
+                       "optimizer": orbax.optimizer_state(
+                           tree, state.model, state.optimizer, where)}
+        else:
+            payload = self._load(step)
+            name = type(state.optimizer).__name__
+            if payload["optimizer_name"] != name:
+                raise ValueError(
+                    f"the checkpoint's optimizer is "
+                    f"{payload['optimizer_name']}, the state's {name}")
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
@@ -232,7 +261,11 @@ class CheckpointManager:
     def restore_inference(self, step: Optional[int] = None
                           ) -> Dict[str, torch.Tensor]:
         """The model's state_dict alone (CPU tensors), whatever optimizer
-        wrote the checkpoint."""
+        wrote the checkpoint, the port's or orbax's."""
+        step = self._resolve(step)
+        if self._is_orbax(step):
+            return orbax.state_dict_of(orbax.read_tree(
+                self._step_dir(step), ("params", "batch_stats")))
         return self._load(step)["model"]
 
 

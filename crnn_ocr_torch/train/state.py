@@ -165,6 +165,13 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
+def param_count(state: TrainState) -> int:
+    """The number of trained parameters (BatchNorm statistics are
+    buffers, not counted), as ``crnn_ocr_tpu/train/state.py::param_count``
+    counts its ``params`` tree."""
+    return sum(p.numel() for p in state.model.parameters())
+
+
 def global_norm(tensors) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum of every element's square, f32."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))

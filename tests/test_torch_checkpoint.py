@@ -14,10 +14,11 @@ checkpoint.py`` and ``fit``'s ``checkpoint_dir``, ``profile_dir`` and
 * Each package's ``load_model_config`` and ``load_codec`` read the other's
   files.
 * ``init_predictor`` on the port's checkpoint of ``fonts-small``'s
-  weights gives JAX's ``init_predictor`` texts on its orbax checkpoint of
-  the same weights, scores rtol 1e-4 (atol 1e-5).
+  weights, and on JAX's orbax checkpoint of the same weights, gives JAX's
+  ``init_predictor`` texts on the latter, scores rtol 1e-4 (atol 1e-5);
+  the orbax checkpoint restores into the port's train state.
 * A save cut off after its temporary file leaves the latest step
-  readable; an orbax directory raises the named error.
+  readable.
 """
 
 import dataclasses
@@ -278,11 +279,16 @@ def test_init_predictor_on_port_checkpoint_matches_jax(tmp_path):
     assert sum(len(p.text) for p in got) > 16  # it reads text
     np.testing.assert_allclose([p.score for p in got],
                                [p.score for p in want], rtol=1e-4, atol=1e-5)
-    # and a JAX orbax directory is refused by name
-    with pytest.raises(tckpt.OrbaxCheckpointError, match="orbax.*item 15"):
-        init_predictor(str(tmp_path / "j"), device="cpu")
-    with pytest.raises(tckpt.OrbaxCheckpointError, match="orbax"):
-        tckpt.CheckpointManager(str(tmp_path / "j")).restore(ts)
+    # and the JAX orbax directory itself serves and restores the same
+    got = init_predictor(str(tmp_path / "j"), device="cpu").predict(lines)
+    assert [p.text for p in got] == [p.text for p in want]
+    np.testing.assert_allclose([p.score for p in got],
+                               [p.score for p in want], rtol=1e-4, atol=1e-5)
+    fresh = tstate.create_train_state(tcfg, device="cpu")
+    tckpt.CheckpointManager(str(tmp_path / "j")).restore(fresh)
+    assert fresh.step == 0
+    assert all(torch.equal(v, ts.model.state_dict()[k])
+               for k, v in fresh.model.state_dict().items())
 
 
 def test_interrupted_save_leaves_latest_readable(tmp_path, monkeypatch):

@@ -31,7 +31,10 @@ scores rtol 1e-5 / atol 1e-6 (f32 ``log``/``exp`` ulps), and greedy and
 forced alignment to rtol 1e-6; the device edit distance equal to the
 CPU's; the augmentation on given draws to 1e-5 of its CPU twin; a cached
 K-step call to streamed steps as the CPU tests hold them, and a resume
-over a partly resident corpus bit for bit. TF32 is off.
+over a partly resident corpus bit for bit; the JAX package's orbax
+fixture restored on the card bit for bit as on the CPU (its served
+probabilities to 1e-4), and a ``.h5`` exported from tensors on the card
+byte for byte as from the CPU. TF32 is off.
 """
 
 import collections
@@ -1201,3 +1204,51 @@ def test_partial_residency_resume_on_card_is_bitwise(card, tmp_path,
     assert resumed.step == straight.step == 8 and got.keys() == want.keys()
     for k in want:
         assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+@pytest.mark.cuda
+def test_orbax_fixture_restores_on_card_as_on_cpu(card):
+    """The JAX package's orbax checkpoint (``crnn_ocr_torch/testdata/
+    orbax_small``) restores into a state on the card bit for bit as into
+    one on the CPU: parameters, BatchNorm statistics, Adam's slots, step
+    counts and the step; ``init_predictor`` of the directory serves on the
+    card what it serves on the CPU (probabilities within 1e-4)."""
+    from crnn_ocr_torch.infer import init_predictor
+    from crnn_ocr_torch.train import CheckpointManager
+    from crnn_ocr_torch.train.checkpoint import load_model_config
+    from crnn_ocr_torch.train.state import create_train_state
+
+    d = os.path.join(os.path.dirname(GOLDENS), "orbax_small")
+    cfg = load_model_config(d)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        state = CheckpointManager(d).restore(create_train_state(
+            cfg, device=dev))
+        assert state.step == 2
+        got[dev] = {k: v.cpu() for k, v in _state_tensors(state).items()}
+    assert got["cuda"].keys() == got["cpu"].keys()
+    for k, v in got["cpu"].items():
+        assert torch.equal(got["cuda"][k], v), k
+    g = np.load(GOLDENS)
+    lines = [g["small_canvas"][i, :h, :w] for i, (h, w) in enumerate(
+        zip(g["small_heights"], g["small_widths"]))]
+    probs = {dev: init_predictor(d, device=dev).predict_probs(lines)[0]
+             for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(probs["cuda"].cpu().numpy(),
+                               probs["cpu"].numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_export_of_card_tensors_equals_cpu(card, tmp_path):
+    """``export_keras_h5`` of a state_dict on the card writes the bytes it
+    writes from the same tensors on the CPU."""
+    from crnn_ocr_torch.infer.pretrained import model_weights
+    from crnn_ocr_torch.infer.weights import export_keras_h5, params_from_jax
+
+    cfg, params, stats, _ = model_weights("fonts-hard")
+    sd = params_from_jax(params, stats)
+    export_keras_h5({k: v.cuda() for k, v in sd.items()}, cfg,
+                    str(tmp_path / "card.h5"))
+    export_keras_h5(sd, cfg, str(tmp_path / "cpu.h5"))
+    assert (tmp_path / "card.h5").read_bytes() == \
+        (tmp_path / "cpu.h5").read_bytes()

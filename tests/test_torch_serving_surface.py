@@ -144,8 +144,9 @@ def test_predictor_from_cli_routes_and_refuses(tmp_path):
     (tmp_path / "model_config.json").write_text("{}")
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         predictor_from_cli(str(tmp_path), None, device="cpu")
-    (tmp_path / "7" / "default").mkdir(parents=True)  # orbax's layout
-    with pytest.raises(NotImplementedError, match="orbax.*item 15"):
+    (tmp_path / "7" / "default").mkdir(parents=True)  # orbax's layout,
+    (tmp_path / "7" / "_CHECKPOINT_METADATA").write_text("{}")  # no arrays
+    with pytest.raises(NotImplementedError, match="orbax.*_METADATA"):
         init_predictor(str(tmp_path), device="cpu")
     pred = predictor_from_cli(None, "fonts-small", normalize=False,
                               device="cpu")

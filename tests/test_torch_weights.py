@@ -34,7 +34,7 @@ from crnn_ocr_tpu.models import CRNN, ModelConfig
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-             "crnn_ocr_tpu")
+             "crnn_ocr_tpu", "h5py", "zstandard")
 
 
 def _flat(tree, prefix=""):
@@ -198,7 +198,9 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/data/device_cache.py",
             "crnn_ocr_torch/parallel/__init__.py",
             "crnn_ocr_torch/parallel/mesh.py",
-            "crnn_ocr_torch/cli/train.py"} <= names
+            "crnn_ocr_torch/cli/train.py", "crnn_ocr_torch/cli/migrate.py",
+            "crnn_ocr_torch/train/orbax.py",
+            "crnn_ocr_torch/utils/zstd.py"} <= names
     # the host C++ the port builds is its own copy, inside the package
     for src in ("ctc_beam_tf.cc", "editdistance.cc", "imgproc.cc"):
         assert (REPO / "crnn_ocr_torch" / "native" / src).is_file(), src
@@ -222,12 +224,16 @@ def test_importing_the_port_loads_no_jax():
         "crnn_ocr_torch.data.packed, crnn_ocr_torch.data.fontgen, "
         "crnn_ocr_torch.train, crnn_ocr_torch.train.checkpoint, "
         "crnn_ocr_torch.utils.profiling, crnn_ocr_torch.parallel, "
-        "crnn_ocr_torch.parallel.mesh, crnn_ocr_torch.cli.train\n"
+        "crnn_ocr_torch.parallel.mesh, crnn_ocr_torch.cli.train, "
+        "crnn_ocr_torch.cli.migrate, crnn_ocr_torch.train.orbax, "
+        "crnn_ocr_torch.utils.zstd\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-small', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-warp-stn', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-hard-lstm', device='cpu')\n"
         "p = crnn_ocr_torch.infer.init_predictor("
         "'tests/goldens/migration_autonamed_stn', device='cpu')\n"
+        "p = crnn_ocr_torch.infer.init_predictor("
+        "'crnn_ocr_torch/testdata/orbax_small', device='cpu')\n"
         "assert 'h5py' not in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from crnn_ocr_torch.data import pipeline as tpipe
-from crnn_ocr_torch.infer.weights import params_from_jax
+from crnn_ocr_torch.infer.weights import params_from_jax, params_to_jax
 from crnn_ocr_torch.data.synthetic import SyntheticConfig, SyntheticTextlines
 from crnn_ocr_torch.kernels.fused_stem_train import fused_stem_train
 from crnn_ocr_torch.parallel import mesh as mesh_lib
@@ -28,40 +28,10 @@ TIMEOUT_S = 60.0  # a collective waiting longer fails the rank
 
 
 def jax_tree(sd: dict):
-    """JAX's (params, batch_stats) trees of a port state dict of a model
-    without STN: ``params_from_jax`` read backwards (checked: it maps them
-    back to ``sd`` exactly)."""
-    a = {k: v.numpy() for k, v in sd.items()}
-
-    def conv(k):  # OIHW -> HWIO
-        return np.transpose(a[k], (2, 3, 1, 0))
-
-    def bn(prefix):
-        return ({"scale": a[f"{prefix}.weight"], "bias": a[f"{prefix}.bias"]},
-                {"mean": a[f"{prefix}.running_mean"],
-                 "var": a[f"{prefix}.running_var"]})
-
-    params, stats = {"stem_conv": {"kernel": conv("stem_conv.weight")}}, {}
-    params["stem_bn"], stats["stem_bn"] = bn("stem_bn")
-    i = 0
-    while f"block{i}.bn.weight" in a:
-        p, st = bn(f"block{i}.bn")
-        params[f"block{i}"] = {
-            "depthwise": {"kernel": conv(f"block{i}.depthwise.weight")},
-            "pointwise": {"kernel": conv(f"block{i}.pointwise.weight")},
-            "BatchNorm_0": p}
-        stats[f"block{i}"] = {"BatchNorm_0": st}
-        i += 1
-    params["time_dense"] = {"kernel": a["time_dense.weight"].T,
-                            "bias": a["time_dense.bias"]}
-    i = 0
-    while f"birnn{i}.kernel" in a:
-        params[f"birnn{i}"] = {k: a[f"birnn{i}.{k}"] for k in (
-            "kernel", "recurrent_kernel", "bias")}
-        params[f"rnn_bn{i}"], stats[f"rnn_bn{i}"] = bn(f"rnn_bn{i}")
-        i += 1
-    params["logits"] = {"kernel": a["logits.weight"].T,
-                        "bias": a["logits.bias"]}
+    """JAX's (params, batch_stats) trees of a port state dict: the port's
+    ``params_to_jax`` (``params_from_jax`` read backwards), checked to map
+    back to ``sd`` exactly."""
+    params, stats = params_to_jax(sd)
     back = params_from_jax(params, stats)
     assert sorted(back) == sorted(sd)
     assert all(torch.equal(back[k], sd[k]) for k in sd)

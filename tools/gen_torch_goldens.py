@@ -128,10 +128,33 @@ as the serving batcher and the predict CLI route them:
   (N, 3: variant, x0, x1), ``cond_align_chars_f32``,
   ``cond_align_confs_f32``.
 
+``--orbax`` writes the orbax fixture ``crnn_ocr_torch/testdata/
+orbax_small/`` (a model directory of the JAX package's
+``CheckpointManager``: ``model_config.json``, ``classes.json`` and step 2,
+an orbax checkpoint of the whole train state) and ``crnn_ocr_torch/
+testdata/orbax_goldens.npz``. The model is ``ORBAX_CFG`` (f32, dropout 0:
+a 64-filter stem and one BiGRU of 128 units, which the port's kernels
+take, the rest narrow; its recurrent kernel, 384 KiB, is the largest
+leaf, so its zstd frame spans blocks), seeded by ``jax.random.key(0)``,
+with Adam at ``ORBAX_LR``, and its batch the first ``ORBAX_BATCH``
+``small`` lines of the committed greedy goldens at bucket 128, labels
+padded to 32. Three steps of JAX's ``make_train_step`` (the XLA stem, the
+scan recurrence and the scan CTC) run on that batch; the state after the
+second is the checkpoint, and the goldens hold the third:
+
+* ``canvas``/``heights``/``widths``/``truth``/``bucket``: the batch;
+* ``loss``, ``loss_vec``, ``grad_norm``: the third step's;
+* ``after/<name>``: every entry of the port's ``state_dict`` after it;
+* ``noise/<name>``: ``np.packbits`` of the parameter's elements whose
+  third-step gradient is at most 1e-5 of its tensor's largest (the
+  elements whose Adam update f32 noise can turn, see
+  ``tests/test_torch_train.py``), ``noise_shape/<name>`` its shape;
+* ``lr``, ``step`` (2, the checkpoint's step).
+
 Run from the repo root (several minutes on the CPU):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py \
-        [--train | --stn | --lstm | --beam | --serve]
+        [--train | --stn | --lstm | --beam | --serve | --orbax]
 """
 
 from __future__ import annotations
@@ -154,6 +177,13 @@ BEAM_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                         "beam_goldens.npz")
 SERVE_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                          "serve_goldens.npz")
+ORBAX_DIR = os.path.join(REPO, "crnn_ocr_torch", "testdata", "orbax_small")
+ORBAX_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                         "orbax_goldens.npz")
+ORBAX_CFG = dict(width=128, stem_filters=64, block_filters=(16, 16, 24, 24),
+                 time_dense_size=32, n_units=128, rnn_layers=1,
+                 rnn_cell="gru", dropout_rate=0.0, dtype="float32")
+ORBAX_BATCH, ORBAX_LR = 32, 1e-4
 BEAM_WIDTH, TOP_PATHS = 10, 3
 SERVE_BEAM_WIDTH = 10
 LSTM_NAME = "fonts-hard-lstm"
@@ -550,6 +580,86 @@ def write_serve_goldens() -> None:
     print(f"wrote {SERVE_OUT} ({os.path.getsize(SERVE_OUT)} bytes)")
 
 
+def write_orbax_goldens() -> None:
+    import shutil
+
+    import jax
+    import jax.numpy as jnp
+
+    from crnn_ocr_torch.infer.weights import params_from_jax
+    from crnn_ocr_tpu.data.codec import LabelCodec
+    from crnn_ocr_tpu.infer.pretrained import pretrained_dir
+    from crnn_ocr_tpu.models import CRNN, ModelConfig
+    from crnn_ocr_tpu.ops.preprocess import preprocess_batch
+    from crnn_ocr_tpu.train.checkpoint import CheckpointManager
+    from crnn_ocr_tpu.train.state import create_train_state
+    from crnn_ocr_tpu.train.step import ctc_loss_vec, make_train_step
+
+    g = np.load(OUT)
+    codec = LabelCodec.load(os.path.join(pretrained_dir("fonts-small"),
+                                         "classes.json"))
+    cfg = ModelConfig(num_classes=codec.num_classes, use_pallas_rnn=False,
+                      use_fused_stem=False, **ORBAX_CFG)
+    n, bucket = ORBAX_BATCH, 128
+    canvas = g["small_canvas"][:n]
+    hs, ws = g["small_heights"][:n], g["small_widths"][:n]
+    truth = [str(t) for t in g["small_truth"][:n]]
+    labels, lab_len = codec.encode_batch(truth, TRAIN_MAX_LABEL)
+    x, w_new = preprocess_batch(canvas, hs, ws, out_h=cfg.height,
+                                out_w=bucket)
+    T = bucket // cfg.width_downsample
+    il = jnp.maximum(jnp.minimum(w_new // cfg.width_downsample, T)
+                     - cfg.ctc_time_slice, 1).astype(jnp.int32)
+    batch = {"x": x, "input_length": il, "the_labels": jnp.asarray(labels),
+             "label_length": jnp.asarray(lab_len)}
+    state = create_train_state(cfg, jax.random.key(0),
+                               learning_rate=ORBAX_LR)
+    step = make_train_step(cfg, donate=False, use_pallas_ctc=False)
+    rng = jax.random.key(0)
+    for _ in range(2):
+        state, _ = step(state, batch, rng)
+    shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+    mgr = CheckpointManager(ORBAX_DIR)
+    mgr.save(int(state.step), state, model_cfg=cfg, codec=codec)
+    mgr.wait()
+
+    def loss_fn(p):
+        logits, _ = CRNN(cfg=cfg).apply(
+            {"params": p, "batch_stats": state.batch_stats},
+            x[..., None], train=True, mutable=["batch_stats"],
+            rngs={"dropout": rng})
+        vec = ctc_loss_vec(logits, batch["the_labels"], il,
+                           batch["label_length"], cfg.ctc_time_slice)
+        vec = jnp.minimum(vec, 1e4)
+        return jnp.mean(vec), vec
+
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    grads, loss_vec = jax.jit(jax.grad(loss_fn, has_aux=True))(state.params)
+    after, m = step(state, batch, rng)
+    arrays = {"canvas": canvas, "heights": hs, "widths": ws,
+              "truth": np.array(truth), "bucket": np.int32(bucket),
+              "loss": np.float32(m["loss"]),
+              "grad_norm": np.float32(m["grad_norm"]),
+              "loss_vec": np.asarray(loss_vec), "lr": np.float32(ORBAX_LR),
+              "step": np.int32(state.step)}
+    for k, v in params_from_jax(to_np(after.params),
+                                to_np(after.batch_stats)).items():
+        arrays[f"after/{k}"] = v.numpy()
+    for k, v in params_from_jax(to_np(grads), to_np(after.batch_stats)
+                                ).items():
+        if k.endswith(("running_mean", "running_var")):
+            continue
+        v = np.abs(v.numpy())
+        arrays[f"noise/{k}"] = np.packbits(v <= 1e-5 * v.max())
+        arrays[f"noise_shape/{k}"] = np.array(v.shape, np.int32)
+    np.savez_compressed(ORBAX_OUT, **arrays)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(ORBAX_DIR) for f in fs)
+    print(f"orbax fixture: {size} bytes in {ORBAX_DIR}; third step loss "
+          f"{float(m['loss']):.6f}; wrote {ORBAX_OUT} "
+          f"({os.path.getsize(ORBAX_OUT)} bytes)")
+
+
 def main() -> int:
     import jax
 
@@ -568,6 +678,9 @@ def main() -> int:
         return 0
     if "--serve" in sys.argv[1:]:
         write_serve_goldens()
+        return 0
+    if "--orbax" in sys.argv[1:]:
+        write_orbax_goldens()
         return 0
     arrays = golden_lines({}, TASKS)
     bf16_golden(arrays, "hard", "fonts-hard")
