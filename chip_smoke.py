@@ -376,6 +376,39 @@ Slice 6, the f32 recurrences (``fonts-small`` as it ships, f32, n_units
     and its version). To run it alone: ``phase_build(card)`` then
     ``phase_migration(card, g)``.
 
+31. The JAX package's public surface on the card (``phase_surface``; no
+    kernel source changed). (d) Without JAX: every ``__all__`` of every
+    port package resolves, every JAX module path imports in the port, and
+    every counterpart ``crnn_ocr_torch/counterparts.py`` names resolves.
+    Then, from ``surface_inputs``' seed (numpy ``RandomState``, rebuilt for
+    JAX by ``tools/gen_torch_goldens.py --surface``), counted through
+    ``crnn_ocr_torch.ops``: (a) ``fonts-hard``'s training CTC shape (B
+    128, T 62, 62 classes and the blank, labels padded to 32 with the
+    blank), ``ctc_forward_log_loss`` at blank 0 and
+    ``ctc_loss_from_log_probs`` (blank 62), each with its backward; (b)
+    B 256 one-channel 32x128 images warped by ``grid_sample_affine`` to
+    32x256 and to 16x64, and 3-channel ones sampled by ``bilinear_sample``
+    at their own size, each with its backward: 2 K6 and 2 K7 (all
+    ``"pipelined"``), 3 K11 and 3 K12 (all ``"cluster"``). The same run
+    through the plain versions and the JAX goldens
+    (``crnn_ocr_torch/testdata/surface_goldens.npz``) hold it
+    (``surface_against``; the CTC gradient at ``CTC_GRAD_TOL``, JAX's at
+    ``CTC_GRAD_JAX_TOL``, each with its reading, and the readings of two
+    lower-precision controls, ``surface_ctc_control``); K11 and K12 alone
+    on each warp's folded planes against their plain versions (up and down
+    also at B 128, on 2 CTAs an image), with K12's plan (design, cluster,
+    span), each kernel's and plain version's CUDA-event ms, and the bound
+    of the warp's function beside that of the folded operands the kernels
+    move; what the 3-channel fold costs beside K11 and K12
+    (``surface_fold_cost``: device records and ms, traced); K6 and K7
+    alone at blank 0 and the blank-0 loss forward's ms beside the
+    blank-last one's. (c)
+    ``build_model(cfg)`` of ``fonts-hard`` on the card, its weights
+    through ``params_from_jax``: bf16 texts equal to
+    ``load_pretrained("fonts-hard")``'s on the 64 golden lines, its
+    forward 1 K1 (``"mma"``) and 2 K2 (resident). To run it alone:
+    ``phase_build(card)`` then ``phase_surface(card)``.
+
 Every counted run (phases 4, 8, 11, 13, 17, 20, 22, 23, 24, 25) requires
 each recurrence launch to have run on the design ``PATH_DESIGN`` names for its
 kernel (the resident design in either dtype), one design (cluster and rows)
@@ -410,7 +443,11 @@ its cuDNN yardstick); K11's adds ``kernel_ms_old_host_path`` and
 ``cold_ms`` and ``augment_launches`` (phase 28's fine-tune), K12's
 phase 9's ``design``, ``plan``, ``ptxas``,
 ``image_ms``, ``cold_ms``, ``image_cold_ms``, ``image_equal`` and
-``kernel_ms_old_host_path`` and phase 13's ``design_launches``. The
+``kernel_ms_old_host_path`` and phase 13's ``design_launches``; K6's,
+K7's, K11's and K12's rows add ``surface``: phase 31's launches, and its
+kernels' CUDA-event ms, plain ms and bound at its shapes (the warp's
+function's, with ``kernel_bound_ms`` of the folded operands beside; K12's
+with its plan per warp and the 3-channel fold's ``c3_fold``). The
 recurrences' rows
 add ``design``, ``cluster`` and
 ``rows`` as the counted run launched them, ``design_launches`` (that run's
@@ -5523,6 +5560,502 @@ def phase_migration(card: str, g) -> None:
     emit("zstd", path=zstd.describe())
 
 
+SURFACE_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                               "surface_goldens.npz")
+SURFACE_SEED = 31
+# fonts-hard's training CTC: B 128, 62 frames (bucket 256 / 4 less the 2
+# sliced), 62 classes and the blank, labels padded to 32
+SURFACE_CTC = (128, 62, 63, 32)
+SURFACE_WARP = (256, 32, 128)  # B, H, W: the serving batch's frames
+# name -> (Ho, Wo, C): a warp up to twice the width (N = 2 H W), down to
+# half each side (N = H W / 4), and 3 channels at the image's size
+SURFACE_SIZES = {"up": (32, 256, 1), "down": (16, 64, 1), "c3": (32, 128, 3)}
+SURFACE_GOLDEN_CTC_ROWS = 4  # samples whose whole JAX gradient is kept
+SURFACE_KERNELS = {"ctc_alpha": 2, "ctc_beta": 2, "grid_sample": 3,
+                   "grid_sample_bwd": 3}
+# The CTC gradient's gates, (atol, rtol) a value. Over T 62 frames the
+# gradient, exp(alpha + beta + loss - emission), carries K6's and K7's
+# log-domain errors (MUFU ex2/lg2, ~1.5e-4 each at this shape), a relative
+# error of up to about their sum. On the H100 the kernels read 1.82e-4
+# (blank 0) and 1.42e-4 (blank 62) against the plain versions and 4.6e-5
+# against JAX; log-probs rounded to TF32's significand read 1.28e-2, to
+# bf16's 0.115 (``surface_ctc_control``). The limit lies between.
+CTC_GRAD_TOL = (1e-6, 5e-4)
+CTC_GRAD_JAX_TOL = (1e-6, 1e-4)
+
+
+def surface_inputs() -> dict:
+    """Phase 31's inputs, numpy, from ``SURFACE_SEED`` through
+    ``RandomState`` (whose streams numpy keeps fixed across versions), so
+    that ``tools/gen_torch_goldens.py --surface`` rebuilds them for JAX:
+    log-probs (B, T, C) f32 (a float64 log-softmax of normal logits),
+    labels drawn in [0, C - 2] (the blank-last labels; add 1 for blank 0),
+    label lengths 1-25, input lengths 40-62 and at least 2 L + 1; images
+    (B, H, W) and (B, H, W, 3) in [0, 1], theta the identity plus N(0,
+    0.1) (samples past the borders), and an upstream gradient per warp."""
+    import numpy as np
+
+    rs = np.random.RandomState(SURFACE_SEED)
+    B, T, C, L = SURFACE_CTC
+    logits = rs.standard_normal((B, T, C))
+    m = logits.max(-1, keepdims=True)
+    lse = m + np.log(np.exp(logits - m).sum(-1, keepdims=True))
+    ll = rs.randint(1, 26, B).astype(np.int32)
+    il = np.maximum(rs.randint(40, T + 1, B), 2 * ll + 1).astype(np.int32)
+    labels = rs.randint(0, C - 1, (B, L)).astype(np.int32)
+    labels[np.arange(L)[None, :] >= ll[:, None]] = C - 1  # blank padding
+    Bw, H, W = SURFACE_WARP
+    out = dict(lp=(logits - lse).astype(np.float32), labels=labels, il=il,
+               ll=ll, img=rs.uniform(size=(Bw, H, W)).astype(np.float32),
+               img3=rs.uniform(size=(Bw, H, W, 3)).astype(np.float32),
+               theta=(np.float32([1, 0, 0, 0, 1, 0])
+                      + rs.normal(scale=0.1, size=(Bw, 6))).astype(
+                          np.float32))
+    for name, (Ho, Wo, Cc) in SURFACE_SIZES.items():
+        out[f"g_{name}"] = rs.standard_normal((Bw, Ho, Wo, Cc)).astype(
+            np.float32)
+    return out
+
+
+def labels_for_blank(labels, blank: int):
+    """The blank-last labels for ``blank`` 0 or C - 1: at blank 0 every
+    class moves one up, and the padding (C - 1) becomes 0."""
+    C = SURFACE_CTC[2]
+    require(blank in (0, C - 1), f"blank {blank}: 0 or {C - 1} only")
+    return labels if blank else (labels + 1) % C
+
+
+def surface_imports() -> dict:
+    """Phase 31 (d): each port package's ``__all__`` resolves, each JAX
+    module path (the files of ``crnn_ocr_tpu/``) imports in the port, and
+    each counterpart that ``counterparts.JAX_COUNTERPARTS`` names resolves,
+    in a process without JAX."""
+    import importlib
+
+    from crnn_ocr_torch.counterparts import JAX_COUNTERPARTS
+
+    require("jax" not in sys.modules, "JAX is loaded in the card's process")
+    root = os.path.join(REPO, "crnn_ocr_tpu")
+    modules = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py") or "libcrnnocr" in f:
+                continue
+            rel = os.path.relpath(os.path.join(d, f), root)[:-3].split(os.sep)
+            modules.append(".".join(rel[:-1] if rel[-1] == "__init__"
+                                    else rel))
+    names = 0
+    for rel in sorted(modules):
+        mod = importlib.import_module(
+            "crnn_ocr_torch" + (f".{rel}" if rel else ""))
+        for name in getattr(mod, "__all__", ()):
+            require(getattr(mod, name, None) is not None,
+                    f"crnn_ocr_torch.{rel}.{name} does not resolve")
+            names += 1
+    targets = 0
+    for key, (target, why) in JAX_COUNTERPARTS.items():
+        require(bool(why), f"{key}: no reason")
+        if target is not None:
+            rel, name = target.split(":")
+            require(hasattr(importlib.import_module(f"crnn_ocr_torch.{rel}"),
+                            name), f"{key} -> {target} does not resolve")
+            targets += 1
+    require("jax" not in sys.modules and "crnn_ocr_tpu" not in sys.modules,
+            "the port's imports loaded JAX or the JAX package")
+    return dict(modules=len(modules), exported_names=names,
+                mapped=len(JAX_COUNTERPARTS), counterparts=targets)
+
+
+def surface_run(t: dict):
+    """The surface's new shapes through ``crnn_ocr_torch.ops``, forward and
+    backward: ``ctc_forward_log_loss`` at blank 0 and
+    ``ctc_loss_from_log_probs`` (blank C - 1), ``grid_sample_affine`` up
+    and down, ``bilinear_sample`` over 3 channels. -> {case: tensors}."""
+    import torch
+    from crnn_ocr_torch import ops
+
+    C = SURFACE_CTC[2]
+    out = {}
+    for blank in (0, C - 1):
+        x = t["lp"].clone().requires_grad_(True)
+        lab = labels_for_blank(t["labels"], blank)
+        if blank == C - 1:
+            loss = ops.ctc_loss_from_log_probs(x, lab, t["il"], t["ll"])
+        else:
+            loss = ops.ctc.ctc_forward_log_loss(x, lab, t["il"], t["ll"],
+                                                blank)
+        loss.sum().backward()
+        out[f"ctc_b{blank}"] = dict(loss=loss.detach(), grad=x.grad)
+    for name, (Ho, Wo, Cc) in SURFACE_SIZES.items():
+        th = t["theta"].clone().requires_grad_(Cc == 1)
+        if Cc == 1:
+            im = t["img"][..., None].clone().requires_grad_(True)
+            y = ops.grid_sample_affine(im, th, Ho, Wo)
+            leaf = th
+        else:
+            im = t["img3"].clone().requires_grad_(True)
+            leaf = ops.affine_grid(th, Ho, Wo).requires_grad_(True)
+            y = ops.bilinear_sample(im, leaf)
+        (y * t[f"g_{name}"]).sum().backward()
+        out[name] = dict(out=y.detach(), d_img=im.grad,
+                         **{"d_theta" if Cc == 1 else "d_coords": leaf.grad})
+    return out
+
+
+def surface_planes(t: dict, name: str, rows=None):
+    """The sampler's kernel-level operands of warp ``name``: the images as
+    (B * C, H, W) planes, f32 pixel coordinates repeated per channel and
+    the upstream gradient, as ``ops.grid_sample.bilinear_sample`` folds
+    them; ``rows``: the first that many images only."""
+    from crnn_ocr_torch.kernels import grid_sample as gs
+    from crnn_ocr_torch.ops.grid_sample import affine_grid
+
+    Ho, Wo, Cc = SURFACE_SIZES[name]
+    img = t["img"][..., None] if Cc == 1 else t["img3"]
+    theta, g = t["theta"], t[f"g_{name}"]
+    if rows is not None:
+        img, theta, g = img[:rows], theta[:rows], g[:rows]
+    B, H, W, _ = img.shape
+    x, y = gs.pixel_coords(affine_grid(theta, Ho, Wo), H, W)
+    planes = img.permute(0, 3, 1, 2).reshape(B * Cc, H, W).contiguous()
+    g = g.permute(0, 3, 1, 2).reshape(B * Cc, Ho * Wo).contiguous()
+    return (planes, x.repeat_interleave(Cc, 0).contiguous(),
+            y.repeat_interleave(Cc, 0).contiguous(), g)
+
+
+def surface_sampler_checks(t: dict) -> dict:
+    """K11 and K12 on each warp's planes against their plain versions
+    (uncounted): out, dx and dy within 1e-6 + 1e-6 * |plain|, d_img within
+    1e-5 + 1e-5 * |plain| (phase 9's gates); K12's plan; CUDA-event ms of
+    each kernel and of the plain versions. The bound is the warp's own
+    function's: the images, each image's pixel coordinates and the samples
+    (backward: also the upstream gradient, d_img and the coordinates'
+    gradient) once each; ``kernel_bytes`` and ``kernel_bound_ms`` count
+    the folded operands the kernels move, the coordinates (and their
+    gradients) once a channel. The up and down warps also run at B 128,
+    where K12's plan takes 2 CTAs an image and sums their tiles over the
+    cluster."""
+    from crnn_ocr_torch.kernels import grid_sample as gs
+
+    res = {}
+    for name in SURFACE_SIZES:
+        Cc = SURFACE_SIZES[name][2]
+        for rows in (None, 128) if Cc == 1 else (None,):
+            img, x, y, g = surface_planes(t, name, rows)
+            B, H, W = img.shape
+            N = x.shape[1]
+            p = gs.plan(B, H, W, N, img.element_size())
+            out = gs.sample_pix(img, x, y)
+            dimg, dx, dy = gs.sample_pix_bwd(img, x, y, g)
+            want = gs.sample_pix_plain(img, x, y)
+            p_dimg, p_dx, p_dy = gs.sample_pix_bwd_plain(img, x, y, g)
+            errs, ok = {}, True
+            for key, a, b, atol, rtol in (
+                    ("out", out, want, 1e-6, 1e-6),
+                    ("dx", dx, p_dx, 1e-6, 1e-6),
+                    ("dy", dy, p_dy, 1e-6, 1e-6),
+                    ("d_img", dimg, p_dimg, 1e-5, 1e-5)):
+                errs[key], good = _close(a, b, atol, rtol)
+                ok = ok and good
+            key = name if rows is None else f"{name}_b{rows}"
+            require(ok, f"sampler {key}: errors {errs} beyond the gates")
+            # the function's bytes: images (d_img), the B / C images' x and
+            # y (their gradients), samples (upstream gradient) once each
+            px, xy, smp = nbytes(img), 2 * 4 * (B // Cc) * N, nbytes(out)
+            f_ms, f_by = bound_ms(px + xy + smp, 20 * B * N, "float32")
+            b_ms, b_by = bound_ms(2 * px + 2 * xy + smp, 40 * B * N,
+                                  "float32")
+            kernel_bytes = dict(fwd=nbytes(img, x, y, out),
+                                bwd=nbytes(img, x, y, g, dimg, dx, dy))
+            row = dict(B=B, H=H, W=W, N=N, errors=errs,
+                       plan=dict(design=p.design, cluster=p.cluster,
+                                 span=p.span, tile=p.tile, staged=p.staged,
+                                 ctas=p.ctas))
+            if rows is None:
+                row.update(
+                    fwd_ms=time_ms(lambda: gs.sample_pix(img, x, y)),
+                    bwd_ms=time_ms(lambda: gs.sample_pix_bwd(img, x, y, g)),
+                    fwd_plain_ms=time_ms(
+                        lambda: gs.sample_pix_plain(img, x, y), reps=5),
+                    bwd_plain_ms=time_ms(
+                        lambda: gs.sample_pix_bwd_plain(img, x, y, g),
+                        reps=5),
+                    fwd_bound_ms=f_ms, fwd_bound_by=f_by,
+                    bwd_bound_ms=b_ms, bwd_bound_by=b_by,
+                    bytes=dict(fwd=px + xy + smp, bwd=2 * px + 2 * xy + smp),
+                    kernel_bytes=kernel_bytes,
+                    kernel_bound_ms=dict(
+                        fwd=bound_ms(kernel_bytes["fwd"], 20 * B * N,
+                                     "float32")[0],
+                        bwd=bound_ms(kernel_bytes["bwd"], 40 * B * N,
+                                     "float32")[0]))
+            res[key] = row
+    return res
+
+
+def surface_fold_cost(t: dict, reps: int = 20) -> dict:
+    """What folding the channels into the batch costs beside K11 and K12:
+    ``ops.bilinear_sample``'s forward and backward (into the image and the
+    coordinates) on the c3 warp's images, and on their first channel alone
+    with the same coordinates, traced over ``reps`` calls each (after a
+    warm-up call): a call's device records (kernels, copies, memsets) by
+    name, the sampler's (``sample_fwd``, ``sample_bwd_*``) device ms and
+    the rest's, and the call's CUDA-event ms. The c3 run's rest less the
+    one-channel run's is the fold's: the planes' permute copy, the
+    coordinates repeated per channel, the gradients' copies back and the
+    coordinate gradient's sum over the channels."""
+    import torch
+    from crnn_ocr_torch import ops
+
+    Ho, Wo, Cc = SURFACE_SIZES["c3"]
+    coords = ops.affine_grid(t["theta"], Ho, Wo)
+    res = {}
+    for c in (Cc, 1):
+        img = t["img3"][..., :c].contiguous()
+        g = t["g_c3"][..., :c].contiguous()
+
+        def call():
+            im = img.clone().requires_grad_(True)
+            xy = coords.clone().requires_grad_(True)
+            ops.bilinear_sample(im, xy).backward(g)
+
+        call()
+        prof, _ = profiled(lambda: [call() for _ in range(reps)])
+        recs = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        is_sampler = [("sample_fwd" in e.name or "sample_bwd" in e.name)
+                      for e in recs]
+        sampler = [e for e, k in zip(recs, is_sampler) if k]
+        rest = [e for e, k in zip(recs, is_sampler) if not k]
+
+        def ms(es):
+            return sum(e.time_range.end - e.time_range.start
+                       for e in es) / reps / 1e3
+
+        res[f"c{c}"] = dict(
+            records=len(recs) / reps, sampler_records=len(sampler) / reps,
+            sampler_device_ms=ms(sampler), rest_device_ms=ms(rest),
+            rest_names={k: v / reps for k, v in sorted(collections.Counter(
+                e.name[:60] for e in rest).items())},
+            call_ms=time_ms(call, reps=10))
+    c3, c1 = res[f"c{Cc}"], res["c1"]
+    res["fold_records"] = c3["records"] - c1["records"]
+    res["fold_device_ms"] = c3["rest_device_ms"] - c1["rest_device_ms"]
+    return res
+
+
+def surface_ctc_checks(t: dict) -> dict:
+    """K6 and K7 at blank 0 (the permuted columns) against their plain
+    versions on the same emissions (uncounted, K6/K7's phase 6 gate), with
+    their CUDA-event ms and the permutation's: the blank-0 loss forward
+    against the blank-last one on the same log-probs."""
+    import torch
+    from crnn_ocr_torch.kernels import ctc_loss as cl
+    from crnn_ocr_torch.ops import ctc
+
+    C = SURFACE_CTC[2]
+    lp = t["lp"]
+    b0 = lp[..., list(range(1, C)) + [0]]  # the blank's column last
+    emits, flags, lens, _, _ = cl.prepare(b0, t["labels"], t["il"], t["ll"])
+    res = {}
+    for name, fn, plain in (("ctc_alpha", cl.ctc_alphas, cl.ctc_alphas_plain),
+                            ("ctc_beta", cl.ctc_betas, cl.ctc_betas_plain)):
+        err, ok = ctc_close(fn(emits, flags, lens), plain(emits, flags, lens))
+        require(ok, f"{name} at blank 0: max error {err}")
+        B, T, S = emits.shape
+        b_ms, b_by = bound_ms(nbytes(emits, flags, lens, emits),
+                              20 * B * T * S, "float32")
+        res[name] = dict(B=B, T=T, S=S, max_abs_err=err,
+                         ms=time_ms(lambda: fn(emits, flags, lens)),
+                         plain_ms=time_ms(lambda: plain(emits, flags, lens),
+                                          reps=5),
+                         bound_ms=b_ms, bound_by=b_by)
+    lab0 = labels_for_blank(t["labels"], 0)
+    with torch.no_grad():
+        res["loss_fwd_ms"] = {
+            "blank_0": time_ms(lambda: ctc.ctc_forward_log_loss(
+                lp, lab0, t["il"], t["ll"], 0)),
+            "blank_last": time_ms(lambda: ctc.ctc_loss_from_log_probs(
+                lp, t["labels"], t["il"], t["ll"]))}
+    return res
+
+
+def rtol_read(got, want, atol: float) -> float:
+    """The least rtol at which ``got`` is within ``atol + rtol * |want|`` of
+    ``want`` everywhere (inf where ``want`` is 0 and the gap over atol)."""
+    import torch
+
+    gap = ((got.float() - want.float()).abs() - atol).clamp(min=0)
+    return float(torch.where(gap > 0, gap / want.float().abs(),
+                             torch.zeros_like(gap)).max())
+
+
+def surface_against(got: dict, want: dict, golden) -> dict:
+    """The counted run against the plain run (``want``, the same entry
+    points under ``plain_kernels``) and against the JAX goldens. CTC: the
+    loss within 1e-5 * |plain| (JAX: 1e-4); the gradient within
+    ``CTC_GRAD_TOL`` (JAX: ``CTC_GRAD_JAX_TOL``), each with its reading
+    (``/rtol_read``: the least rtol that passes at the gate's atol).
+    Warps: out 1e-5, d_img 1e-5 + 1e-5 * |want|, d_coords 1e-3 + 1e-5 *
+    |want| (normalized units, (W - 1) / 2 = 63.5 pixels each: 1.6e-5 a
+    pixel, on sums of three channels' terms up to ~60), d_theta 1e-5 * max
+    |want| + 1e-4 * |want| (sums over the warp's 8,192 or 1,024 samples,
+    in another order, which cancel to values far below their terms')."""
+    import torch
+
+    errs, bad = {}, []
+
+    def hold(key, a, b):
+        """``a`` against ``b`` at the gate of ``key``'s quantity."""
+        k = key.split("/")[1]
+        jax = key.endswith("/jax")
+        b = torch.as_tensor(b).to(a.device)
+        atol, rtol = {
+            "loss": (0.0, 1e-4 if jax else 1e-5),
+            "grad": CTC_GRAD_JAX_TOL if jax else CTC_GRAD_TOL,
+            "out": (1e-5, 0.0), "d_img": (1e-5, 1e-5),
+            "d_coords": (1e-3, 1e-5),
+            "d_theta": (1e-5 * float(b.abs().max()), 1e-4)}.get(k, (1e-6, 0))
+        err, ok = _close(a, b, atol, rtol)
+        errs[key] = err
+        if k == "grad":
+            errs[f"{key}/rtol_read"] = rtol_read(a, b, atol)
+        if not ok:
+            bad.append(key)
+
+    for case, tensors in got.items():
+        for k, v in tensors.items():
+            hold(f"{case}/{k}/plain", v, want[case][k])
+    n = SURFACE_GOLDEN_CTC_ROWS
+    for blank in (0, SURFACE_CTC[2] - 1):
+        hold(f"ctc_b{blank}/loss/jax", got[f"ctc_b{blank}"]["loss"],
+             golden[f"ctc_b{blank}/loss"])
+    hold("ctc_b0/grad/jax", got["ctc_b0"]["grad"][:n], golden["ctc_b0/grad"])
+    for name in SURFACE_SIZES:
+        for k, v in got[name].items():
+            hold(f"{name}/{k}/jax", v if k == "d_theta" else v[:1],
+                 golden[f"{name}/{k}"])
+    require(not bad, f"surface: {bad} beyond their gates ({errs})")
+    return errs
+
+
+def surface_ctc_control(t: dict, want: dict) -> dict:
+    """The CTC gradient gate's lower-precision controls, plain versions
+    only (call under ``plain_kernels``): the blank-0 loss's gradient from
+    the log-probs rounded to TF32's 10-bit and to bf16's 7-bit significand,
+    read against the f32 one as ``surface_against`` reads the kernels'
+    (``rtol_read`` at ``CTC_GRAD_TOL``'s atol). A fault that lost as much
+    precision would read about so."""
+    import torch
+    from crnn_ocr_torch.ops import ctc
+
+    lp = t["lp"]
+    bits = lp.view(torch.int32)
+    tf32 = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    lab0 = labels_for_blank(t["labels"], 0)
+    res = {}
+    for name, x in (("tf32", tf32), ("bf16", lp.bfloat16().float())):
+        x = x.clone().requires_grad_(True)
+        ctc.ctc_forward_log_loss(x, lab0, t["il"], t["ll"], 0).sum().backward()
+        res[name] = rtol_read(x.grad, want["ctc_b0"]["grad"],
+                              CTC_GRAD_TOL[0])
+    return res
+
+
+def surface_build_model(g) -> dict:
+    """Phase 31 (c): ``build_model`` of ``fonts-hard``'s config on the card
+    with its weights through ``params_from_jax``, served in bf16 as
+    shipped: texts equal to ``load_pretrained("fonts-hard")``'s on the 64
+    golden lines, the forward's launches counted (1 K1 on ``"mma"``, 2 K2
+    on the resident design)."""
+    import torch
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.infer.pretrained import model_weights
+    from crnn_ocr_torch.infer.weights import params_from_jax
+    from crnn_ocr_torch.models import build_model
+
+    cfg, params, stats, _ = model_weights("fonts-hard")
+    model = build_model(cfg)
+    require(next(model.parameters()).device.type == "cuda",
+            "build_model did not place the model on the card")
+    model.load_state_dict(params_from_jax(params, stats))
+    model.eval()
+    pred = load_pretrained("fonts-hard")
+    lines = golden_lines(g, "hard")[:64]
+    with torch.inference_mode():
+        x, w_new = pred.preprocess(lines, BUCKET)
+        reset_launches()
+        logits = model(x)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        require_launches(counts, {"fused_stem": 1, "bigru": 2},
+                         "build_model's forward")
+        design = read_design(counts, "build_model's forward")
+        stem = read_stem_design(counts, "serve", "build_model's forward")
+        got = [p.text for p in pred.decode(*pred.probs(logits, w_new))]
+    want = pred.predict_text(lines, bucket=BUCKET)
+    same = sum(a == b for a, b in zip(got, want))
+    require(same == len(want), f"build_model's texts: {same} of {len(want)} "
+                               "equal to load_pretrained's")
+    return dict(lines=len(want), texts_equal=same, dtype=cfg.dtype,
+                launches=counts, design=str(design[0]), stem_design=stem)
+
+
+def phase_surface(card: str) -> dict:
+    """Phase 31: the JAX package's public surface on the card. (d) first,
+    then the counted run of the new shapes through ``crnn_ocr_torch.ops``
+    (``SURFACE_KERNELS``: K6 and K7 once a loss and its backward, K11 and
+    K12 once a warp, every K6/K7 on ``CTC_PATH_DESIGN``, every K12 on
+    ``"cluster"``), the same run through the plain versions, the JAX
+    goldens, the kernels alone against their plain versions with their
+    times and K12's plans, and (c). -> each kernel's ``surface`` entry."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    imports = surface_imports()
+    golden = np.load(SURFACE_GOLDENS)
+    t = {k: torch.from_numpy(v).cuda() for k, v in surface_inputs().items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    got = surface_run(t)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    require_launches(counts, SURFACE_KERNELS, "phase 31's counted run")
+    ctc_design = read_ctc_design(counts, "phase 31's counted run")
+    sampler_design = read_sampler_design(counts, "phase 31's counted run")
+    with plain_kernels():
+        want = surface_run(t)
+        control = surface_ctc_control(t, want)
+    errs = surface_against(got, want, golden)
+    sampler = surface_sampler_checks(t)
+    fold = surface_fold_cost(t)
+    ctc = surface_ctc_checks(t)
+    model = surface_build_model(np.load(os.path.join(
+        REPO, "crnn_ocr_torch", "testdata", "greedy_goldens.npz")))
+    emit("surface", card=card, imports=imports, launches=counts,
+         ctc_design=ctc_design, sampler_design=sampler_design, errors=errs,
+         ctc_grad_tol=dict(plain=CTC_GRAD_TOL, jax=CTC_GRAD_JAX_TOL,
+                           control_rtol_read=control),
+         sampler=sampler, fold=fold, ctc=ctc, build_model=model,
+         seconds=time.perf_counter() - t0)
+    rows = {k: dict(launches=counts[k]) for k in SURFACE_KERNELS}
+    for k in ("ctc_alpha", "ctc_beta"):
+        rows[k].update(ctc[k], blank_0_loss_fwd_ms=ctc["loss_fwd_ms"])
+    for k, pre in (("grid_sample", "fwd"), ("grid_sample_bwd", "bwd")):
+        rows[k]["warps"] = {
+            name: dict(ms=s[f"{pre}_ms"], plain_ms=s[f"{pre}_plain_ms"],
+                       bound_ms=s[f"{pre}_bound_ms"],
+                       bound_by=s[f"{pre}_bound_by"], B=s["B"], N=s["N"],
+                       kernel_bound_ms=s["kernel_bound_ms"][pre],
+                       **({"plan": s["plan"]} if pre == "bwd" else {}))
+            for name, s in sampler.items() if "_b" not in name}
+    rows["grid_sample_bwd"]["c3_fold"] = {
+        k: fold[k] for k in ("fold_records", "fold_device_ms")}
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -5707,6 +6240,10 @@ def main() -> int:
     # phase 30: migration both ways, and JAX's orbax checkpoints
     phase_migration(card, g)
 
+    # phase 31: the JAX package's public surface, its new shapes through
+    # K6/K7 and K11/K12
+    surface = phase_surface(card)
+
     sources = {
         "fused_stem": ("crnn_ocr_torch/kernels/csrc/fused_stem.cu",
                        "crnn_ocr_tpu/kernels/fused_stem.py:134"),
@@ -5779,6 +6316,8 @@ def main() -> int:
                 library=k1["library"], max_abs_err=k1["max_abs_err"])
         if name == "grid_sample":  # the augmentation's warp, phase 28
             kernels[-1]["augment_launches"] = aug["grid_sample"]
+        if name in surface:  # phase 31's shapes and launches
+            kernels[-1]["surface"] = surface[name]
         if name == "grid_sample_bwd":  # phase 13's launches by design
             require({c["design"]: counts[name]} == sampler_design,
                     f"{name}: timed on {c['design']}, but the counted run "

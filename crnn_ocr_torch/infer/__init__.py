@@ -6,7 +6,7 @@ from crnn_ocr_torch.infer.predictor import (
     init_predictor,
     predictor_from_cli,
 )
-from crnn_ocr_torch.infer.pretrained import load_pretrained
+from crnn_ocr_torch.infer.pretrained import load_pretrained, pretrained_dir
 
 __all__ = [
     "CharSpan",
@@ -16,4 +16,5 @@ __all__ = [
     "init_predictor",
     "predictor_from_cli",
     "load_pretrained",
+    "pretrained_dir",
 ]

@@ -352,14 +352,23 @@ def pixel_coords(coords, H: int, W: int):
 
 
 def bilinear_sample(img, coords):
-    """``bilinear_sample_pallas`` (``kernels/grid_sample.py:219-235``): img
-    (B, H, W, 1), coords (B, Ho, Wo, 2) normalized (x, y) in [-1, 1]
-    (pixel centres at the ends, torch's ``align_corners=True``) -> (B, Ho,
-    Wo, 1) in the image's dtype. Differentiable in the image and in the
-    coordinates."""
-    if img.dim() != 4 or img.shape[-1] != 1:
-        raise ValueError(f"img must be (B, H, W, 1), got {tuple(img.shape)}")
-    B, H, W, _ = img.shape
+    """``bilinear_sample_pallas`` (``kernels/grid_sample.py:219-235``) and
+    ``ops/grid_sample.py::bilinear_sample`` (``:45``): img (B, H, W, C),
+    coords (B, Ho, Wo, 2) normalized (x, y) in [-1, 1] (pixel centres at
+    the ends, torch's ``align_corners=True``) -> (B, Ho, Wo, C) in the
+    image's dtype. Differentiable in the image and in the coordinates.
+    C > 1 channels fold into the batch, (B * C, H, W), each image's pixel
+    coordinates repeated C times (autograd sums their gradients back): one
+    K11 and one K12 launch, whatever C."""
+    if img.dim() != 4:
+        raise ValueError(f"img must be (B, H, W, C), got {tuple(img.shape)}")
+    B, H, W, C = img.shape
     _, Ho, Wo, _ = coords.shape
-    out = _SamplePix.apply(img[..., 0], *pixel_coords(coords, H, W))
-    return out.reshape(B, Ho, Wo, 1).to(img.dtype)
+    x, y = pixel_coords(coords, H, W)
+    if C == 1:
+        planes = img[..., 0]
+    else:
+        planes = img.permute(0, 3, 1, 2).reshape(B * C, H, W)
+        x, y = x.repeat_interleave(C, dim=0), y.repeat_interleave(C, dim=0)
+    out = _SamplePix.apply(planes, x, y)
+    return out.reshape(B, C, Ho, Wo).permute(0, 2, 3, 1).to(img.dtype)

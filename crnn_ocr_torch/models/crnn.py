@@ -300,3 +300,15 @@ class CRNN(nn.Module):
             x = self.stn(x.to(self.dtype))
         return self.head(self.backbone(self.stem(x, mask), generator, mask),
                          mask)
+
+
+def build_model(cfg: ModelConfig, mesh: Optional[Mesh] = None,
+                device=None) -> CRNN:
+    """``CRNN(cfg, mesh)`` on ``device`` (``crnn_ocr_tpu/models/crnn.py:
+    380``): by default the mesh's device, else ``cuda``; the CPU only where
+    the caller passes it. Its weights are torch's initial ones:
+    ``train.state.init_weights`` draws flax's, a state_dict loads
+    trained ones."""
+    if device is None:
+        device = mesh.device if mesh is not None else "cuda"
+    return CRNN(cfg, mesh).to(device)

@@ -4,16 +4,18 @@ A localization net predicts an affine ``theta`` per image, and the image is
 warped by it at its own size:
 
 * max-pool 2x2 on the input;
-* per filter count (16, then 32): a 5x5 ``SAME`` convolution with bias,
-  ReLU, max-pool 2x2;
-* flatten, Dense 50 with ReLU, Dense 6 (``theta``; flax initializes its
-  kernel to zero and its bias to the identity ``[1, 0, 0, 0, 1, 0]``);
+* per filter count (``loc_filters``, 16 then 32 by default): a 5x5
+  ``SAME`` convolution with bias, ReLU, max-pool 2x2;
+* flatten, Dense ``loc_dense`` (50) with ReLU, Dense 6 (``theta``; flax
+  initializes its kernel to zero and its bias to the identity ``[1, 0, 0,
+  0, 1, 0]``);
 * the warp: ``ops.grid_sample.grid_sample_affine`` (K11 forward, K12
   backward on the card).
 
 flax flattens NHWC, so the NCHW activation is permuted to NHWC before the
-flatten: the first Dense reads its ``(H / 8) * (W / 8) * 32`` inputs in
-flax's order, and is bound to the image size the model was built for.
+flatten: the first Dense reads its ``(H / 8) * (W / 8) * loc_filters[-1]``
+inputs in flax's order, and is bound to the image size the model was built
+for.
 
 Under a bf16 model the localization net computes in bf16 as flax's
 ``dtype=bf16`` modules do (bf16 operands, the bias added after the product
@@ -23,6 +25,8 @@ reads the bf16 image as f32 and returns its f32 result cast to bf16.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -30,25 +34,26 @@ from torch import nn
 from crnn_ocr_torch.ops.grid_sample import grid_sample_affine
 
 IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
-LOC_FILTERS = (16, 32)  # the localization convolutions' widths
-LOC_DENSE = 50
 
 
 class STN(nn.Module):
     """images (B, H, W) in the compute dtype -> warped (B, H, W), same
-    dtype."""
+    dtype. ``loc_filters`` (the localization convolutions' widths) and
+    ``loc_dense`` (its hidden Dense's) are the JAX module's attributes,
+    with its defaults."""
 
-    def __init__(self, height: int, width: int, dtype=torch.float32):
+    def __init__(self, height: int, width: int, dtype=torch.float32,
+                 loc_filters: Sequence[int] = (16, 32), loc_dense: int = 50):
         super().__init__()
         self.size = (height, width)
         self.dtype = dtype
         self.convs = nn.ModuleList()
         ch, h, w = 1, height // 2, width // 2
-        for filters in LOC_FILTERS:
+        for filters in loc_filters:
             self.convs.append(nn.Conv2d(ch, filters, 5, padding=2))
             ch, h, w = filters, h // 2, w // 2
-        self.dense = nn.Linear(h * w * ch, LOC_DENSE)
-        self.theta = nn.Linear(LOC_DENSE, 6)
+        self.dense = nn.Linear(h * w * ch, loc_dense)
+        self.theta = nn.Linear(loc_dense, 6)
 
     def _affine(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

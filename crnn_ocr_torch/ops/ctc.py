@@ -1,11 +1,15 @@
 """CTC loss, decoders and alignment (``crnn_ocr_tpu/ops/ctc.py``).
 
-Blank is the last class, ``C - 1``. The loss from normalized log-probs
-(the JAX package's ``ctc_forward_log_loss`` and ``ctc_loss_from_log_probs``)
-is ``kernels.ctc_loss.ctc_loss``: K6 and K7 on the card, their plain
-versions on the CPU, so its gradient is the kernels' analytic one;
-``NEG = -1e30`` stands for log 0 there, and a sample with no valid
-alignment gets a loss of 1e30 and a zero gradient.
+Blank is the last class, ``C - 1``, everywhere but in
+``ctc_forward_log_loss``, which takes any blank index. The loss from
+normalized log-probs is ``kernels.ctc_loss.ctc_loss``: K6 and K7 on the
+card, their plain versions on the CPU, so its gradient is the kernels'
+analytic one; ``NEG = -1e30`` stands for log 0 there, and a sample with no
+valid alignment gets a loss of 1e30 and a zero gradient.
+``ctc_loss_from_log_probs`` is that loss; ``ctc_forward_log_loss`` with
+another blank first moves the blank's column to the end (a reordering of
+values, so the loss and the gradient are exact) and renumbers the labels
+to match.
 
 Decoding and alignment are plain PyTorch on the tensors' device: greedy
 decode, greedy alignment (the argmax runs) and forced alignment (the
@@ -33,6 +37,40 @@ def ctc_batch_cost(labels, y_pred, input_length, label_length):
     logits = torch.log(y_pred.float() + KERAS_EPSILON)
     return ctc_loss(torch.log_softmax(logits, dim=-1), labels, input_length,
                     label_length)[:, None]
+
+
+def ctc_loss_from_log_probs(log_probs, labels, input_length, label_length):
+    """(B,) CTC loss from normalized log-probs (B, T, C) f32, blank
+    ``C - 1`` (``crnn_ocr_tpu/ops/ctc.py:176``): K6 forward, K7 backward on
+    the card."""
+    return ctc_loss(log_probs, labels, input_length, label_length)
+
+
+def ctc_forward_log_loss(log_probs, labels, input_length, label_length,
+                         blank: int):
+    """(B,) CTC loss with blank class ``blank`` (``crnn_ocr_tpu/ops/
+    ctc.py:59``): ``log_probs`` (B, T, C) normalized, ``labels`` (B, L)
+    dense (values past ``label_length`` are ignored), ``input_length`` and
+    ``label_length`` (B,). Differentiable in ``log_probs``.
+
+    For ``blank != C - 1`` the classes are reordered so that the blank
+    comes last: class c < blank keeps its index, the blank becomes C - 1,
+    class c > blank becomes c - 1. The labels (clipped to [0, C - 1] first,
+    as JAX clips them) are renumbered by the same map, and the loss runs
+    ``ctc_loss_from_log_probs``; autograd carries the gradient back through
+    the reordering."""
+    C = log_probs.shape[-1]
+    if not 0 <= blank < C:
+        raise ValueError(f"blank must be in [0, {C - 1}], got {blank}")
+    if blank == C - 1:
+        return ctc_loss_from_log_probs(log_probs, labels, input_length,
+                                       label_length)
+    b = blank
+    lp = torch.cat([log_probs[..., :b], log_probs[..., b + 1:],
+                    log_probs[..., b:b + 1]], dim=-1)
+    lab = labels.to(device=log_probs.device, dtype=torch.int64).clamp(0, C - 1)
+    lab = torch.where(lab == b, C - 1, lab - (lab > b).long())
+    return ctc_loss_from_log_probs(lp, lab, input_length, label_length)
 
 
 def _pack_left(values: torch.Tensor, keep: torch.Tensor, pad_value):

@@ -23,7 +23,8 @@ the same whichever answers. A sample past its length passes every test
 (the freeze discards its step; JAX's ladder tests it too, to the same
 result). The ladder is a host ``if`` on one device bool
 per tier (a sync per frame, two where the fast proof fails); the JAX
-package's per-sub-block ladders (``DISPATCH_BLOCK > 0``) are not ported.
+package's per-sub-block ladders (``DISPATCH_BLOCK > 0``) are not ported,
+and both entry points refuse a non-zero ``DISPATCH_BLOCK``.
 
 Conventions, as the JAX module: inputs are post-softmax probabilities,
 per-frame scores ``log_softmax(log(p + 1e-7))`` in f32 whatever the input
@@ -49,6 +50,18 @@ HASH_P = 1000003
 HASH_P2 = 16777619  # FNV-32 prime; the second, independent rolling hash
 ROOT_SENTINEL = 0xFFFFFFFF
 MASK32 = 0xFFFFFFFF
+# The JAX package's tier-dispatch block (samples a ladder; 0: one ladder
+# for the batch). The port has only the batch-global ladder, JAX's default;
+# ``_batch_global_ladder`` refuses any other value.
+DISPATCH_BLOCK = 0
+
+
+def _batch_global_ladder() -> None:
+    if DISPATCH_BLOCK:
+        raise NotImplementedError(
+            f"DISPATCH_BLOCK = {DISPATCH_BLOCK}: the port runs one tier "
+            "ladder for the whole batch (DISPATCH_BLOCK = 0); per-sub-block "
+            "ladders are not ported")
 
 
 def _sel1(onehot, vals):
@@ -442,6 +455,7 @@ def ctc_beam_tier_stats(
     frozen sample (t >= its input length) reads True. The state advances
     through the normal dispatch; every frame also pays the exact tier's
     gates."""
+    _batch_global_ladder()
     B, T, _ = y_pred.shape
     C = y_pred.shape[2]
     W = beam_width
@@ -484,6 +498,7 @@ def ctc_beam_search_decode_tf(
         raise ValueError(
             f"top_paths ({top_paths}) must be <= beam_width ({beam_width})"
         )
+    _batch_global_ladder()
     B, T, C = y_pred.shape
     W = beam_width
     lp_all, input_length = _log_probs(y_pred, input_length)

@@ -4,14 +4,17 @@ grid_sample.py``).
 Normalized coordinates in [-1, 1] map to the pixel centres [0, size - 1]
 (torch's ``align_corners=True``); samples outside clamp to the border. The
 JAX package's banded sampler and its gate (``:109-265``) work around TPU
-shapes; here ``grid_sample_affine`` builds the grid and hands it to
-``kernels.grid_sample.bilinear_sample``, which runs K11 forward and K12
-backward on a CUDA tensor and the plain versions on a CPU tensor.
+shapes; here ``grid_sample_affine`` builds the grid, at the image's size
+or another, and hands it to ``kernels.grid_sample.bilinear_sample`` (this
+module's ``bilinear_sample``), which runs K11 forward and K12 backward on a
+CUDA tensor and the plain versions on a CPU tensor, an image of C channels
+as B * C one-channel images.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,10 +72,12 @@ def affine_grid(theta: torch.Tensor, height: int,
     return torch.stack([src_x, src_y], dim=-1)
 
 
-def grid_sample_affine(img: torch.Tensor,
-                       theta: torch.Tensor) -> torch.Tensor:
-    """Warp ``img`` (B, H, W, 1) by ``theta`` at its own size -> (B, H, W,
-    1) in the image's dtype."""
+def grid_sample_affine(img: torch.Tensor, theta: torch.Tensor,
+                       out_height: Optional[int] = None,
+                       out_width: Optional[int] = None) -> torch.Tensor:
+    """Warp ``img`` (B, H, W, C) by ``theta`` (B, 6) -> (B, out_height,
+    out_width, C) in the image's dtype; the output size defaults to the
+    image's."""
     _, H, W, _ = img.shape
-    coords = affine_grid(theta, H, W)
+    coords = affine_grid(theta, out_height or H, out_width or W)
     return bilinear_sample(img, coords)

@@ -22,14 +22,18 @@ NORM_EPSILON = 1e-7
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
-def _linear_weights(in_size: int, out_size: int, scale: torch.Tensor):
+def _linear_weights(in_size: int, out_size: int, scale: torch.Tensor,
+                    antialias: bool = False):
     """(B, out_size, in_size) sampling weights of one axis, as jax 0.9's
     ``jax/_src/image/scale.py::compute_weight_mat`` builds them for a
-    triangle kernel without antialiasing and zero translation."""
+    triangle kernel and zero translation; with ``antialias`` a downscale
+    widens the triangle by the inverse scale."""
     f32 = dict(dtype=torch.float32, device=scale.device)
     inv = (1.0 / scale)[:, None]  # (B, 1)
     sample_f = (torch.arange(out_size, **f32) + 0.5) * inv - 0.5  # (B, out)
     x = (sample_f[:, :, None] - torch.arange(in_size, **f32)).abs()
+    if antialias:
+        x = x / torch.clamp(inv, min=1.0)[:, :, None]
     w = torch.clamp(1.0 - x, min=0.0)
     total = w.sum(dim=2, keepdim=True)
     w = torch.where(
@@ -48,6 +52,7 @@ def preprocess_batch(
     out_h: int = 32,
     out_w: int = 128,
     normalize: bool = True,
+    antialias: bool = False,
 ):
     """Resize-to-height + pad-to-bucket + normalize a white-padded canvas.
 
@@ -55,6 +60,7 @@ def preprocess_batch(
       images: (B, Hmax, Wmax) uint8 or float canvas, white beyond each
         image's true (h, w).
       heights, widths: (B,) true image sizes.
+      antialias: antialiased resampling (cv2 parity wants False).
 
     Returns:
       (x, content_widths): (B, out_h, out_w) float32 frames and (B,) int32
@@ -65,8 +71,8 @@ def preprocess_batch(
     w = widths.to(device=images.device, dtype=torch.float32)
     # round half to even, as jnp.round; wider images squash to the bucket
     w_new = torch.clamp(torch.round(w * out_h / h), max=float(out_w))
-    wy = _linear_weights(Hm, out_h, out_h / h)  # (B, out_h, Hm)
-    wx = _linear_weights(Wm, out_w, w_new / w)  # (B, out_w, Wm)
+    wy = _linear_weights(Hm, out_h, out_h / h, antialias)  # (B, out_h, Hm)
+    wx = _linear_weights(Wm, out_w, w_new / w, antialias)  # (B, out_w, Wm)
     scaled = wy @ images.float() @ wx.transpose(1, 2)
     cols = torch.arange(out_w, dtype=torch.float32, device=images.device)
     frames = torch.where(cols[None, None, :] < w_new[:, None, None], scaled,

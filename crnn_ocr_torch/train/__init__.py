@@ -11,6 +11,7 @@ from crnn_ocr_torch.train.state import (
     TrainState,
     create_train_state,
     make_optimizer,
+    param_count,
 )
 from crnn_ocr_torch.train.step import (
     make_cached_multi_train_step,
@@ -35,4 +36,5 @@ __all__ = [
     "make_optimizer",
     "make_partial_cached_multi_train_step",
     "make_train_step",
+    "param_count",
 ]

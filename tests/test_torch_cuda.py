@@ -34,7 +34,12 @@ K-step call to streamed steps as the CPU tests hold them, and a resume
 over a partly resident corpus bit for bit; the JAX package's orbax
 fixture restored on the card bit for bit as on the CPU (its served
 probabilities to 1e-4), and a ``.h5`` exported from tensors on the card
-byte for byte as from the CPU. TF32 is off.
+byte for byte as from the CPU; the surface's loss at any blank to the
+CPU at rtol 1e-5 and its gradient at 1e-6 + 5e-4 * |value| (K6's and
+K7's log-domain errors over 62 frames), its warps to another size and
+over 3 channels as the STN's warp (theta's and the coordinates'
+gradients rtol 1e-4 / atol 1e-4), and ``build_model``'s texts equal to ``load_pretrained``'s.
+TF32 is off.
 """
 
 import collections
@@ -1252,3 +1257,109 @@ def test_export_of_card_tensors_equals_cpu(card, tmp_path):
     export_keras_h5(sd, cfg, str(tmp_path / "cpu.h5"))
     assert (tmp_path / "card.h5").read_bytes() == \
         (tmp_path / "cpu.h5").read_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blank", [0, 31, 62])
+def test_ctc_forward_log_loss_on_card_matches_cpu(card, blank):
+    """``ops.ctc.ctc_forward_log_loss`` at any blank on the card (the blank
+    column moved last, then K6 and K7 once each) against the CPU: the loss
+    as ``test_ctc_loss_gradient_on_card_matches_cpu`` holds the blank-last
+    one, the gradient at phase 31's gate against the plain versions."""
+    from crnn_ocr_torch.ops.ctc import ctc_forward_log_loss
+
+    rng = np.random.default_rng(21)
+    B, T, C, L = 16, 62, 63, 20
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(size=(B, T, C)).astype(np.float32)), -1)
+    ll = torch.from_numpy(rng.integers(1, L + 1, B).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, C - 1, (B, L)).astype(np.int32))
+    labels = labels + (labels >= blank).int()  # never the blank
+    labels[torch.arange(L)[None, :] >= ll[:, None].long()] = blank
+    il = torch.full((B,), T, dtype=torch.int32)
+    n6, n7 = tcl.alpha_launches, tcl.beta_launches
+    grads, losses = [], []
+    for dev in ("cpu", card):
+        x = lp.clone().to(dev).requires_grad_(True)
+        loss = ctc_forward_log_loss(x, labels.to(dev), il.to(dev),
+                                    ll.to(dev), blank)
+        loss.sum().backward()
+        grads.append(x.grad.cpu())
+        losses.append(loss.detach().cpu())
+    assert (tcl.alpha_launches - n6, tcl.beta_launches - n7) == (1, 1)
+    np.testing.assert_allclose(losses[1].numpy(), losses[0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    # over 62 frames the gradient, exp(alpha + beta + loss - emission),
+    # carries K6's and K7's log-domain errors: chip_smoke.py's CTC_GRAD_TOL
+    err = (grads[1] - grads[0]).abs()
+    read = float(((err - 1e-6).clamp(min=0) / grads[0].abs()).nan_to_num(
+        0.0, posinf=float("inf")).max())
+    assert bool((err <= 1e-6 + 5e-4 * grads[0].abs()).all()), read
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 256])  # K12 on 2 CTAs an image, and 1
+@pytest.mark.parametrize("size,channels", [((32, 256), 1), ((16, 64), 1),
+                                           ((32, 128), 3)])
+def test_surface_warps_on_card_match_cpu(card, B, size, channels):
+    """``ops.grid_sample``'s warp to another size and its sampler over 3
+    channels (folded into the batch: one K11 and one K12 a call) on the
+    card against the CPU: samples, d_img, and the gradient with respect to
+    theta (one channel) or to the coordinates (three)."""
+    from crnn_ocr_torch.ops.grid_sample import (
+        affine_grid,
+        bilinear_sample,
+        grid_sample_affine,
+    )
+
+    rng = np.random.default_rng(22)
+    img = torch.from_numpy(rng.uniform(size=(B, 32, 128, channels))
+                           .astype(np.float32))
+    theta = torch.from_numpy((rng.normal(size=(B, 6)) * 0.1
+                              + [1, 0, 0, 0, 1, 0]).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(B, *size, channels))
+                         .astype(np.float32))
+    n11, n12 = tgs.launches, tgs.bwd_launches
+    outs, grads = [], []
+    for dev in ("cpu", card):
+        i = img.clone().to(dev).requires_grad_(True)
+        if channels == 1:
+            leaf = theta.clone().to(dev).requires_grad_(True)
+            out = grid_sample_affine(i, leaf, *size)
+        else:
+            leaf = affine_grid(theta.to(dev), *size).requires_grad_(True)
+            out = bilinear_sample(i, leaf)
+        (out * g.to(dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append((i.grad.cpu(), leaf.grad.cpu()))
+    assert (tgs.launches - n11, tgs.bwd_launches - n12) == (1, 1)
+    assert outs[1].shape == (B, *size, channels)
+    _assert_near(outs[1], outs[0], 1e-6)
+    _assert_near(grads[1][0], grads[0][0], 1e-5)
+    np.testing.assert_allclose(grads[1][1].numpy(), grads[0][1].numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_build_model_on_card_reads_as_load_pretrained(card):
+    """``models.build_model`` of ``fonts-hard``'s config lands on the card
+    by default and, with the bundled weights, reads the golden lines as
+    ``load_pretrained`` does (bf16, as shipped)."""
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.infer.pretrained import model_weights
+    from crnn_ocr_torch.infer.weights import params_from_jax
+    from crnn_ocr_torch.models import build_model
+
+    cfg, params, stats, _ = model_weights("fonts-hard")
+    model = build_model(cfg)
+    assert next(model.parameters()).is_cuda
+    model.load_state_dict(params_from_jax(params, stats))
+    pred = load_pretrained("fonts-hard")
+    g = np.load(GOLDENS)
+    lines = [g["hard_canvas"][i, :h, :w] for i, (h, w) in enumerate(
+        zip(g["hard_heights"], g["hard_widths"]))]
+    with torch.inference_mode():
+        x, w_new = pred.preprocess(lines, 256)
+        got = [p.text for p in pred.decode(*pred.probs(model.eval()(x),
+                                                       w_new))]
+    assert got == pred.predict_text(lines, bucket=256)

@@ -179,5 +179,5 @@ def test_wrappers_check_their_operands():
         tgs.sample_pix(img, x, torch.zeros(2, 6))
     with pytest.raises(ValueError, match="B, H, W"):
         tgs.sample_pix(img.int(), x, x)
-    with pytest.raises(ValueError, match="B, H, W, 1"):
+    with pytest.raises(ValueError, match="B, H, W, C"):
         tgs.bilinear_sample(img, torch.zeros(2, 4, 5, 2))

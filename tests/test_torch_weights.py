@@ -200,7 +200,9 @@ def test_port_imports_nothing_of_jax():
             "crnn_ocr_torch/parallel/mesh.py",
             "crnn_ocr_torch/cli/train.py", "crnn_ocr_torch/cli/migrate.py",
             "crnn_ocr_torch/train/orbax.py",
-            "crnn_ocr_torch/utils/zstd.py"} <= names
+            "crnn_ocr_torch/utils/zstd.py",
+            "crnn_ocr_torch/infer/h5_import.py",
+            "crnn_ocr_torch/counterparts.py"} <= names
     # the host C++ the port builds is its own copy, inside the package
     for src in ("ctc_beam_tf.cc", "editdistance.cc", "imgproc.cc"):
         assert (REPO / "crnn_ocr_torch" / "native" / src).is_file(), src
@@ -226,7 +228,9 @@ def test_importing_the_port_loads_no_jax():
         "crnn_ocr_torch.utils.profiling, crnn_ocr_torch.parallel, "
         "crnn_ocr_torch.parallel.mesh, crnn_ocr_torch.cli.train, "
         "crnn_ocr_torch.cli.migrate, crnn_ocr_torch.train.orbax, "
-        "crnn_ocr_torch.utils.zstd\n"
+        "crnn_ocr_torch.utils.zstd, crnn_ocr_torch.ops, "
+        "crnn_ocr_torch.models, crnn_ocr_torch.utils, "
+        "crnn_ocr_torch.infer.h5_import, crnn_ocr_torch.counterparts\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-small', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-warp-stn', device='cpu')\n"
         "p = crnn_ocr_torch.load_pretrained('fonts-hard-lstm', device='cpu')\n"

@@ -151,10 +151,26 @@ second is the checkpoint, and the goldens hold the third:
   ``tests/test_torch_train.py``), ``noise_shape/<name>`` its shape;
 * ``lr``, ``step`` (2, the checkpoint's step).
 
+``--surface`` writes ``crnn_ocr_torch/testdata/surface_goldens.npz`` for
+``chip_smoke.py`` phase 31, from the inputs that
+``chip_smoke.surface_inputs`` makes from its seed (numpy ``RandomState``,
+so the card rebuilds them without JAX), through the JAX package's
+``ops`` on the CPU:
+
+* ``ctc_b0/loss``, ``ctc_b62/loss`` (B,): ``ctc_forward_log_loss`` at
+  blank 0 and at blank C - 1 (62); ``ctc_b0/grad``: the gradient of the
+  blank-0 losses' sum for the first ``SURFACE_GOLDEN_CTC_ROWS`` samples;
+* ``up/`` and ``down/``: ``grid_sample_affine`` of the one-channel images
+  to 32x256 and 16x64 (its banded sampler on the CPU): ``out`` and
+  ``d_img`` of the first image, ``d_theta`` (B, 6) of every image, for
+  the loss ``sum(out * g)``;
+* ``c3/``: ``bilinear_sample`` of the 3-channel images at their own size:
+  ``out``, ``d_img`` and ``d_coords`` of the first image.
+
 Run from the repo root (several minutes on the CPU):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_goldens.py \
-        [--train | --stn | --lstm | --beam | --serve | --orbax]
+        [--train | --stn | --lstm | --beam | --serve | --orbax | --surface]
 """
 
 from __future__ import annotations
@@ -660,6 +676,72 @@ def write_orbax_goldens() -> None:
           f"({os.path.getsize(ORBAX_OUT)} bytes)")
 
 
+SURFACE_OUT = os.path.join(REPO, "crnn_ocr_torch", "testdata",
+                           "surface_goldens.npz")
+
+
+def write_surface_goldens() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from chip_smoke import (
+        SURFACE_CTC,
+        SURFACE_GOLDEN_CTC_ROWS,
+        SURFACE_SIZES,
+        labels_for_blank,
+        surface_inputs,
+    )
+    from crnn_ocr_tpu.ops import ctc as jctc
+    from crnn_ocr_tpu.ops import grid_sample as jgs
+
+    t = surface_inputs()
+    C = SURFACE_CTC[2]
+    arrays = {}
+    for blank in (0, C - 1):
+        lab = labels_for_blank(t["labels"], blank)
+
+        def total(x, lab=lab, blank=blank):
+            loss = jctc.ctc_forward_log_loss(x, lab, t["il"], t["ll"], blank)
+            return jnp.sum(loss), loss
+
+        (_, loss), grad = jax.jit(jax.value_and_grad(total, has_aux=True))(
+            jnp.asarray(t["lp"]))
+        arrays[f"ctc_b{blank}/loss"] = np.asarray(loss)
+        if blank == 0:
+            arrays["ctc_b0/grad"] = np.asarray(grad)[:SURFACE_GOLDEN_CTC_ROWS]
+    chunk = 32  # images a call: the banded sampler's weights grow with B
+    for name, (Ho, Wo, c) in SURFACE_SIZES.items():
+        g = t[f"g_{name}"]
+        if c == 1:
+            # op by op, as the port computes the grid: under jit XLA fuses
+            # the affine's products into its sums, which moves coordinates
+            # by an ulp and flips floor() at some samples
+            def warp(img, th, Ho=Ho, Wo=Wo):
+                return jgs.grid_sample_affine(img, th, Ho, Wo)
+
+            d_theta = []
+            for i in range(0, len(g), chunk):
+                img = jnp.asarray(t["img"][i:i + chunk, ..., None])
+                out, vjp = jax.vjp(warp, img, jnp.asarray(
+                    t["theta"][i:i + chunk]))
+                d_img, d_th = vjp(jnp.asarray(g[i:i + chunk]))
+                if i == 0:
+                    arrays[f"{name}/out"] = np.asarray(out)[:1]
+                    arrays[f"{name}/d_img"] = np.asarray(d_img)[:1]
+                d_theta.append(np.asarray(d_th))
+            arrays[f"{name}/d_theta"] = np.concatenate(d_theta)
+        else:
+            coords = jgs.affine_grid(jnp.asarray(t["theta"][:1]), Ho, Wo)
+            out, vjp = jax.vjp(jax.jit(jgs.bilinear_sample),
+                               jnp.asarray(t["img3"][:1]), coords)
+            d_img, d_coords = vjp(jnp.asarray(g[:1]))
+            arrays.update({f"{name}/out": np.asarray(out),
+                           f"{name}/d_img": np.asarray(d_img),
+                           f"{name}/d_coords": np.asarray(d_coords)})
+    np.savez_compressed(SURFACE_OUT, **arrays)
+    print(f"wrote {SURFACE_OUT} ({os.path.getsize(SURFACE_OUT)} bytes)")
+
+
 def main() -> int:
     import jax
 
@@ -681,6 +763,9 @@ def main() -> int:
         return 0
     if "--orbax" in sys.argv[1:]:
         write_orbax_goldens()
+        return 0
+    if "--surface" in sys.argv[1:]:
+        write_surface_goldens()
         return 0
     arrays = golden_lines({}, TASKS)
     bf16_golden(arrays, "hard", "fonts-hard")
