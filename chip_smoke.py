@@ -554,9 +554,7 @@ def device_ms(fn, reps: int = 20) -> float:
     readings, partial, counts = [], 0, {}
     for _ in range(6):
         prof, _ = profiled(run)
-        recs = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
+        recs = device_work(prof)
         counts = collections.Counter(e.name for e in recs)
         work = [e for e in recs if "spin_kernel" not in e.name]
         if not work or any(n % reps for k, n in counts.items()
@@ -635,11 +633,31 @@ def profiled(run):
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        if any(e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               for e in prof.events()):
+        if device_work(prof):
             return prof, wall_us
     raise RuntimeError("the profiler saw no work on the device in 8 windows")
+
+
+def is_range_row(name: str, ranges) -> bool:
+    """Whether a device-timeline record named ``name`` is a record_function
+    range's and not a kernel's or a copy's. A range leaves a record of its
+    own name there, from its first kernel's start to its last kernel's end,
+    the gaps between them included: the port's ``crnn.*`` spans, the
+    ``RANGES``, and any name in ``ranges`` (the host's user ranges)."""
+    return name in ranges or name in RANGES or name.startswith("crnn.")
+
+
+def device_work(prof) -> list:
+    """The kernels and copies on the card in ``prof``'s window, without the
+    rows that ranges leave on the device's timeline (``is_range_row``)."""
+    import torch
+
+    events = list(prof.events())
+    ranges = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not is_range_row(e.name, ranges)]
 
 
 def bound_ms(bytes_moved: float, ops: float, dtype: str):
@@ -2006,7 +2024,7 @@ def trace_train(step, ranges, n: int = 3) -> dict:
             step()
 
     prof, wall_us = profiled(run)
-    out = _trace_summary(prof, wall_us, n, skip=RANGES)
+    out = _trace_summary(prof, wall_us, n)
     for key in ranges:
         # a range has a host row and a device-timeline row of one name; the
         # latter spans its first kernel's start to its last kernel's end,
@@ -2026,23 +2044,21 @@ RANGES = ("bigru_backward", "bilstm_backward", "ctc_loss_backward",
           "stem_backward")
 
 
-def _trace_summary(prof, wall_us: float, n: int, skip=()) -> dict:
+def _trace_summary(prof, wall_us: float, n: int) -> dict:
     """Device busy time (the union of kernel and copy intervals on the card,
-    user ranges excluded), idle share, and the top device and host ops."""
-    import torch
-
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False) and e.name not in skip
-    )
+    ranges excluded: ``device_work``), idle share, and the top device and
+    host ops (ranges excluded too)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_work(prof))
     busy, end = 0.0, -1.0
     for s, e in spans:
         if e > end:
             busy += e - max(s, end)
             end = e
     require(busy > 0, "the trace shows no work on the device")
-    avg = [r for r in prof.key_averages() if r.key not in skip]
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
+    avg = [r for r in prof.key_averages() if not is_range_row(r.key, ranges)]
 
     def top(attr, k=8):
         rows = sorted(avg, key=lambda r: getattr(r, attr), reverse=True)[:k]
@@ -2945,9 +2961,12 @@ def lean_trace(run, kernels=()) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         evs = prof.profiler.kineto_results.events()
-        spans = sorted((e.start_ns(), e.end_ns()) for e in evs
-                       if e.device_type() == torch.autograd.DeviceType.CUDA
-                       and not e.is_user_annotation())
+        ranges = {e.name() for e in evs if e.is_user_annotation()}
+        dev_evs = [e for e in evs
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation()
+                   and not is_range_row(e.name(), ranges)]
+        spans = sorted((e.start_ns(), e.end_ns()) for e in dev_evs)
         if spans:
             break
     require(bool(spans), "the profiler saw no work on the device")
@@ -2957,8 +2976,6 @@ def lean_trace(run, kernels=()) -> dict:
             busy += e - max(s, end)
             end = e
     launch = [e.duration_ns() for e in evs if e.name() == "cudaLaunchKernel"]
-    dev_evs = [e for e in evs
-               if e.device_type() == torch.autograd.DeviceType.CUDA]
     return dict(wall_ms=wall, device_busy_ms=busy / 1e6,
                 syncs=sum("Synchronize" in e.name() for e in evs),
                 kernel_launches=len(launch),
@@ -5821,9 +5838,7 @@ def surface_fold_cost(t: dict, reps: int = 20) -> dict:
 
         call()
         prof, _ = profiled(lambda: [call() for _ in range(reps)])
-        recs = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
+        recs = device_work(prof)
         is_sampler = [("sample_fwd" in e.name or "sample_bwd" in e.name)
                       for e in recs]
         sampler = [e for e, k in zip(recs, is_sampler) if k]

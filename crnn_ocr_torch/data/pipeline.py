@@ -33,6 +33,7 @@ from crnn_ocr_torch.ops.preprocess import (
     preprocess_batch,
     quantize_dim,
 )
+from crnn_ocr_torch.utils.profiling import span
 
 
 def input_lengths(w_new: torch.Tensor, bucket: int,
@@ -57,22 +58,25 @@ def produce_batch(b: Dict[str, np.ndarray], device, cfg: ModelConfig,
     ``label_length``, and the host's ``texts`` and ``bucket``. The frame
     counts follow ``cfg.width_downsample`` and ``cfg.ctc_time_slice``."""
     bucket = int(b["bucket"])
-    x, w_new = preprocess_batch(
-        torch.from_numpy(np.asarray(b["the_input"])).to(device),
-        torch.from_numpy(np.asarray(b["heights"])).to(device),
-        torch.from_numpy(np.asarray(b["widths"])).to(device),
-        out_h=cfg.height,
-        out_w=bucket,
-        normalize=normalize,
-    )
+    with span("crnn.data.upload"):
+        img, hs, ws = (torch.from_numpy(np.asarray(b[k])).to(device)
+                       for k in ("the_input", "heights", "widths"))
+    with span("crnn.data.resize"):
+        x, w_new = preprocess_batch(img, hs, ws, out_h=cfg.height,
+                                    out_w=bucket, normalize=normalize)
     if augment:
-        x = augment_batch(x, augment_generator(x.device, augment_seed, index))
+        with span("crnn.data.augment"):
+            x = augment_batch(x, augment_generator(x.device, augment_seed,
+                                                   index))
+    # the labels go up after the resize is enqueued, in a span of their own
+    with span("crnn.data.upload"):
+        labels, label_length = (torch.from_numpy(np.asarray(b[k])).to(device)
+                                for k in ("the_labels", "label_length"))
     return {
         "x": x,
         "input_length": input_lengths(w_new, bucket, cfg),
-        "the_labels": torch.from_numpy(np.asarray(b["the_labels"])).to(device),
-        "label_length": torch.from_numpy(
-            np.asarray(b["label_length"])).to(device),
+        "the_labels": labels,
+        "label_length": label_length,
         "texts": b.get("texts"),
         "bucket": bucket,
     }

@@ -46,6 +46,7 @@ from crnn_ocr_torch.models.crnn import CRNN
 from crnn_ocr_torch.ops import ctc
 from crnn_ocr_torch.ops.ctc_beam_exact import ctc_beam_search_decode_exact
 from crnn_ocr_torch.ops.preprocess import pack_canvas, preprocess_batch
+from crnn_ocr_torch.utils.profiling import span
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -160,17 +161,15 @@ class Predictor:
         """Grayscale uint8 images -> (x (B, height, bucket), w_new (B,)) on
         the predictor's device: packed on the host, resized and
         standardized on the device."""
-        canvas, hs, ws = pack_canvas(list(images), quantize=True)
+        with span("crnn.predict.pack"):
+            arrays = pack_canvas(list(images), quantize=True)
         bucket = self.resolve_bucket(images, bucket)
-        dev = self.device
-        return preprocess_batch(
-            torch.from_numpy(canvas).to(dev),
-            torch.from_numpy(hs).to(dev),
-            torch.from_numpy(ws).to(dev),
-            out_h=self.cfg.height,
-            out_w=bucket,
-            normalize=self.normalize,
-        )
+        with span("crnn.predict.upload"):
+            canvas, hs, ws = (torch.from_numpy(a).to(self.device)
+                              for a in arrays)
+        with span("crnn.predict.resize"):
+            return preprocess_batch(canvas, hs, ws, out_h=self.cfg.height,
+                                    out_w=bucket, normalize=self.normalize)
 
     def probs(self, logits: torch.Tensor, w_new: torch.Tensor):
         """Logits -> (probs (B, T, C), input_len (B,)): softmax after the
@@ -206,25 +205,32 @@ class Predictor:
         (``exact_tf``: decoded on the host, moved there), and (B, paths)
         scores as a numpy array."""
         if greedy:
-            decoded, score = ctc.ctc_greedy_decode(probs, input_len)
-            return [decoded], score.cpu().numpy()
+            with span("crnn.predict.decode"):
+                decoded, score = ctc.ctc_greedy_decode(probs, input_len)
+            with span("crnn.predict.wait"):
+                return [decoded], score.cpu().numpy()
         if merge_repeated is None:
             merge_repeated = self.default_merge_repeated
         if exact_tf:
-            dense, scores = ctc_beam_search_decode_exact(
-                probs.float().cpu().numpy(), input_len.cpu().numpy(),
-                beam_width=beam_width, top_paths=top_paths,
-                merge_repeated=merge_repeated)
-            # the device beam's layout: width T, so both beam paths hand the
-            # aligner the same shape
-            T = probs.shape[1]
-            return [torch.nn.functional.pad(torch.from_numpy(d),
-                                            (0, T - d.shape[1]), value=-1)
-                    .to(probs.device) for d in dense], scores
-        decoded_list, scores = ctc.ctc_decode(
-            probs, input_len, greedy=False, beam_width=beam_width,
-            top_paths=top_paths, merge_repeated=merge_repeated)
-        return decoded_list, scores.cpu().numpy()
+            with span("crnn.predict.wait"):
+                host_probs = probs.float().cpu().numpy()
+                host_len = input_len.cpu().numpy()
+            with span("crnn.predict.decode"):
+                dense, scores = ctc_beam_search_decode_exact(
+                    host_probs, host_len, beam_width=beam_width,
+                    top_paths=top_paths, merge_repeated=merge_repeated)
+                # the device beam's layout: width T, so both beam paths hand
+                # the aligner the same shape
+                T = probs.shape[1]
+                return [torch.nn.functional.pad(torch.from_numpy(d),
+                                                (0, T - d.shape[1]), value=-1)
+                        .to(probs.device) for d in dense], scores
+        with span("crnn.predict.decode"):
+            decoded_list, scores = ctc.ctc_decode(
+                probs, input_len, greedy=False, beam_width=beam_width,
+                top_paths=top_paths, merge_repeated=merge_repeated)
+        with span("crnn.predict.wait"):
+            return decoded_list, scores.cpu().numpy()
 
     def decode(self, probs: torch.Tensor, input_len: torch.Tensor,
                **decode_kw) -> List[Prediction]:
@@ -234,16 +240,17 @@ class Predictor:
                                                     **decode_kw))
 
     def _predictions(self, decoded_list, scores) -> List[Prediction]:
-        rows_per_path = [ctc.trim_dense(d.cpu()) for d in decoded_list]
-        out = []
-        for b in range(scores.shape[0]):
-            cands = [(self.codec.labels_to_text(rows[b]),
-                      float(scores[b, min(p, scores.shape[1] - 1)]))
-                     for p, rows in enumerate(rows_per_path)]
-            out.append(Prediction(
-                text=cands[0][0], score=cands[0][1],
-                candidates=cands if len(cands) > 1 else None))
-        return out
+        with span("crnn.predict.to_text"):
+            rows_per_path = [ctc.trim_dense(d.cpu()) for d in decoded_list]
+            out = []
+            for b in range(scores.shape[0]):
+                cands = [(self.codec.labels_to_text(rows[b]),
+                          float(scores[b, min(p, scores.shape[1] - 1)]))
+                         for p, rows in enumerate(rows_per_path)]
+                out.append(Prediction(
+                    text=cands[0][0], score=cands[0][1],
+                    candidates=cands if len(cands) > 1 else None))
+            return out
 
     @torch.inference_mode()
     def predict_probs(
@@ -254,16 +261,18 @@ class Predictor:
         gathered as the module's docstring says)."""
         if self.mesh is None:
             x, w_new = self.preprocess(images, bucket)
-            return self.probs(self.model(x), w_new)
+            with span("crnn.predict.forward"):
+                return self.probs(self.model(x), w_new)
         n_req = len(images)
         size = self.mesh.size
         images = list(images) + [self.blank_row()] * (-n_req % size)
         x, w_new = self.preprocess(images, bucket)
-        logits = torch.cat([
-            self.replicas[d](x[self.mesh.rows(len(images), i)].to(d))
-            .to(self.device) for i, d in enumerate(self.mesh.devices)])
-        probs, input_len = self.probs(logits, w_new)
-        return probs[:n_req], input_len[:n_req]
+        with span("crnn.predict.forward"):
+            logits = torch.cat([
+                self.replicas[d](x[self.mesh.rows(len(images), i)].to(d))
+                .to(self.device) for i, d in enumerate(self.mesh.devices)])
+            probs, input_len = self.probs(logits, w_new)
+            return probs[:n_req], input_len[:n_req]
 
     def predict(
         self,
@@ -287,23 +296,25 @@ class Predictor:
         returned text."""
         t0 = time.perf_counter()
         bucket = self.resolve_bucket(images, bucket)
-        probs, input_len = self.predict_probs(images, bucket=bucket)
-        decoded_list, scores = self.decode_dense(
-            probs, input_len, greedy=greedy, beam_width=beam_width,
-            top_paths=top_paths, merge_repeated=merge_repeated,
-            exact_tf=exact_tf)
-        spans_rows = None
-        if alignments and greedy:
-            spans_rows = self._spans_rows(
-                images, bucket, *ctc.ctc_greedy_alignment(probs, input_len))
-        elif alignments:
-            dec = decoded_list[0]
-            spans_rows = self._spans_rows(
-                images, bucket, dec,
-                *ctc.ctc_forced_alignment(probs, input_len,
-                                          torch.clamp(dec, min=0),
-                                          (dec >= 0).sum(1))[:3])
-        out = self._predictions(decoded_list, scores)
+        with span("crnn.predict", bucket=bucket, rows=len(images)):
+            probs, input_len = self.predict_probs(images, bucket=bucket)
+            decoded_list, scores = self.decode_dense(
+                probs, input_len, greedy=greedy, beam_width=beam_width,
+                top_paths=top_paths, merge_repeated=merge_repeated,
+                exact_tf=exact_tf)
+            spans_rows = None
+            if alignments and greedy:
+                spans_rows = self._spans_rows(
+                    images, bucket,
+                    *ctc.ctc_greedy_alignment(probs, input_len))
+            elif alignments:
+                dec = decoded_list[0]
+                spans_rows = self._spans_rows(
+                    images, bucket, dec,
+                    *ctc.ctc_forced_alignment(probs, input_len,
+                                              torch.clamp(dec, min=0),
+                                              (dec >= 0).sum(1))[:3])
+            out = self._predictions(decoded_list, scores)
         per_line = (time.perf_counter() - t0) * 1e3 / len(out)
         for b, p in enumerate(out):
             p.latency_ms = per_line if timing else None

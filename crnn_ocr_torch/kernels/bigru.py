@@ -48,6 +48,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from crnn_ocr_torch.utils.profiling import span
+
 # Kernel launches: K2 (bigru, inference), K3 (bigru_train, the forward with
 # the gate stash), K4 (bilstm) and K5 (bilstm_train). The plain versions
 # are not counted.
@@ -430,7 +432,7 @@ def bigru_backward(g, u, hs, gates):
     step. Returns ``(dxw, du, db)`` in the dtypes of ``hs``, ``u`` and f32.
     """
     T, D, B, H = hs.shape
-    with torch.profiler.record_function("bigru_backward"):
+    with span("bigru_backward"):
         h_prev = torch.cat([hs.new_zeros((1, D, B, H)), hs[:-1]]).float()
         z, r, hh, rh = gates.reshape(T, D, B, 4, H).unbind(3)
         dz = (h_prev - hh) * z * (1.0 - z)
@@ -546,7 +548,7 @@ def bilstm_backward(g, u, hs, stash):
     its gradient flows through the projection's autograd, not from here.
     """
     T, D, B, H = hs.shape
-    with torch.profiler.record_function("bilstm_backward"):
+    with span("bilstm_backward"):
         i, f, gg, o, c = stash.reshape(T, D, B, 5, H).unbind(3)
         c_prev = torch.cat([c.new_zeros((1, D, B, H)), c[:-1]])
         h_prev = torch.cat([hs.new_zeros((1, D, B, H)), hs[:-1]]).float()

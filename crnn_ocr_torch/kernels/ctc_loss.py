@@ -44,6 +44,8 @@ from typing import NamedTuple
 
 import torch
 
+from crnn_ocr_torch.utils.profiling import span
+
 NEG = -1e30  # stands for log 0; keeps every gradient finite
 MAX_STATES = 1024  # one thread a state in a CTA
 
@@ -328,7 +330,7 @@ class _CTCLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         emits, flags, lens, ext, alphas, loss = ctx.saved_tensors
-        with torch.profiler.record_function("ctc_loss_backward"):
+        with span("ctc_loss_backward"):
             betas = ctc_betas(emits, flags, lens)
             grad = grad_from_alphas_betas(alphas, betas, loss, flags, lens,
                                           ext, ctx.num_classes)

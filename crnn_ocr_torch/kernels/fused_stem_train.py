@@ -64,6 +64,7 @@ from crnn_ocr_torch.kernels import _stem_tiles as tiles
 from crnn_ocr_torch.kernels import fused_stem
 from crnn_ocr_torch.kernels.fused_stem import fold_bn
 from crnn_ocr_torch.parallel.mesh import all_reduce_, is_dp
+from crnn_ocr_torch.utils.profiling import span
 
 # Kernel launches: K8 (stem_stats), K9 (stem_bwd_partials) and K10
 # (stem_bwd_final). The plain versions are not counted.
@@ -280,7 +281,7 @@ class _FusedStemTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _d_mean, _d_var):
         img, conv_w, gamma, beta, mean, var = ctx.saved_tensors
-        with torch.profiler.record_function("stem_backward"):
+        with span("stem_backward"):
             inv, scale, bias = bwd_affine(gamma, beta, mean, var, ctx.eps)
             g = g.contiguous()
             p = stem_bwd_partials(img, conv_w, g, mean, inv, scale, bias)

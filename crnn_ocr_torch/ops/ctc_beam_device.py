@@ -45,6 +45,7 @@ from typing import Tuple
 import torch
 
 from crnn_ocr_torch.ops.ctc import KERAS_EPSILON, NEG, _lse, _pack_left
+from crnn_ocr_torch.utils.profiling import span
 
 HASH_P = 1000003
 HASH_P2 = 16777619  # FNV-32 prime; the second, independent rolling hash
@@ -221,6 +222,12 @@ def _slow_path(p, counts, W: int, C: int):
     return tv, ti
 
 
+def _all_on_host(ok) -> bool:
+    """One host read of a device bool: the host waits for the card here."""
+    with span("crnn.beam.sync"):
+        return bool(ok.all())
+
+
 def _tier_dispatch(p, W: int, C: int):
     """The three-tier ladder over the batch: the cheap syntactic proof,
     then the eviction bound, then the exact gating. Each test is one device
@@ -230,12 +237,15 @@ def _tier_dispatch(p, W: int, C: int):
     beam."""
     fast = p["topv1"][:, :W], p["topi1"][:, :W]
     frozen = p["frozen"]
-    if bool((p["cheap_s"] | frozen).all()):
+    if _all_on_host(p["cheap_s"] | frozen):
         return fast
-    counts = _evict_counts(p, W, C)
-    if bool((_bound_safe(p, counts, W, C) | frozen).all()):
+    with span("crnn.beam.bound"):
+        counts = _evict_counts(p, W, C)
+        safe = _bound_safe(p, counts, W, C) | frozen
+    if _all_on_host(safe):
         return fast
-    return _slow_path(p, counts, W, C)
+    with span("crnn.beam.exact"):
+        return _slow_path(p, counts, W, C)
 
 
 def _aranges(W: int, C: int, device) -> dict:
@@ -507,15 +517,17 @@ def ctc_beam_search_decode_tf(
     # the lengths on the host (one sync): no sample freezes before the
     # shortest, and frames past the longest freeze the whole batch and
     # leave identity backpointers, so they are not run
-    lengths = input_length.tolist()
+    with span("crnn.beam.sync"):
+        lengths = input_length.tolist()
     n_frames = max(0, min(T, max(lengths, default=0)))
     n_free = min(lengths, default=0)
     state = _init_state(B, W, dev)
     bps, bpl = [], []
     for t in range(n_frames):
         frozen = (t >= input_length) if t >= n_free else False
-        new_state, (bp_src, bp_label) = _beam_step(
-            state, lp_all[:, t], ar, frozen, W=W, C=C)
+        with span("crnn.beam.frame"):
+            new_state, (bp_src, bp_label) = _beam_step(
+                state, lp_all[:, t], ar, frozen, W=W, C=C)
         if t < n_free:
             state = new_state
         else:
@@ -532,17 +544,19 @@ def ctc_beam_search_decode_tf(
     scores = torch.where(alive_sel, total[:, :P], float("-inf"))
 
     # prefixes from the backpointers, walked back from the last frame
-    labs = torch.full((B, P, T), -1, dtype=torch.int64, device=dev)
-    cur = torch.arange(P, device=dev)[None, :].expand(B, P)
-    for t in range(n_frames - 1, -1, -1):
-        labs[:, :, t] = bpl[t].gather(1, cur)
-        cur = bps[t].gather(1, cur)
-    labs = labs.reshape(B * P, T)
-    labs = torch.where(alive_sel.reshape(B * P, 1), labs, -1)
-    packed = _pack_left(labs, labs != -1, -1)
-    if merge_repeated:
-        prev = torch.cat([torch.full_like(packed[:, :1], -2),
-                          packed[:, :-1]], dim=1)
-        packed = _pack_left(packed, (packed != -1) & (packed != prev), -1)
-    decoded = packed.reshape(B, P, T).permute(1, 0, 2).to(torch.int32)
+    with span("crnn.beam.backtrack"):
+        labs = torch.full((B, P, T), -1, dtype=torch.int64, device=dev)
+        cur = torch.arange(P, device=dev)[None, :].expand(B, P)
+        for t in range(n_frames - 1, -1, -1):
+            labs[:, :, t] = bpl[t].gather(1, cur)
+            cur = bps[t].gather(1, cur)
+        labs = labs.reshape(B * P, T)
+        labs = torch.where(alive_sel.reshape(B * P, 1), labs, -1)
+        packed = _pack_left(labs, labs != -1, -1)
+        if merge_repeated:
+            prev = torch.cat([torch.full_like(packed[:, :1], -2),
+                              packed[:, :-1]], dim=1)
+            packed = _pack_left(packed, (packed != -1) & (packed != prev),
+                                -1)
+        decoded = packed.reshape(B, P, T).permute(1, 0, 2).to(torch.int32)
     return decoded, scores

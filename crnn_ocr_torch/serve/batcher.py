@@ -42,27 +42,39 @@ def batch_ladder(max_batch: int) -> tuple:
     return tuple(sizes)
 
 
+def _percentile(values: List[float], q: float) -> Optional[float]:
+    return float(np.percentile(np.asarray(values, np.float64), q)) \
+        if values else None
+
+
 @dataclass
 class BatcherStats:
+    """Counters of a batcher, and per request its latency (enqueue to
+    result) and its queue wait (enqueue to the start of its group's
+    ``predict``), each over a rolling window of the last requests."""
+
     requests: int = 0
     batches: int = 0
     padded_rows: int = 0
     errors: int = 0
     batch_sizes: List[int] = field(default_factory=list)
     latencies_ms: List[float] = field(default_factory=list)
+    queue_waits_ms: List[float] = field(default_factory=list)
     _max_kept: int = 4096
 
-    def record_batch(self, n: int, latencies_ms) -> None:
+    def record_batch(self, n: int, latencies_ms, queue_waits_ms) -> None:
         self.batch_sizes.append(n)
         self.latencies_ms.extend(latencies_ms)
+        self.queue_waits_ms.extend(queue_waits_ms)
         # rolling window: a resident daemon must not grow without bound
-        if len(self.latencies_ms) > 2 * self._max_kept:
-            del self.latencies_ms[: -self._max_kept]
-        if len(self.batch_sizes) > 2 * self._max_kept:
-            del self.batch_sizes[: -self._max_kept]
+        for kept in (self.latencies_ms, self.queue_waits_ms,
+                     self.batch_sizes):
+            if len(kept) > 2 * self._max_kept:
+                del kept[: -self._max_kept]
 
     def snapshot(self) -> dict:
-        lat = np.asarray(self.latencies_ms[-self._max_kept:], np.float64)
+        lat = self.latencies_ms[-self._max_kept:]
+        wait = self.queue_waits_ms[-self._max_kept:]
         sizes = self.batch_sizes[-self._max_kept:]
         return {
             "requests": self.requests,
@@ -70,8 +82,10 @@ class BatcherStats:
             "padded_rows": self.padded_rows,
             "errors": self.errors,
             "mean_batch_size": float(np.mean(sizes)) if sizes else 0.0,
-            "latency_ms_p50": float(np.percentile(lat, 50)) if lat.size else None,
-            "latency_ms_p95": float(np.percentile(lat, 95)) if lat.size else None,
+            "latency_ms_p50": _percentile(lat, 50),
+            "latency_ms_p95": _percentile(lat, 95),
+            "queue_wait_ms_p50": _percentile(wait, 50),
+            "queue_wait_ms_p95": _percentile(wait, 95),
         }
 
 
@@ -229,6 +243,7 @@ class DynamicBatcher:
         images = [r.image for r in reqs] + [
             self.predictor.blank_row()
         ] * (padded - n)
+        started = time.perf_counter()
         try:
             preds = self.predictor.predict(
                 images, bucket=bucket, **self.decode_kw
@@ -244,7 +259,8 @@ class DynamicBatcher:
         self.stats.batches += 1
         self.stats.padded_rows += padded - n
         self.stats.record_batch(
-            n, [(now - r.t_enqueue) * 1e3 for r in reqs]
+            n, [(now - r.t_enqueue) * 1e3 for r in reqs],
+            [(started - r.t_enqueue) * 1e3 for r in reqs],
         )
         for r, p in zip(reqs, preds):
             if not r.future.cancelled():

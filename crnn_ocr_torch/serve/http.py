@@ -15,7 +15,8 @@ Endpoints:
     ``--alignments``; greedy localizes argmax runs, beam force-aligns its
     decoded top path).
   * ``GET /healthz`` — liveness: ``{"ok": true}``.
-  * ``GET /stats``   — batcher counters + latency percentiles.
+  * ``GET /stats``   — batcher counters + latency and queue-wait
+    percentiles.
   * ``GET /metrics`` — the same counters in Prometheus's text format.
 
 ``.npy`` payloads need no image codec; everything else imports ``cv2``
@@ -100,12 +101,13 @@ class _Handler(BaseHTTPRequestHandler):
                 "# TYPE ocr_mean_batch_size gauge",
                 f"ocr_mean_batch_size {s['mean_batch_size']}",
             ]
-            for q in ("p50", "p95"):
-                v = s[f"latency_ms_{q}"]
+            for key in ("latency_ms_p50", "latency_ms_p95",
+                        "queue_wait_ms_p50", "queue_wait_ms_p95"):
+                v = s[key]
                 if v is not None:
                     lines += [
-                        f"# TYPE ocr_latency_ms_{q} gauge",
-                        f"ocr_latency_ms_{q} {v}",
+                        f"# TYPE ocr_{key} gauge",
+                        f"ocr_{key} {v}",
                     ]
             body = ("\n".join(lines) + "\n").encode()
             self.send_response(200)

@@ -65,6 +65,7 @@ from crnn_ocr_torch.parallel.mesh import (
     sum_gradients,
 )
 from crnn_ocr_torch.train.state import TrainState, apply_gradients
+from crnn_ocr_torch.utils.profiling import span
 
 LOSS_CLIP = 1e4  # an infeasible line's ~1e30 loss may not swamp the step
 
@@ -101,18 +102,20 @@ def loss_fn(model, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``max(sum(mask), 1)``; with ``n_global`` in the batch (a rank's shard),
     their (masked) sum over ``n_global``."""
     mask = batch.get("valid_mask")
-    logits = model(batch["x"], generator, valid_mask=mask)
-    loss_vec = ctc_loss_vec(logits, batch["the_labels"],
-                            batch["input_length"], batch["label_length"],
-                            cfg.ctc_time_slice, exact_keras)
-    clipped = torch.clamp(loss_vec, max=LOSS_CLIP)
-    n_global = batch.get("n_global")
-    if mask is None and n_global is None:
-        return clipped.mean(), loss_vec
-    total = (clipped * mask).sum() if mask is not None else clipped.sum()
-    if n_global is None:
-        return total / torch.clamp(mask.sum(), min=1.0), loss_vec
-    return total / float(n_global), loss_vec
+    with span("crnn.train.forward"):
+        logits = model(batch["x"], generator, valid_mask=mask)
+    with span("crnn.train.loss"):
+        loss_vec = ctc_loss_vec(logits, batch["the_labels"],
+                                batch["input_length"], batch["label_length"],
+                                cfg.ctc_time_slice, exact_keras)
+        clipped = torch.clamp(loss_vec, max=LOSS_CLIP)
+        n_global = batch.get("n_global")
+        if mask is None and n_global is None:
+            return clipped.mean(), loss_vec
+        total = (clipped * mask).sum() if mask is not None else clipped.sum()
+        if n_global is None:
+            return total / torch.clamp(mask.sum(), min=1.0), loss_vec
+        return total / float(n_global), loss_vec
 
 
 def make_train_step(cfg: ModelConfig, exact_keras: bool = False,
@@ -132,17 +135,22 @@ def make_train_step(cfg: ModelConfig, exact_keras: bool = False,
             raise ValueError("a data-parallel step needs the rank's shard "
                              "of the global batch (parallel.mesh."
                              "shard_batch), with its n_global")
-        state.model.mesh = mesh
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(state.model, batch, cfg, exact_keras, generator)
-        loss.backward()
-        loss = loss.detach()
-        if dp:
-            sum_gradients(list(state.model.parameters()), mesh)
-            loss = all_reduce_(loss.clone(), mesh)
-        gnorm = apply_gradients(state)
-        return {"loss": loss, "grad_norm": gnorm}
+        with span("crnn.train.step"):
+            state.model.mesh = mesh
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(state.model, batch, cfg, exact_keras,
+                              generator)
+            with span("crnn.train.backward"):
+                loss.backward()
+            loss = loss.detach()
+            if dp:
+                with span("crnn.train.all_reduce"):
+                    sum_gradients(list(state.model.parameters()), mesh)
+                    loss = all_reduce_(loss.clone(), mesh)
+            with span("crnn.train.optimizer"):
+                gnorm = apply_gradients(state)
+            return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 
@@ -152,11 +160,12 @@ def _upload(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     from pinned memory without blocking, so the host does not wait for the
     card's queued work (a copy from pageable memory would)."""
     out = {}
-    for key, a in arrays.items():
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[key] = t.to(device, non_blocking=True)
+    with span("crnn.data.upload"):
+        for key, a in arrays.items():
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out[key] = t.to(device, non_blocking=True)
     return out
 
 

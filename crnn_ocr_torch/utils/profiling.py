@@ -4,8 +4,14 @@
   where present, CUDA activities, written into ``logdir`` as a Chrome
   trace JSON (``chrome://tracing`` or Perfetto open it; no TensorBoard
   package is needed). It keeps the JAX package's name.
-* ``named_scope(name)``: a ``torch.profiler.record_function`` range, which
-  names a region in that trace.
+* ``span(name)``: the program's named range in that trace (and in any
+  ``torch.profiler`` window): a ``record_function`` while the profiler
+  records on the calling thread, else a shared no-op, so an untraced call
+  pays one thread-local check. The spans sit on the profiler's clock, beside
+  the ``aten::`` ops and the kernels they launch; their names
+  (``crnn.predict.*``, ``crnn.beam.*``, ``crnn.data.*``, ``crnn.train.*``)
+  are what readers of a trace key on, and a span's count in a window is its
+  counter.
 * ``StepTimer``: rolling wall-clock percentiles of a hot loop.
 
 The JAX package's ``materialize`` is not copied: it forced a host transfer
@@ -47,9 +53,19 @@ def xplane_trace(logdir: str) -> Iterator[torch.profiler.profile]:
             logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def named_scope(name: str):
-    """A named range in the profiler's trace (a context manager)."""
-    return torch.profiler.record_function(name)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, **args):
+    """A named range in the profiler's trace (a context manager), with
+    ``args`` as its annotation (``key=value`` pairs, formatted only while
+    the profiler records); the shared no-op when no profiler records on
+    this thread (the check is thread-local: autograd carries it to its
+    backward threads, a thread started on its own does not have it)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(
+            name, " ".join(f"{k}={v}" for k, v in args.items()) or None)
+    return _NO_SPAN
 
 
 class StepTimer:

@@ -313,6 +313,12 @@ def test_interrupted_save_leaves_latest_readable(tmp_path, monkeypatch):
     assert again.save(2, _tiny_state(2)) and again.latest_step() == 2
 
 
+def _trace_spans(events, name):
+    """(start, end) in the trace's microseconds of each event ``name``."""
+    return [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+            for e in events if e.get("name") == name and e.get("ph") == "X"]
+
+
 def test_fit_profile_window_writes_a_trace(tmp_path):
     cfg = TorchConfig(**NARROW)
     for name, at, n in (("inside", 2, 3), ("cut", 5, 20)):
@@ -328,6 +334,15 @@ def test_fit_profile_window_writes_a_trace(tmp_path):
         assert any("bilstm" in str(e.get("name", "")) or "bigru" in
                    str(e.get("name", "")) or "aten::" in str(e.get("name"))
                    for e in events)
+        # the program's spans share the trace's clock with the aten:: ops
+        steps = _trace_spans(events, "crnn.train.step")
+        fwds = _trace_spans(events, "crnn.train.forward")
+        assert steps and len(fwds) == len(steps)
+        assert all(any(s0 <= f0 and f1 <= s1 for s0, s1 in steps)
+                   for f0, f1 in fwds)
+        f0, f1 = fwds[0]
+        assert any(str(e.get("name", "")).startswith("aten::")
+                   and f0 <= e["ts"] <= f1 for e in events if "ts" in e)
         recs = [json.loads(x) for x in path.read_text().splitlines()]
         assert [r["step"] for r in recs] == [1, 4, 8]
         assert all(r["host_step_p50_ms"] > 0 and "host_step_p90_ms" in r

@@ -234,8 +234,9 @@ def test_batcher_stats_window_bounded():
     s = BatcherStats()
     s._max_kept = 16
     for _ in range(100):
-        s.record_batch(2, [1.0, 2.0])
+        s.record_batch(2, [1.0, 2.0], [0.5, 0.5])
     assert len(s.latencies_ms) <= 32
+    assert len(s.queue_waits_ms) <= 32
     assert len(s.batch_sizes) <= 32
     assert s.snapshot()["latency_ms_p50"] == 1.5
 
