@@ -54,7 +54,13 @@ lines repeated, labels padded to 32):
    design's device time on the same inputs, and its outputs bit for bit),
    its ``ptxas`` report, and ``kernel_ms`` (CUDA events, one call through
    the wrapper) beside ``kernel_ms_old_host_path`` (the same kernel through
-   the wrapper's earlier host path).
+   the wrapper's earlier host path). Then the GRU's backward kernel
+   (``check_bigru_backward``) against its plain loop on a K3 stash at
+   train-hard's shape (bf16, T 64, B 1024, H 256) and fonts-small's (f32,
+   T 32, B 128, H 128): errors, two runs bit for bit, the kernel's and the
+   whole function's device ms beside the bound, the plain loop's ms,
+   ``nn.GRU``'s training backward as ``library_ms``, and each rows
+   instance's time and capacity.
 7. One f32 train step (dropout 0) through the kernels against the same
    step through the plain versions on the card (loss, grad_norm, every
    parameter's gradient and every updated parameter; the backbone's
@@ -63,8 +69,10 @@ lines repeated, labels padded to 32):
 8. The training path, counted: 30 timed steps of ``produce_batch`` plus
    ``fit``'s train step (dropout 0.2, learning rate 1e-4) with the launch
    counts set to 0 just before and read just after: each step must launch
-   K3 twice (on the resident design), K6 and K7 once, the training stem's
-   K8, K1 (on the ``"conv9"`` design), K9 and K10 once, K2 never; the mean
+   K3 twice (on the resident design), the GRU's backward kernel twice (on
+   ``BWD_PATH_DESIGN``, reported as ``backward_designs``), K6 and K7 once,
+   the training stem's K8, K1 (on the ``"conv9"`` design), K9 and K10
+   once, K2 never; the mean
    loss of the last 5 steps
    must be below the first
    step's. Then lines/s over the timed steps' whole time, the p50 step, a
@@ -459,10 +467,14 @@ check at its own path's shape, phases 2, 6 and 18) and an ``f32`` entry:
 K2's and K3's phase 23's check at ``fonts-small``'s shape, with the
 launches of phase 23's counted run and of phase 16's step; K4's and K5's
 phase 18's f32 check, with the launches of phase 24's counted run and of
-phase 21's step. Every bound
+phase 21's step. The GRU backward's row
+(``bigru_backward``, no Pallas kernel: JAX's ``lax.scan``) is phase 6's
+bf16 check at train-hard's shape with phase 8's launches by design, and
+its ``function_device_ms``, ``row_designs`` and f32 check. Every bound
 names its peak (``bound_peak``): bf16 MMA, or f32 FMA on the CUDA cores,
 and for every f32 recurrence (K2-K5, whatever design runs it) 3 x TF32 on
-the tensor cores, the fastest pipe that multiplies at f32's accuracy.
+the tensor cores, the fastest pipe that multiplies at f32's accuracy (the
+GRU backward's f32 products of a bf16 U: 2 x TF32, U's lo part being 0).
 """
 
 from __future__ import annotations
@@ -481,10 +493,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # dense bf16 MMA; f32 FMA on the CUDA cores; f32 as 3xTF32 on the tensor
 # cores (three TF32 products each, 495e12 dense)
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3,
+            "tf32x2": 495e12 / 2}
 PEAK_TEXT = {"bfloat16": "bf16 MMA 989e12",
              "float32": "f32 FMA (CUDA cores) 67e12",
-             "tf32x3": "3 x TF32 MMA: 3 x ops over 495e12"}
+             "tf32x3": "3 x TF32 MMA: 3 x ops over 495e12",
+             "tf32x2": "2 x TF32 MMA (f32 products of a bf16 operand): "
+                       "2 x ops over 495e12"}
 BATCH, BUCKET = 256, 256
 TRAIN_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                              "train_goldens.npz")
@@ -686,9 +701,10 @@ def nbytes(*ts) -> int:
 def plain_kernels(stem: bool = True):
     """Run every kernel call site (K1-K12) through its plain version, on
     the card, for the comparison runs of phases 3, 7, 10, 12, 16, 19 and
-    21: the autograd Functions, the recurrences' backwards and the CTC
-    gradient assembly stay as they are. ``stem=False`` leaves the stem's
-    kernels (K1, K8-K10) in place."""
+    21, the GRU's backward kernel through its plain loop: the autograd
+    Functions, the LSTM's backward and the CTC gradient assembly stay as
+    they are. ``stem=False`` leaves the stem's kernels (K1, K8-K10) in
+    place."""
     import torch
     import crnn_ocr_torch.models.crnn as crnn_mod
     from crnn_ocr_torch.kernels import bigru, ctc_loss, fused_stem
@@ -716,6 +732,7 @@ def plain_kernels(stem: bool = True):
              (bigru, "bilstm_infer",
               lambda xw, u, u_kernel=None: bigru.bilstm_plain(xw, u)),
              (bigru, "bilstm_train", lstm_train),
+             (bigru, "bigru_backward", bigru.bigru_backward_plain),
              (ctc_loss, "ctc_alphas", ctc_loss.ctc_alphas_plain),
              (ctc_loss, "ctc_betas", ctc_loss.ctc_betas_plain),
              (gs, "sample_pix", gs.sample_pix_plain),
@@ -737,7 +754,8 @@ def reset_launches() -> None:
     from crnn_ocr_torch.kernels import fused_stem_train as fst
     from crnn_ocr_torch.kernels import grid_sample as gs
 
-    bigru.launches = bigru.train_launches = 0
+    bigru.launches = bigru.train_launches = bigru.backward_launches = 0
+    bigru.backward_design_launches.clear()
     fused_stem.design_launches.clear()
     bigru.lstm_launches = bigru.lstm_train_launches = 0
     bigru.design_launches.clear()
@@ -755,6 +773,7 @@ def read_launches() -> dict:
 
     return {"fused_stem": fused_stem.launches, "bigru": bigru.launches,
             "bigru_train": bigru.train_launches,
+            "bigru_backward": bigru.backward_launches,
             "bilstm": bigru.lstm_launches,
             "bilstm_train": bigru.lstm_train_launches,
             "ctc_alpha": ctc_loss.alpha_launches,
@@ -801,6 +820,26 @@ def read_design(counts: dict, what: str):
 def design_fields(design, n: int) -> dict:
     return dict(design=design.name, cluster=design.cluster, rows=design.rows,
                 design_launches=n)
+
+
+# the design of the GRU's backward in every counted GRU training run
+BWD_PATH_DESIGN = "resident"
+
+
+def read_backward_design(counts: dict, what: str) -> dict:
+    """The counted run's GRU backward launches per design (``bigru.
+    backward_design_launches``, set to 0 by ``reset_launches``): every one
+    on ``BWD_PATH_DESIGN``, as many as ``counts["bigru_backward"]``.
+    Returns ``{"name C R": n}``."""
+    from crnn_ocr_torch.kernels import bigru
+
+    ran = {d: n for d, n in bigru.backward_design_launches.items() if n}
+    n = counts["bigru_backward"]
+    require(sum(ran.values()) == n and all(
+        d.name == BWD_PATH_DESIGN for d in ran),
+        f"{what}: the GRU backward launched {n} times, by design {ran}; "
+        f"expected all on {BWD_PATH_DESIGN}")
+    return {f"{d.name} C{d.cluster} R{d.rows}": k for d, k in ran.items()}
 
 
 # the design K6 and K7 run on in the counted training runs (ctc_loss.plan's
@@ -1586,6 +1625,143 @@ def check_bigru_train(state, batch, dtype_name: str):
     return res
 
 
+# the GRU's backward checked and timed at train-hard's shape (bf16, fonts-
+# hard's layer-0 U) and at fonts-small's training shape (f32): T, B, H, model
+BWD_SHAPES = {"bfloat16": (64, 1024, 256, "fonts-hard"),
+              "float32": (32, 128, 128, "fonts-small")}
+
+
+def backward_resources(H: int, design, dtype_name: str) -> dict:
+    """The backward kernel's instance on this card, launching nothing: its
+    dynamic shared memory, the clusters the card holds at once (times the
+    cluster: ``bigru.BWD_WAVE_CTAS``), its registers and local memory per
+    thread."""
+    import ctypes
+
+    from crnn_ocr_torch.kernels import _build
+
+    lib = _build.load("bigru")
+    fn = lib.crnn_bigru_bwd_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    info = (ctypes.c_int * 4)()
+    elem = 2 if dtype_name == "bfloat16" else 4
+    _build.check(lib, fn(elem, H, design.cluster, design.rows,
+                         ctypes.addressof(info)), "backward info")
+    return dict(smem_bytes=info[0], max_active_clusters=info[1],
+                wave_ctas=info[1] * design.cluster,
+                runtime_registers=info[2], local_bytes=info[3])
+
+
+def check_bigru_backward(dtype_name: str):
+    """Phase 6: the GRU's backward kernel (``csrc/bigru.cu::
+    bigru_bwd_kernel`` and its matmul, ``bigru.bigru_backward``) against
+    its plain loop (``bigru_backward_plain``) on the same K3 stash, at
+    ``BWD_SHAPES[dtype_name]`` on seeded inputs with the model's layer-0
+    U: dxw, du and db within tolerance; two runs bit for bit equal; the
+    kernel's device ms (``kernel_device_ms``), the whole function's
+    (``function_device_ms``: the kernel, dU's matmul, db's sum) and its
+    CUDA-event ms beside the kernel's bound, the plain loop's ms and
+    ``torch.nn.GRU``'s training backward (cuDNN, the same shape) as the
+    yardstick; then each rows instance of the path's cluster on the same
+    inputs, its device ms, its resources and whether it equals the path's
+    design bit for bit."""
+    import numpy as np
+    import torch
+    from crnn_ocr_torch import load_pretrained
+    from crnn_ocr_torch.kernels import bigru as bg
+
+    T, B, H, name = BWD_SHAPES[dtype_name]
+    dt = getattr(torch, dtype_name)
+    rnn = load_pretrained(name, device="cuda", dtype=dtype_name).model.birnn0
+    require(rnn.units == H, f"{name}'s layer 0 has {rnn.units} units")
+    rng = np.random.default_rng(25)
+    with torch.no_grad():
+        xw = torch.from_numpy(rng.normal(size=(T, 2, B, 3 * H)).astype(
+            np.float32)).to("cuda", dt)
+        u = rnn.recurrent_kernel.detach().to(dt).contiguous()
+        rb = rnn.bias.detach()[:, 1].contiguous()
+        hs, gates = bg.bigru_train(xw, u, rb)
+        g = torch.from_numpy((rng.normal(size=(T, 2, B, H)) * 1e-2).astype(
+            np.float32)).to("cuda", dt)
+
+        def kern():
+            return bg.bigru_backward(g, u, hs, gates)
+
+        def plain():
+            return bg.bigru_backward_plain(g, u, hs, gates)
+
+        d = bg.backward_design_for(H, B, dt)
+        require(d.name == BWD_PATH_DESIGN, f"the backward at {T, B, H} "
+                                           f"{dtype_name} is {d}")
+        n0 = bg.backward_launches
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        require(bg.backward_launches == n0 + 2, "the backward did not launch "
+                                                "its kernel")
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        bf16 = dt == torch.bfloat16
+        # f32 sums in other orders: rtol 1e-4 (bf16 dxw and du: 1e-2, a
+        # value one bf16 ulp off where the f32 values round apart), atol
+        # 1e-5 of the largest
+        errs, ok = {}, bitwise
+        for key, a, b in zip(("dxw", "du", "db"), got, want):
+            rtol = 1e-2 if bf16 and key != "db" else 1e-4
+            e, o = _close(a, b, 1e-5 * float(b.float().abs().max()), rtol)
+            errs[f"{key}_max_abs_err"] = e
+            ok = ok and o
+        ops = 2 * T * 2 * B * H * 3 * H  # drec_t . U^T, f32 products
+        kbytes = nbytes(g, hs, gates, u, got[0]) + 4 * 2 * T * B * 4 * H
+        peak_key = "tf32x2" if bf16 else "tf32x3"
+        bound, by = bound_ms(kbytes, ops, peak_key)
+        rows = {}
+        for r in bg.BWD_ROWS:
+            dr = bg.Design("resident", d.cluster, r)
+            if bg.bwd_smem(-(-H // 16) * 16, d.cluster, r,
+                           2 if bf16 else 4) > bg.SMEM_BYTES:
+                continue
+            out = bg._backward_launch(g, u, hs, gates, dr)
+            rows[r] = dict(equal=all(torch.equal(a, b)
+                                     for a, b in zip(out, got)),
+                           function_device_ms=device_ms(
+                               lambda: bg._backward_launch(g, u, hs, gates,
+                                                           dr)),
+                           **backward_resources(H, dr, dtype_name))
+            rows[r]["ctas"] = -(-B // r) * 2 * d.cluster
+        res = dict(
+            kernel="bigru_backward", dtype=dtype_name, model=name, T=T, B=B,
+            H=H, design=d.name, cluster=d.cluster, rows=d.rows,
+            max_abs_err=max(errs.values()), **errs, bitwise_repeat=bitwise,
+            ok=ok, tolerance="dxw, du rtol 1e-2 (bf16) or 1e-4, db rtol "
+                             "1e-4; atol 1e-5 of each one's largest",
+            kernel_device_ms=kernel_device_ms(kern, "bigru_bwd_kernel"),
+            function_device_ms=device_ms(kern),
+            kernel_ms=time_ms(kern),
+            plain_ms=time_ms(plain, reps=5),
+            bound_ms=bound, bound_by=by, bound_peak=PEAK_TEXT[peak_key],
+            bytes=kbytes, ops=ops, bound_without_h_prev_ms=bound_ms(
+                kbytes - 4 * 2 * T * B * H, ops, peak_key)[0],
+            row_designs=rows, resources=rows[d.rows])
+    # yardstick only: the port never calls torch.nn.GRU
+    gru = torch_gru_from(rnn, dt).train()
+    x = torch.from_numpy(rng.normal(size=(B, T, rnn.kernel.shape[1])).astype(
+        np.float32)).to("cuda", dt).requires_grad_(True)
+    y = gru(x)[0]
+    gy = torch.randn_like(y)
+
+    def library():
+        y.backward(gy, retain_graph=True)
+
+    res.update(library_ms=time_ms(library), library_device_ms=device_ms(
+        library), library="torch.nn.GRU bidirectional (cuDNN), training "
+                          "backward (retain_graph), with the input "
+                          "projection's")
+    emit("kernel_check", **res)
+    require(ok, f"bigru_backward {dtype_name}: {errs}, bitwise repeat "
+                f"{bitwise}, beyond {res['tolerance']}")
+    return res
+
+
 def old_host_launch(name, emits, flags, lens):
     """K6 or K7 on the path's design through the wrapper's host path as it
     was first written (the C entry's restype and argtypes set on every call,
@@ -1710,12 +1886,14 @@ def phase_train_kernels(g):
         cfg, _, state, _, batch = train_setup(g, dtype_name, 0.0)
         checks.append(check_bigru_train(state, batch, dtype_name))
         checks.extend(check_ctc(state, batch, cfg, dtype_name))
+        checks.append(check_bigru_backward(dtype_name))
     return checks
 
 
 # launches per train step: the head's and the loss's, then the stem's (an
 # STN model trains through the plain stem)
-HEAD_TRAIN_KERNELS = {"bigru_train": 2, "ctc_alpha": 1, "ctc_beta": 1}
+HEAD_TRAIN_KERNELS = {"bigru_train": 2, "bigru_backward": 2, "ctc_alpha": 1,
+                      "ctc_beta": 1}
 TRAIN_KERNELS = dict(HEAD_TRAIN_KERNELS, fused_stem=1, stem_stats=1,
                      stem_bwd_partials=1, stem_bwd_final=1)
 STN_TRAIN_KERNELS = dict(HEAD_TRAIN_KERNELS, grid_sample=1,
@@ -1832,6 +2010,8 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
         kernel_counts = read_launches()
         kernel_designs = {d: n for d, n in bigru.design_launches.items()
                           if n}
+        backward_designs = read_backward_design(
+            kernel_counts, f"{name}: the f32 kernel step")
         plain = one_step(True)
         plain_but_stem = None if plain_stem else one_step(True, stem=False)
     finally:
@@ -1851,6 +2031,7 @@ def phase_train_parity(g, name: str = "fonts-hard", key: str = "hard",
     res["launches_in_kernel_step"] = kernel_counts
     res["designs_in_kernel_step"] = [[*d, n] for d, n in
                                      kernel_designs.items()]
+    res["backward_designs_in_kernel_step"] = backward_designs
     # against the JAX package's step: the port preprocesses the lines itself
     # (standardized frames within 1e-4 of JAX's), so loss rtol 1e-4, each
     # line's loss 1e-3 + 1e-3 relative, the global gradient norm rtol 2e-3
@@ -1926,12 +2107,16 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     counts = read_launches()
     emit("launches", model=name, train_steps=TRAIN_STEPS, **counts,
          designs=[[*d, n] for d, n in bigru.design_launches.items()],
+         backward_designs=[[*d, n] for d, n in
+                           bigru.backward_design_launches.items()],
          stem_designs=dict(fused_stem.design_launches),
          ctc_designs=[[*d, n] for d, n in ctc_loss.design_launches.items()],
          sampler_designs=dict(gs.design_launches))
     require_launches(counts, {k: v * TRAIN_STEPS for k, v in want.items()},
                      f"{name}: {TRAIN_STEPS} train steps")
     design = read_design(counts, f"{name}: {TRAIN_STEPS} train steps")
+    backward_design = read_backward_design(
+        counts, f"{name}: {TRAIN_STEPS} train steps")
     stem_design = read_stem_design(counts, "train",
                                    f"{name}: {TRAIN_STEPS} train steps")
     ctc_design = read_ctc_design(counts, f"{name}: {TRAIN_STEPS} train steps")
@@ -2009,6 +2194,7 @@ def phase_train(g, card: str, name: str = "fonts-hard", key: str = "hard",
     emit("fit", steps=state.step, eval=ev)
     require(0.0 <= ev["cer"] <= 1.0, f"fit's evaluation is malformed: {ev}")
     return {**counts, "design": design, "stem_design": stem_design,
+            "backward_design": backward_design,
             "ctc_design": ctc_design, "sampler_design": sampler_design,
             "lines_per_s": TRAIN_BATCH * TRAIN_STEPS / (sum(step_ms) / 1e3),
             "p50_step_ms": p50}
@@ -2545,8 +2731,8 @@ def phase_stem_train_kernels(g):
 LSTM_NAME = "fonts-hard-lstm"
 LSTM_SERVE_KERNELS = {"fused_stem": 1, "bilstm": 2}
 LSTM_TRAIN_KERNELS = dict(
-    {k: v for k, v in TRAIN_KERNELS.items() if k != "bigru_train"},
-    bilstm_train=2)
+    {k: v for k, v in TRAIN_KERNELS.items()
+     if k not in ("bigru_train", "bigru_backward")}, bilstm_train=2)
 
 
 def torch_lstm_from(rnn, dtype):
@@ -4140,7 +4326,8 @@ def launch_state():
     return (read_launches(), collections.Counter(fused_stem.design_launches),
             collections.Counter(bigru.design_launches),
             collections.Counter(ctc_loss.design_launches),
-            collections.Counter(gs.design_launches))
+            collections.Counter(gs.design_launches),
+            collections.Counter(bigru.backward_design_launches))
 
 
 def restore_launches(snap) -> None:
@@ -4148,9 +4335,10 @@ def restore_launches(snap) -> None:
     from crnn_ocr_torch.kernels import fused_stem_train as fst
     from crnn_ocr_torch.kernels import grid_sample as gs
 
-    counts, stem, rnn, ctc, sampler = snap
+    counts, stem, rnn, ctc, sampler, rnn_bwd = snap
     bigru.launches, bigru.train_launches = (counts["bigru"],
                                             counts["bigru_train"])
+    bigru.backward_launches = counts["bigru_backward"]
     bigru.lstm_launches = counts["bilstm"]
     bigru.lstm_train_launches = counts["bilstm_train"]
     ctc_loss.alpha_launches = counts["ctc_alpha"]
@@ -4162,6 +4350,7 @@ def restore_launches(snap) -> None:
     fst.final_launches = counts["stem_bwd_final"]
     for live, saved in ((fused_stem.design_launches, stem),
                         (bigru.design_launches, rnn),
+                        (bigru.backward_design_launches, rnn_bwd),
                         (ctc_loss.design_launches, ctc),
                         (gs.design_launches, sampler)):
         live.clear()
@@ -5347,7 +5536,7 @@ ORBAX_FIXTURE = os.path.join(REPO, "crnn_ocr_torch", "testdata",
 ORBAX_GOLDENS = os.path.join(REPO, "crnn_ocr_torch", "testdata",
                              "orbax_goldens.npz")
 # the fixture's model has one BiGRU layer
-ORBAX_TRAIN_KERNELS = dict(TRAIN_KERNELS, bigru_train=1)
+ORBAX_TRAIN_KERNELS = dict(TRAIN_KERNELS, bigru_train=1, bigru_backward=1)
 
 
 def tree_digest(directory: str) -> str:
@@ -6129,9 +6318,10 @@ def main() -> int:
     phase_train_parity(g)
     train = phase_train(g, card)
     hard_train = {k: train[k] for k in ("lines_per_s", "p50_step_ms")}
-    counts.update({k: train[k] for k in ("bigru_train", "ctc_alpha",
-                                         "ctc_beta")})
+    counts.update({k: train[k] for k in ("bigru_train", "bigru_backward",
+                                         "ctc_alpha", "ctc_beta")})
     designs["bigru_train"] = train["design"]
+    backward_design = train["backward_design"]
     ctc_designs = train["ctc_design"]
 
     # slice 3: the STN front end
@@ -6266,6 +6456,9 @@ def main() -> int:
                   "crnn_ocr_tpu/kernels/bigru.py:76"),
         "bigru_train": ("crnn_ocr_torch/kernels/csrc/bigru.cu",
                         "crnn_ocr_tpu/kernels/bigru.py:144"),
+        # no Pallas kernel: the lax.scan of bigru_fused's backward
+        "bigru_backward": ("crnn_ocr_torch/kernels/csrc/bigru.cu",
+                           "crnn_ocr_tpu/kernels/bigru.py:214 (_bwd)"),
         "bilstm": ("crnn_ocr_torch/kernels/csrc/bigru.cu",
                    "crnn_ocr_tpu/kernels/bigru.py:321"),
         "bilstm_train": ("crnn_ocr_torch/kernels/csrc/bigru.cu",
@@ -6315,9 +6508,16 @@ def main() -> int:
                                  "cold_ms", "image_ms", "image_cold_ms",
                                  "image_equal",
                                  "k4_same_inputs_device_ms", "streamed_ms",
-                                 "streamed_equal", "resources")
+                                 "streamed_equal", "resources",
+                                 "function_device_ms", "row_designs",
+                                 "bound_without_h_prev_ms", "bitwise_repeat")
                if k in c},
         ))
+        if name == "bigru_backward":  # timed at train-hard's shape; phase
+            # 8's launches (B 128) by design
+            kernels[-1].update(cluster=c["cluster"], rows=c["rows"],
+                               design_launches=backward_design,
+                               ms_per_step=c["kernel_device_ms"] / c["T"])
         if name == "fused_stem":  # phase 4's launches by design
             kernels[-1]["design_launches"] = stem_design_launches
             # the training call (phase 15 at train-small, phase 17's

@@ -31,12 +31,15 @@ and an input that requires it) they run the training forward instead, as
 JAX's ``custom_vjp`` does: K3 (``bigru_train``) writes ``hs`` and the gates
 (T, 2, B, 4H) f32 = [z | r | hh | rh], K5 (``bilstm_train``) ``hs`` and
 (T, 2, B, 5H) f32 = [i | f | g | o | c], each the same kernels with a
-stash template flag. The backwards are plain PyTorch on either device, as
-the JAX package's are ``lax.scan``s: a reverse loop over T with one batched
-product per step, then ``dU`` as one einsum (and the GRU's ``db`` as a
-sum). Their rounding points are the JAX backwards': ``h_prev`` is the
-stored ``hs`` (the compute dtype) widened to f32, U is widened to f32,
-``dxw`` is cast to ``hs``'s dtype and ``dU`` to U's, and ``db`` stays f32.
+stash template flag. The backwards follow the JAX package's
+``lax.scan``s: a reverse loop over T with one batched product per step,
+then ``dU`` as one matmul (and the GRU's ``db`` as a sum). The GRU's runs
+on the card as one kernel a layer (``csrc/bigru.cu::bigru_bwd_kernel``,
+:func:`backward_design_for` picks its shape, :func:`bigru_backward_plain`
+is its plain version); the LSTM's is plain PyTorch on either device. Their
+rounding points are the JAX backwards': ``h_prev`` is the stored ``hs``
+(the compute dtype) widened to f32, U is widened to f32, ``dxw`` is cast
+to ``hs``'s dtype and ``dU`` to U's, and ``db`` stays f32.
 """
 
 from __future__ import annotations
@@ -112,6 +115,29 @@ WAVE_CTAS = {
 # launches included); the per-kernel counts above are the path's
 design_launches: collections.Counter = collections.Counter()
 
+# The GRU's backward on the card (csrc/bigru.cu::bigru_bwd_kernel): its
+# launches, and its launches per Design (the plain loop is not counted).
+# A cluster of C CTAs a (direction, tile of rows) keeps U's columns of each
+# CTA's units in shared memory (at most BWD_CTA_UNITS units a CTA, at most
+# BWD_MAX_UNITS padded units: 8 warps of two 16-unit M-tiles) and splits
+# the step's product over K, each CTA's partial dh handed to the units'
+# owners; bwd_smem is the kernel's shared memory, which SMEM_BYTES bounds.
+backward_launches = 0
+backward_design_launches: collections.Counter = collections.Counter()
+BWD_MAX_UNITS = 256
+BWD_CTA_UNITS = 64
+BWD_ROWS = (8, 16, 32, 40)
+SMEM_BYTES = 232448  # the dynamic shared memory an H100 block may hold
+# The CTAs the H100 holds at once per backward instance (dtype, padded
+# units, cluster, rows): cudaOccupancyMaxActiveClusters times the cluster,
+# as chip_smoke.py's phase 6 read them (H100); one CTA an SM at these
+# sizes. A shape not in the table is taken to hold BWD_DEFAULT_CTAS.
+BWD_DEFAULT_CTAS = 120
+BWD_WAVE_CTAS = {
+    **{(torch.bfloat16, 256, 4, r): 120 for r in BWD_ROWS},
+    **{(torch.float32, 128, 2, r): 132 for r in BWD_ROWS},
+}
+
 
 class Design(NamedTuple):
     """Which kernel design runs a recurrence: ``"resident"`` (U in a
@@ -172,6 +198,46 @@ def design_for(cell: str, stash: bool, H: int, B: int, dtype) -> Design:
                         16)
             return Design("resident", c, rows)
     return Design("streamed", 0, 16)
+
+
+def bwd_smem(hp: int, cluster: int, rows: int, elem: int) -> int:
+    """Bytes of the backward kernel's shared memory (its C entry computes
+    the same): U's columns of a CTA's ``hp / cluster`` units, ``hp`` rows of
+    3 upc + 8 elements of ``elem`` bytes (rounded up to 16 bytes); the step's
+    drec, ``rows`` rows of 3 upc + 8 f32; the shares of dh handed in, two
+    buffers of ``cluster`` x ``rows`` x (upc + 4) f32."""
+    upc = hp // cluster
+    ks = 3 * upc + 8
+    return (-(-hp * ks * elem // 16) * 16 + rows * ks * 4
+            + 2 * cluster * rows * (upc + 4) * 4)
+
+
+PLAIN = Design("plain")
+
+
+def backward_design_for(H: int, B: int, dtype) -> Design:
+    """The design of the GRU's backward at ``H`` units and batch ``B``, a
+    pure function of the shape: ``"resident"`` (the card's kernel) up to
+    BWD_MAX_UNITS padded units in either dtype, on the fewest CTAs a cluster
+    (at most 8) whose units are a multiple of 8 and at most BWD_CTA_UNITS
+    and whose shared memory at 16 rows fits; the rows the fewest of
+    BWD_ROWS whose grid ``BWD_WAVE_CTAS`` says the card holds in one wave,
+    else the most that fit. Wider shapes, and widths no cluster splits so,
+    take :data:`PLAIN` (:func:`bigru_backward_plain`)."""
+    hp = -(-H // 16) * 16
+    if hp > BWD_MAX_UNITS:
+        return PLAIN
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for c in range(1, 9):
+        upc = hp // c
+        if (hp % c or upc % 8 or upc > BWD_CTA_UNITS
+                or bwd_smem(hp, c, 16, elem) > SMEM_BYTES):
+            continue
+        fits = [r for r in BWD_ROWS if bwd_smem(hp, c, r, elem) <= SMEM_BYTES]
+        rows = next((r for r in fits if -(-B // r) * 2 * c <= BWD_WAVE_CTAS
+                     .get((dtype, hp, c, r), BWD_DEFAULT_CTAS)), fits[-1])
+        return Design("resident", c, rows)
+    return PLAIN
 
 
 def _recurrence(xw, u, rec_bias, stash: bool):
@@ -413,8 +479,9 @@ def bigru_train(xw, u, rec_bias, u_kernel=None):
     return out
 
 
-def bigru_backward(g, u, hs, gates):
-    """The analytic GRU backward (``bigru.py:214-265``), in plain PyTorch.
+def bigru_backward_plain(g, u, hs, gates):
+    """The analytic GRU backward (``bigru.py:214-265``) as a loop over T in
+    plain PyTorch: :func:`bigru_backward`'s plain version.
 
     Per step, both directions at once (direction 1 is time-reversed
     everywhere, so one reverse loop serves both)::
@@ -432,27 +499,121 @@ def bigru_backward(g, u, hs, gates):
     step. Returns ``(dxw, du, db)`` in the dtypes of ``hs``, ``u`` and f32.
     """
     T, D, B, H = hs.shape
-    with span("bigru_backward"):
-        h_prev = torch.cat([hs.new_zeros((1, D, B, H)), hs[:-1]]).float()
-        z, r, hh, rh = gates.reshape(T, D, B, 4, H).unbind(3)
-        dz = (h_prev - hh) * z * (1.0 - z)
-        dhh = (1.0 - z) * (1.0 - hh * hh)
-        # per-gate factors of dh: drec = dh * f_rec, dxw = dh * f_x
-        f_rec = torch.stack([dz, dhh * rh * r * (1.0 - r), dhh * r], dim=3)
-        ut = u.float().transpose(1, 2)  # (D, 3H, H)
-        dhs = torch.empty((T, D, B, H), dtype=torch.float32, device=hs.device)
-        dh = torch.zeros((D, B, H), dtype=torch.float32, device=hs.device)
-        for t in range(T - 1, -1, -1):
-            dh = dh + g[t].float()
-            dhs[t] = dh
-            drec = (dh[:, :, None, :] * f_rec[t]).reshape(D, B, 3 * H)
-            dh = torch.baddbmm(dh * z[t], drec, ut)
-        drec_seq = (dhs[:, :, :, None, :] * f_rec).reshape(T, D, B, 3 * H)
-        f_rec[..., 2, :] = dhh  # the h-gate's dxw lacks the factor r
-        dxw = (dhs[:, :, :, None, :] * f_rec).reshape(T, D, B, 3 * H)
-        du = torch.einsum("tdbh,tdbg->dhg", h_prev, drec_seq)
-        db = drec_seq.sum(dim=(0, 2))
+    h_prev = torch.cat([hs.new_zeros((1, D, B, H)), hs[:-1]]).float()
+    z, r, hh, rh = gates.reshape(T, D, B, 4, H).unbind(3)
+    dz = (h_prev - hh) * z * (1.0 - z)
+    dhh = (1.0 - z) * (1.0 - hh * hh)
+    # per-gate factors of dh: drec = dh * f_rec, dxw = dh * f_x
+    f_rec = torch.stack([dz, dhh * rh * r * (1.0 - r), dhh * r], dim=3)
+    ut = u.float().transpose(1, 2)  # (D, 3H, H)
+    dhs = torch.empty((T, D, B, H), dtype=torch.float32, device=hs.device)
+    dh = torch.zeros((D, B, H), dtype=torch.float32, device=hs.device)
+    for t in range(T - 1, -1, -1):
+        dh = dh + g[t].float()
+        dhs[t] = dh
+        drec = (dh[:, :, None, :] * f_rec[t]).reshape(D, B, 3 * H)
+        dh = torch.baddbmm(dh * z[t], drec, ut)
+    drec_seq = (dhs[:, :, :, None, :] * f_rec).reshape(T, D, B, 3 * H)
+    f_rec[..., 2, :] = dhh  # the h-gate's dxw lacks the factor r
+    dxw = (dhs[:, :, :, None, :] * f_rec).reshape(T, D, B, 3 * H)
+    du = torch.einsum("tdbh,tdbg->dhg", h_prev, drec_seq)
+    db = drec_seq.sum(dim=(0, 2))
     return dxw.to(hs.dtype), du.to(u.dtype), db
+
+
+DU_ROWS = 2048  # rows of h_prev and drec a chunk of dU's sum at least
+DU_SPLITS = 32  # chunks at most
+
+
+def du_splits(T: int, B: int) -> int:
+    """The chunks of dU's sum over T B rows on the card: the most divisors
+    of T up to DU_SPLITS whose chunk of T / S steps holds DU_ROWS rows,
+    else 1. A pure function of the shape, so the sum's order is too."""
+    return max((s for s in range(1, min(T, DU_SPLITS) + 1)
+                if T % s == 0 and T // s * B >= DU_ROWS), default=1)
+
+
+def _backward_launch(g, u, hs, gates, design: Design):
+    """The card's backward on ``design``: the kernel writes dxw, drec (2, T,
+    B, 3H) and h_prev (2, T, B, H) f32, then dU = h_prev^T drec is one
+    batched f32 matmul over :func:`du_splits` chunks of steps, and db a sum
+    of drec's rows. Units past a multiple
+    of 16 are padded with zeros, which keep their dh at 0 (z = 0: da_z =
+    da_r = 0, and U's padded rows and columns are 0). Checks the operands;
+    raises for a launch the card refuses: no other design stands in."""
+    T, D, B, H = hs.shape
+    dev, dt = hs.device, hs.dtype
+    if (D != 2 or tuple(g.shape) != (T, 2, B, H)
+            or tuple(gates.shape) != (T, 2, B, 4 * H)
+            or tuple(u.shape) != (2, H, 3 * H)):
+        raise ValueError(f"bigru_backward: g {tuple(g.shape)}, u "
+                         f"{tuple(u.shape)}, hs {tuple(hs.shape)}, gates "
+                         f"{tuple(gates.shape)} do not fit")
+    if (g.dtype != dt or u.dtype != dt or gates.dtype != torch.float32
+            or dt not in (torch.float32, torch.bfloat16)):
+        raise TypeError(f"bigru_backward: g, u and hs must share a dtype, "
+                        f"float32 or bfloat16, gates float32; got {g.dtype}, "
+                        f"{u.dtype}, {dt}, {gates.dtype}")
+    if any(t.device != dev for t in (g, u, gates)):
+        raise RuntimeError("bigru_backward: every operand must be on one "
+                           "device")
+    from crnn_ocr_torch.kernels import _build
+
+    hp = -(-H // 16) * 16
+    if hp != H:
+        g, hs = (F.pad(t, (0, hp - H)) for t in (g, hs))
+        gates = _pad_gates(gates, H, hp)
+        u = F.pad(_pad_gates(u, H, hp), (0, 0, 0, hp - H))
+    operands = [t.detach().contiguous() for t in (g, hs, gates, u)]
+    dxw = torch.empty((T, 2, B, 3 * hp), dtype=dt, device=dev)
+    drec = torch.empty((2, T, B, 3 * hp), dtype=torch.float32, device=dev)
+    h_prev = torch.empty((2, T, B, hp), dtype=torch.float32, device=dev)
+    lib = _build.load("bigru")
+    fn = lib.crnn_bigru_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(dxw.element_size(), *(t.data_ptr() for t in operands),
+                 dxw.data_ptr(), drec.data_ptr(), h_prev.data_ptr(), T, B,
+                 hp, design.cluster, design.rows, stream)
+    _build.check(lib, err, f"bigru_backward ({design.name} design)")
+    backward_design_launches[design] += 1
+    # dU over S chunks of whole steps, one batched matmul, the chunks'
+    # products summed in order (a split of the long sum over T B rows:
+    # 2.4 -> 1.0 ms at train-hard's shape on the H100, PERF.md)
+    S = du_splits(T, B)
+    du = torch.bmm(h_prev.view(2 * S, T * B // S, hp).transpose(1, 2),
+                   drec.view(2 * S, T * B // S, 3 * hp)).view(
+                       2, S, hp, 3 * hp).sum(1)
+    db = drec.sum(dim=(1, 2))
+    if hp != H:
+        dxw = dxw.reshape(T, 2, B, 3, hp)[..., :H].reshape(T, 2, B, 3 * H)
+        du = du.reshape(2, hp, 3, hp)[:, :H, :, :H].reshape(2, H, 3 * H)
+        db = db.reshape(2, 3, hp)[..., :H].reshape(2, 3 * H)
+    return dxw, du.to(dt), db
+
+
+def bigru_backward(g, u, hs, gates):
+    """The analytic GRU backward (JAX's ``_bwd``, ``bigru.py:214-265``):
+    ``(dxw, du, db)`` in the dtypes of ``hs``, ``u`` and f32, from the
+    cotangent ``g`` of ``hs`` and K3's stash ``gates``. A CUDA tensor at a
+    shape :func:`backward_design_for` gives the kernel runs
+    ``csrc/bigru.cu::bigru_bwd_kernel`` and one matmul; a CPU tensor, or a
+    shape past the kernel's, :func:`bigru_backward_plain`. The
+    ``bigru_backward`` span carries the design."""
+    T, D, B, H = hs.shape
+    design = (backward_design_for(H, B, hs.dtype)
+              if hs.device.type == "cuda" else PLAIN)
+    with span("bigru_backward",
+              design=f"{design.name},{design.cluster},{design.rows}"):
+        if design == PLAIN:
+            return bigru_backward_plain(g, u, hs, gates)
+        out = _backward_launch(g, u, hs, gates, design)
+    global backward_launches
+    backward_launches += 1
+    return out
 
 
 class _BiGRUTrain(torch.autograd.Function):

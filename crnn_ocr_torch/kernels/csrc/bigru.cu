@@ -114,6 +114,10 @@
 //   with CUDA-core FMAs, U[d][k][j] read from global memory (L2) every
 //   step, h in shared memory as [H][kBT]: ~35 us a step at H = 256.
 //
+// The GRU's training backward, the reverse recurrence over K3's stash, is
+// bigru_bwd_kernel at the end of this file (its own header: the work split,
+// shared memory, precision and bound).
+//
 // K3 and K5 are the kernels instantiated with kStash = true, chosen by a
 // non-null gates pointer: the serving instances (kStash = false) compute
 // no stash. The stash adds, per (row, unit), four (GRU) or five (LSTM) f32
@@ -1234,6 +1238,434 @@ int run(bool bf16, const void* xw, const void* u, const void* brec, void* hs,
                                                steps, B, H, s));
 }
 
+// ---- the GRU's reverse recurrence (bigru_backward's kernel) ----
+//
+// Replaces the plain loop of kernels/bigru.py::bigru_backward_plain, the
+// port of JAX's lax.scan backward (crnn_ocr_tpu/kernels/bigru.py:214 _bwd;
+// the JAX package has no Pallas kernel there). Per step t = T-1 .. 0, both
+// directions at once (direction 1 time-reversed, as in the forward), from
+// K3's stash [z | r | hh | rh], h_prev = hs[t - 1] (0 at t = 0) and g = the
+// cotangent of hs:
+//   dh = dh_carry + g_t
+//   da_z = dh (h_prev - hh) z (1 - z), da_h = dh (1 - z) (1 - hh^2),
+//   da_r = da_h rh r (1 - r)
+//   drec_t = [da_z, da_r, da_h r], dxw_t = [da_z, da_r, da_h]
+//   dh_carry = dh z + drec_t . U^T
+// Each (direction, tile of R batch rows) is a cluster of C CTAs. CTA
+// `rank` owns the units [rank upc, (rank + 1) upc): it reads their stash,
+// keeps their dh z in registers, and writes their dxw, drec and h_prev.
+// The product is split over K, not over its outputs: the CTA multiplies its
+// own drec (R x 3 upc, in shared memory) by U's columns of its units (all H
+// rows x 3 upc, resident in shared memory) into a partial dh_carry of every
+// unit, and hands each owner its units' share with st.shared::cluster; after
+// one cluster barrier the owner adds the C shares in rank order (a
+// reduce-scatter). That moves H f32 a row; handing drec itself round (the
+// forward's split, which exchanges h) would move 3H a row and need 2 x R x
+// 3H x 4 bytes of buffers, 192 KB at R = 32 beside U's 96 KB.
+// Shared memory, at H = 256, C = 4 (upc 64), R = 40, bf16 U (train-hard):
+// U's columns as the product's A, H rows of 3 upc + 8 bf16 (the 8 keep a
+// warp's rows on different banks), 100 KB; this step's drec as B, R rows of
+// 3 upc + 8 f32, 31 KB (at upc % 16 == 8 the rows share banks: slower, not
+// wrong); the shares handed in, two buffers (the step's and the last
+// one's) of C x R x (upc + 4) f32, 85 KB: 216 KB of the 227
+// (kernels/bigru.py::bwd_smem computes the same). An f32 U at H 256 takes
+// C = 8 (upc 32, 104 KB of A). One CTA an SM: the card holds 30 clusters
+// of 4, so B 1024 runs 52 clusters of 40 rows in two waves (32 rows: 64
+// in three, 23 % slower; PERF.md). Where the time goes, at 32 rows: the
+// kernel took 1.87 ms, 0.80 without the shares' remote stores and 0.89
+// without the product (timing variants, not results).
+// The product is f32, as the reference's (preferred_element_type=f32), on
+// mma.sync.m16n8k8 in TF32 with drec split hi + lo (split_tf32). A bf16 U
+// is a TF32 value (8 significant bits of 11), so U hi(drec) + U lo(drec) is
+// the whole 3xTF32 product: its third term, lo(U) hi(drec), is 0
+// (tests/test_torch_rnn_bwd.py shows it). An f32 U is split too: three
+// products. A thread reads A and B as pairs of adjacent columns (8 kk + 2
+// t4, + 1), the mma's k = t4 and t4 + 4: the same permutation of k on both
+// operands, so the sum is over the same terms. No atomics: the same inputs
+// give the same bits.
+// dxw is rounded to hs's type once, from the f32 value the plain version
+// casts. drec (2, T, B, 3H) and h_prev (2, T, B, H) f32 are laid out so that
+// dU[d] = h_prev[d]^T drec[d] is one batched matmul after the kernel
+// (kernels/bigru.py), and db a sum over drec's rows.
+// Bound at train-hard's shape (T 64, B 1024, H 256, bf16), a layer: read
+// the stash 537 MB, hs 67 MB and g 67 MB, write dxw 201 MB and drec 403 MB:
+// 1.27 GB, 0.38 ms at 3.35 TB/s (h_prev's 134 MB f32 more, 0.42 ms); the
+// products, 51.5 GFLOP, take 0.21 ms as two TF32 products at 495 TFLOP/s.
+// Bytes-bound, plus T dependent steps of a cluster barrier each.
+
+constexpr int kBwdThreads = 256;  // 8 warps
+// the product's M-tiles (16 output units each) a warp takes at most: warp w
+// takes tiles w and w + 8, so H <= 256
+constexpr int kBwdTiles = 2;
+
+// bytes of the backward's shared memory: A (H rows of 3 upc + 8 elements of
+// U's type, rounded up to 16 bytes), B (R rows of 3 upc + 8 f32), the
+// shares (2 x C x R x (upc + 4) f32)
+__host__ __device__ size_t bwd_a_bytes(int H, int upc, int elem) {
+  return ((size_t)H * (3 * upc + 8) * elem + 15) / 16 * 16;
+}
+size_t bwd_smem(int H, int C, int R, int elem) {
+  const int upc = H / C;
+  return bwd_a_bytes(H, upc, elem) + (size_t)R * (3 * upc + 8) * 4 +
+         2 * (size_t)C * R * (upc + 4) * 4;
+}
+
+// The backward's operand types: hs, g, dxw and U in T; a thread moves two
+// adjacent units as one Pair. a_pair: U's two columns (8 kk + 2 t4, + 1) of
+// one A row as the TF32 operand words (bf16 widened exactly; f32 as is).
+template <class T>
+struct BwdOps;
+
+template <>
+struct BwdOps<__nv_bfloat16> {
+  using Pair = uint32_t;
+  static constexpr bool kSplitA = false;  // a bf16 value is a TF32 value
+  __device__ static float first(Pair p) { return bf16_lo(p); }
+  __device__ static float second(Pair p) { return bf16_hi(p); }
+  __device__ static Pair load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ static void store(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  }
+  __device__ static void a_pair(const __nv_bfloat16* p, uint32_t& k0,
+                                uint32_t& k1) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    k0 = v << 16;
+    k1 = v & 0xffff0000u;
+  }
+};
+
+template <>
+struct BwdOps<float> {
+  using Pair = float2;
+  static constexpr bool kSplitA = true;
+  __device__ static float first(Pair p) { return p.x; }
+  __device__ static float second(Pair p) { return p.y; }
+  __device__ static Pair load(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  __device__ static void store(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  __device__ static void a_pair(const float* p, uint32_t& k0, uint32_t& k1) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    k0 = __float_as_uint(v.x);
+    k1 = __float_as_uint(v.y);
+  }
+};
+
+// g, hs (T, 2, B, H) and U (2, H, 3H) in T; gates (T, 2, B, 4H) f32 (K3's
+// stash). Writes dxw (T, 2, B, 3H) in T, drec (2, T, B, 3H) and hprev (2,
+// T, B, H) f32. Grid (C x tiles of R rows, 2 directions), clusters of C
+// CTAs along x, upc = H / C units a CTA, at most 64. A thread takes the
+// items tid + 256 k (k < R / 8) of the CTA's R x upc / 2 (row, unit pair)
+// items, row-major, so a warp's loads and stores of a row are contiguous.
+template <class T, int R>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bigru_bwd_kernel(const T* __restrict__ g, const T* __restrict__ hs,
+                 const float* __restrict__ gates, const T* __restrict__ u,
+                 T* __restrict__ dxw, float* __restrict__ drec,
+                 float* __restrict__ hprev, int steps, int B, int H,
+                 int upc) {
+  using Ops = BwdOps<T>;
+  using Pair = typename Ops::Pair;
+  constexpr int NJ = R / 8;     // 8-row tiles of the batch (mma N = 8)
+  constexpr int kItems = R / 8;  // items a thread at most (upc <= 64)
+  extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const uint32_t rank = cluster_rank(), csize = cluster_size();
+  const int d = blockIdx.y, b0 = (blockIdx.x / csize) * R;
+  const int K = 3 * upc, ks = K + 8, ps = upc + 4, UP = upc / 2;
+  const int G = 3 * H;
+  T* sU = reinterpret_cast<T*>(bwd_smem_raw);
+  float* sD = reinterpret_cast<float*>(bwd_smem_raw +
+                                       bwd_a_bytes(H, upc, sizeof(T)));
+  float* sP = sD + R * ks;
+  const int pbuf = (int)csize * R * ps;  // floats of one buffer of shares
+
+  // U's columns of this CTA's units, once: sU[m][q upc + c] = U[d][m][q H +
+  // rank upc + c], two columns at a time
+  const T* ud = u + (size_t)d * H * G;
+  for (int i = tid; i < H * K / 2; i += kBwdThreads) {
+    const int m = i / (K / 2), k = 2 * (i % (K / 2));
+    const int q = k / upc, c = k - q * upc;
+    *reinterpret_cast<Pair*>(sU + m * ks + k) =
+        *reinterpret_cast<const Pair*>(ud + (size_t)m * G + q * H +
+                                       rank * upc + c);
+  }
+  const uint32_t sp = smem_addr(sP);
+
+  struct In {
+    float2 z, r, hh, rh;
+    Pair hp, g;
+  };
+  In in[kItems];
+  float dhz[kItems][2];
+  const int items = R * UP;
+  // step t's inputs of the thread's items, zero past the batch
+  auto load_in = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int it = tid + k * kBwdThreads;
+      const int n = it / UP, j = rank * upc + 2 * (it % UP);
+      const int b = b0 + n;
+      In v = {};
+      if (it < items && b < B) {
+        const size_t row = ((size_t)t * 2 + d) * B + b;
+        const float* st = gates + row * 4 * H + j;
+        v.z = __ldg(reinterpret_cast<const float2*>(st));
+        v.r = __ldg(reinterpret_cast<const float2*>(st + H));
+        v.hh = __ldg(reinterpret_cast<const float2*>(st + 2 * H));
+        v.rh = __ldg(reinterpret_cast<const float2*>(st + 3 * H));
+        v.g = Ops::load(g + row * H + j);
+        if (t > 0) v.hp = Ops::load(hs + (row - 2 * (size_t)B) * H + j);
+      }
+      in[k] = v;
+    }
+  };
+  if (steps > 0) load_in(steps - 1);
+  cluster_arrive();  // every CTA runs, its U columns in place
+  cluster_wait();
+
+  const int mtiles = H / 16;
+  for (int s = 0; s < steps; ++s) {
+    const int t = steps - 1 - s;
+    const float* prev = sP + ((s + 1) & 1) * pbuf;  // step s - 1's shares
+    // the elementwise part, the thread's items: dh from the carry, the
+    // gate cotangents, drec into shared memory (the product's B) and the
+    // step's outputs
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int it = tid + k * kBwdThreads;
+      if (it >= items) continue;
+      const int n = it / UP, c = 2 * (it % UP), j = rank * upc + c;
+      const int b = b0 + n;
+      float car[2] = {0.f, 0.f};
+      if (s > 0) {
+        float2 sum = *reinterpret_cast<const float2*>(prev + n * ps + c);
+        for (int src = 1; src < (int)csize; ++src) {  // rank order
+          const float2 v = *reinterpret_cast<const float2*>(
+              prev + (src * R + n) * ps + c);
+          sum.x += v.x;
+          sum.y += v.y;
+        }
+        car[0] = dhz[k][0] + sum.x;
+        car[1] = dhz[k][1] + sum.y;
+      }
+      const In& v = in[k];
+      const float gz[2] = {v.z.x, v.z.y}, gr[2] = {v.r.x, v.r.y};
+      const float ghh[2] = {v.hh.x, v.hh.y}, grh[2] = {v.rh.x, v.rh.y};
+      const float gg[2] = {Ops::first(v.g), Ops::second(v.g)};
+      const float hp[2] = {Ops::first(v.hp), Ops::second(v.hp)};
+      float az[2], ar[2], ah[2], arh[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dh = car[e] + gg[e];
+        const float z = gz[e], r = gr[e], hh = ghh[e];
+        az[e] = dh * (hp[e] - hh) * z * (1.f - z);
+        ah[e] = dh * (1.f - z) * (1.f - hh * hh);
+        ar[e] = ah[e] * grh[e] * r * (1.f - r);
+        arh[e] = ah[e] * r;
+        dhz[k][e] = dh * z;
+      }
+      float* bd = sD + n * ks + c;
+      *reinterpret_cast<float2*>(bd) = make_float2(az[0], az[1]);
+      *reinterpret_cast<float2*>(bd + upc) = make_float2(ar[0], ar[1]);
+      *reinterpret_cast<float2*>(bd + 2 * upc) = make_float2(arh[0], arh[1]);
+      if (b < B) {
+        const size_t row = ((size_t)t * 2 + d) * B + b;
+        T* dx = dxw + row * G + j;
+        Ops::store(dx, az[0], az[1]);
+        Ops::store(dx + H, ar[0], ar[1]);
+        Ops::store(dx + 2 * H, ah[0], ah[1]);
+        const size_t orow = ((size_t)d * steps + t) * B + b;
+        float* dr = drec + orow * G + j;
+        *reinterpret_cast<float2*>(dr) = make_float2(az[0], az[1]);
+        *reinterpret_cast<float2*>(dr + H) = make_float2(ar[0], ar[1]);
+        *reinterpret_cast<float2*>(dr + 2 * H) = make_float2(arh[0], arh[1]);
+        *reinterpret_cast<float2*>(hprev + orow * H + j) =
+            make_float2(hp[0], hp[1]);
+      }
+    }
+    if (t == 0) break;  // dh_carry before the first step is not needed
+    load_in(t - 1);     // in flight through the product and the barrier
+    __syncthreads();    // drec complete in sD
+
+    // the partial dh_carry of every unit from this CTA's K part: warp w
+    // takes the M-tiles w and w + 8 (16 units each) over all R rows
+    float acc[kBwdTiles][NJ][4], cross[kBwdTiles][NJ][4];
+#pragma unroll
+    for (int i = 0; i < kBwdTiles; ++i)
+#pragma unroll
+      for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][jn][v] = cross[i][jn][v] = 0.f;
+    for (int kk = 0; kk < K / 8; ++kk) {
+      uint32_t bh[NJ][2], bl[NJ][2];
+#pragma unroll
+      for (int jn = 0; jn < NJ; ++jn) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            sD + (8 * jn + g4) * ks + 8 * kk + 2 * t4);
+        split_tf32(__float_as_uint(v.x), bh[jn][0], bl[jn][0]);
+        split_tf32(__float_as_uint(v.y), bh[jn][1], bl[jn][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdTiles; ++i) {
+        const int mt = warp + 8 * i;
+        if (mt >= mtiles) break;  // warp-uniform
+        const T* ap = sU + (16 * mt + g4) * ks + 8 * kk + 2 * t4;
+        uint32_t a[4];
+        Ops::a_pair(ap, a[0], a[2]);
+        Ops::a_pair(ap + 8 * ks, a[1], a[3]);
+        if constexpr (Ops::kSplitA) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) split_tf32(a[x], ah[x], al[x]);
+#pragma unroll
+          for (int jn = 0; jn < NJ; ++jn) {
+            mma1688(cross[i][jn], al, bh[jn]);
+            mma1688(cross[i][jn], ah, bl[jn]);
+            mma1688(acc[i][jn], ah, bh[jn]);
+          }
+        } else {
+#pragma unroll
+          for (int jn = 0; jn < NJ; ++jn) {
+            mma1688(cross[i][jn], a, bl[jn]);
+            mma1688(acc[i][jn], a, bh[jn]);
+          }
+        }
+      }
+    }
+    // each unit's share to its owner: unit 16 mt + g4 (+ 8), rows 8 jn + 2
+    // t4 (+ 1), into the owner's buffer s & 1, slot `rank`
+    const uint32_t cur = (uint32_t)((s & 1) * pbuf + rank * R * ps) * 4u;
+#pragma unroll
+    for (int i = 0; i < kBwdTiles; ++i) {
+      const int mt = warp + 8 * i;
+      if (mt >= mtiles) break;
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int jj = 16 * mt + g4 + 8 * hi;
+        const int owner = jj / upc, c = jj - owner * upc;
+        const uint32_t base = map_rank(sp, owner) + cur + (uint32_t)c * 4u;
+#pragma unroll
+        for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = 8 * jn + 2 * t4 + e;
+            st_cluster(base + (uint32_t)(n * ps) * 4u,
+                       __float_as_uint(acc[i][jn][2 * hi + e] +
+                                       cross[i][jn][2 * hi + e]));
+          }
+      }
+    }
+    cluster_arrive();
+    // every share of this step has landed; nobody reads step s - 1's any
+    // more, so step s + 1 may overwrite that buffer (and sD). After the
+    // last exchange this wait also keeps every CTA alive until no peer
+    // writes into its shared memory.
+    cluster_wait();
+  }
+}
+
+// Launch, or with info != null fill info = {dynamic shared memory bytes, the
+// most clusters resident at once, registers per thread, local memory bytes
+// per thread} and launch nothing. A cluster that cannot be scheduled is
+// refused with cudaErrorInvalidConfiguration.
+template <class T, int R>
+cudaError_t launch_bwd(const void* g, const void* hs, const void* gates,
+                       const void* u, void* dxw, void* drec, void* hprev,
+                       int steps, int B, int H, int C, cudaStream_t stream,
+                       int* info) {
+  const auto kernel = bigru_bwd_kernel<T, R>;
+  const size_t smem = bwd_smem(H, C, R, sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + R - 1) / R), 2);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // the occupancy answer for (smem, C), kept as launch_resident keeps it
+  static std::atomic<uint64_t> known{0};
+  const uint64_t key = ((uint64_t)smem * 16 + C) << 32;
+  const uint64_t seen = known.load(std::memory_order_relaxed);
+  int clusters = (int)(uint32_t)seen;
+  if ((seen & ~0xffffffffull) != key) {
+    e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    known.store(key | (uint32_t)clusters, std::memory_order_relaxed);
+  }
+  if (info) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, (const void*)kernel);
+    if (e != cudaSuccess) return e;
+    info[0] = (int)smem;
+    info[1] = clusters;
+    info[2] = fa.numRegs;
+    info[3] = (int)fa.localSizeBytes;
+    return cudaSuccess;
+  }
+  if (clusters == 0) return cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(g),
+                         static_cast<const T*>(hs),
+                         static_cast<const float*>(gates),
+                         static_cast<const T*>(u), static_cast<T*>(dxw),
+                         static_cast<float*>(drec),
+                         static_cast<float*>(hprev), steps, B, H, H / C);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <class T>
+int run_bwd(const void* g, const void* hs, const void* gates, const void* u,
+            void* dxw, void* drec, void* hprev, int steps, int B, int H,
+            int C, int R, cudaStream_t s, int* info) {
+  if (R == 8)
+    return (int)launch_bwd<T, 8>(g, hs, gates, u, dxw, drec, hprev, steps,
+                                 B, H, C, s, info);
+  if (R == 16)
+    return (int)launch_bwd<T, 16>(g, hs, gates, u, dxw, drec, hprev, steps,
+                                  B, H, C, s, info);
+  if (R == 32)
+    return (int)launch_bwd<T, 32>(g, hs, gates, u, dxw, drec, hprev, steps,
+                                  B, H, C, s, info);
+  return (int)launch_bwd<T, 40>(g, hs, gates, u, dxw, drec, hprev, steps, B,
+                                H, C, s, info);
+}
+
+// H (padded units) % 16 == 0 and at most 256, split over C CTAs (at most 8,
+// the portable maximum) of upc = H / C units, upc % 8 == 0 (3 upc whole
+// k-steps of 8; a warp's 8 units of a share have one owner) and at most 64;
+// R 8, 16, 32 or 40; the shared memory within the 227 KB a block may hold
+// (kernels/bigru.py::backward_design_for picks only such shapes).
+int bigru_bwd(int elem, const void* g, const void* hs, const void* gates,
+              const void* u, void* dxw, void* drec, void* hprev, int steps,
+              int B, int H, int C, int R, void* stream, int* info) {
+  if (H % 16 || H < 16 || H > 16 * 8 * kBwdTiles || C < 1 || C > 8 ||
+      H % C || (H / C) % 8 || H / C > 64 ||
+      (R != 8 && R != 16 && R != 32 && R != 40) ||
+      (elem != 2 && elem != 4) || bwd_smem(H, C, R, elem) > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem == 2)
+    return run_bwd<__nv_bfloat16>(g, hs, gates, u, dxw, drec, hprev, steps,
+                                  B, H, C, R, s, info);
+  return run_bwd<float>(g, hs, gates, u, dxw, drec, hprev, steps, B, H, C, R,
+                        s, info);
+}
+
 }  // namespace
 
 // K2, or K3 when gates is not null (then gates (T, 2, B, 4H) f32 is written
@@ -1298,4 +1730,24 @@ extern "C" int crnn_birnn_resident_info(int lstm, int elem, int stash,
 
 extern "C" const char* crnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The GRU's backward on the resident design (kernels/bigru.py::
+// bigru_backward): elem 2, g, hs, U (2, H, 3H) and dxw bf16; elem 4, f32.
+// gates is K3's stash (T, 2, B, 4H) f32; drec (2, T, B, 3H) and hprev (2, T,
+// B, H) f32 are written for dU and db. H padded units over C CTAs, R batch
+// rows a cluster (bigru_bwd's header).
+extern "C" int crnn_bigru_bwd(int elem, const void* g, const void* hs,
+                              const void* gates, const void* u, void* dxw,
+                              void* drec, void* hprev, int steps, int B,
+                              int H, int C, int R, void* stream) {
+  return bigru_bwd(elem, g, hs, gates, u, dxw, drec, hprev, steps, B, H, C,
+                   R, stream, nullptr);
+}
+
+// The resources of the backward's instance (elem, R) at H units over C CTAs,
+// launching nothing: info[4] as crnn_birnn_resident_info's.
+extern "C" int crnn_bigru_bwd_info(int elem, int H, int C, int R, int* info) {
+  return bigru_bwd(elem, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, 0, 1, H, C, R, nullptr, info);
 }

@@ -14,7 +14,11 @@ bf16 to 2^-7, two ulps of outputs in (-1, 1), and K5's stash to the same
 plus as much times its value in bf16 (c is not bounded by 1); the BiLSTM's
 autograd Function on the card against the CPU to rtol 1e-4 / atol 1e-5 of
 the largest gradient in f32 and 1e-2 in bf16 (h's bf16 roundings differ
-between the two and reach every gradient); the CTC recursions (K6, K7), on
+between the two and reach every gradient), and the BiGRU's (its backward
+kernel) the same, a second run's gradients bit for bit; the GRU's backward
+kernel against its plain loop on the same stash to rtol 1e-4 (bf16 dxw and
+du 1e-2: a bf16 ulp where the f32 values round apart) / atol 1e-5 of the
+largest, its rows instances bit for bit; the CTC recursions (K6, K7), on
 both designs, to 1e-4 + 1e-5 * |value| where a path exists (f32
 log-sum-exps with the MUFU's ex2/lg2, or CUDA's expf/logf for "block",
 over up to T dependent frames) and exactly NEG where none does; the CTC gradient to
@@ -391,6 +395,102 @@ def test_bilstm_autograd_on_card_matches_cpu(card, dtype):
         np.testing.assert_allclose(
             a.numpy(), b.numpy(), rtol=tol,
             atol=(1e-5 if dtype == "float32" else tol) * float(b.abs().max()))
+
+
+def _gru_case(seed, T, B, H, dtype):
+    rng = np.random.default_rng(seed)
+    dt = DTYPES[dtype]
+    xw = torch.from_numpy(rng.normal(size=(T, 2, B, 3 * H))
+                          .astype(np.float32)).to(dt)
+    u = torch.from_numpy((rng.normal(size=(2, H, 3 * H)) / np.sqrt(H))
+                         .astype(np.float32)).to(dt)
+    b = torch.from_numpy((rng.normal(size=(2, 3 * H)) * 0.1)
+                         .astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(T, 2, B, H)).astype(np.float32))
+    return xw, u, b, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,T,B,H", [
+    ("bfloat16", 64, 37, 256),  # fonts-hard's width; 37 rows: R 8, ragged
+    ("float32", 32, 13, 128),  # fonts-small's
+])
+def test_bigru_autograd_on_card_matches_cpu(card, dtype, T, B, H):
+    """The BiGRU's autograd Function (K3 forward, the backward kernel) on
+    the card against the CPU (the plain versions): hs and the gradients of
+    xw, u and rec_bias; the card's backward one launch on the design its
+    shape selects, and a second run's gradients equal bit for bit."""
+    xw, u, b, g = _gru_case(19, T, B, H, dtype)
+    dt = DTYPES[dtype]
+    want = tbg.backward_design_for(H, B, dt)
+    assert want.name == "resident"
+    outs, grads = [], []
+    for dev in ("cpu", card, card):
+        ts = [t.clone().to(dev).requires_grad_(True) for t in (xw, u, b)]
+        n, ran = tbg.backward_launches, dict(tbg.backward_design_launches)
+        hs = tbg.bigru(*ts)
+        assert type(hs.grad_fn).__name__ == "_BiGRUTrainBackward"
+        (hs.float() * g.to(dev)).sum().backward()
+        new = tbg.backward_design_launches - collections.Counter(ran)
+        if dev == "cpu":
+            assert tbg.backward_launches == n and not new
+        else:
+            assert tbg.backward_launches == n + 1 and new == {want: 1}
+        outs.append(hs.detach().float().cpu())
+        grads.append([t.grad.float().cpu() for t in ts])
+    atol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), rtol=0,
+                               atol=atol)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for a, b in zip(grads[1], grads[0]):
+        np.testing.assert_allclose(
+            a.numpy(), b.numpy(), rtol=tol,
+            atol=(1e-5 if dtype == "float32" else tol) * float(b.abs().max()))
+    for a, b in zip(grads[1], grads[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T,B,H", [
+    (64, 128, 256),  # 4 CTAs of 64 (f32: 8 of 32), 16 rows (f32: 32)
+    (6, 1001, 256),  # 40 rows, ragged
+    (4, 250, 256),  # 32 rows, ragged
+    (5, 13, 128),
+    (3, 5, 40),  # 40 units padded to 48, one CTA
+    (4, 9, 240),  # 5 CTAs of 48
+    (1, 3, 16),  # one step: no product
+])
+def test_bigru_backward_kernel_matches_plain(card, dtype, T, B, H):
+    """The backward kernel and its matmul against the plain loop on the same
+    card tensors (K3's stash): dxw, du and db (bf16 dxw and du within 1e-2,
+    a bf16 ulp where the f32 values round apart; f32 sums in other orders
+    1e-4; atol 1e-5 of each one's largest); the launch on the shape's
+    design, and every rows instance that fits the same bits."""
+    xw, u, b, g = _gru_case(21, T, B, H, dtype)
+    dt = DTYPES[dtype]
+    xw, u, b, g = (t.to(card) for t in (xw, u, b, g.to(dt)))
+    hs, gates = tbg.bigru_train(xw, u, b)
+    d = tbg.backward_design_for(H, B, dt)
+    assert d.name == "resident"
+    n, ran = tbg.backward_launches, dict(tbg.backward_design_launches)
+    got = tbg.bigru_backward(g, u, hs, gates)
+    assert tbg.backward_launches == n + 1
+    assert tbg.backward_design_launches - collections.Counter(ran) == {d: 1}
+    want = tbg.bigru_backward_plain(g, u, hs, gates)
+    for key, a, w in zip(("dxw", "du", "db"), got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, key
+        rtol = 1e-2 if dt == torch.bfloat16 and key != "db" else 1e-4
+        np.testing.assert_allclose(
+            a.float().cpu().numpy(), w.float().cpu().numpy(), rtol=rtol,
+            atol=1e-5 * float(w.float().abs().max()), err_msg=key)
+    hp = -(-H // 16) * 16
+    for r in tbg.BWD_ROWS:
+        if tbg.bwd_smem(hp, d.cluster, r, 2 if dt == torch.bfloat16
+                        else 4) <= tbg.SMEM_BYTES:
+            other = tbg._backward_launch(g, u, hs, gates, tbg.Design(
+                "resident", d.cluster, r))
+            assert all(torch.equal(x, y) for x, y in zip(got, other)), r
 
 
 @pytest.mark.cuda
