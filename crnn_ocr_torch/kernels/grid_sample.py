@@ -35,7 +35,9 @@ a pure function of the shape: ``"cluster"`` (an image's samples spread
 over a thread-block cluster, ``d_img`` reduced in the cluster's shared
 memory) on every path; ``"image"`` (the first design, one CTA an image) is
 kept to time against it. ``bilinear_sample`` is the differentiable entry
-point (a ``torch.autograd.Function``: K11 forward, K12 backward).
+point (a ``torch.autograd.Function``: K11 forward, K12 backward; the
+backward, on autograd's thread, is the program's ``grid_sample_backward``
+span).
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from crnn_ocr_torch.utils.profiling import span
 
 # Kernel launches: K11 (sample_pix) and K12 (sample_pix_bwd), and K12's by
 # design. The plain versions are not counted.
@@ -336,9 +340,10 @@ class _SamplePix(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         img, x, y = ctx.saved_tensors
-        dimg, dx, dy = sample_pix_bwd(img, x, y, g.float().contiguous())
-        return (dimg.to(img.dtype) if ctx.needs_input_grad[0] else None,
-                dx, dy)
+        with span("grid_sample_backward"):
+            dimg, dx, dy = sample_pix_bwd(img, x, y, g.float().contiguous())
+            return (dimg.to(img.dtype) if ctx.needs_input_grad[0] else None,
+                    dx, dy)
 
 
 def pixel_coords(coords, H: int, W: int):

@@ -12,6 +12,10 @@ warped by it at its own size:
 * the warp: ``ops.grid_sample.grid_sample_affine`` (K11 forward, K12
   backward on the card).
 
+The forward's two halves are the program's spans ``crnn.stn.localize`` and
+``crnn.stn.warp`` (``utils/profiling.py::span``); K12's backward is the
+``grid_sample_backward`` span (``kernels/grid_sample.py``).
+
 flax flattens NHWC, so the NCHW activation is permuted to NHWC before the
 flatten: the first Dense reads its ``(H / 8) * (W / 8) * loc_filters[-1]``
 inputs in flax's order, and is bound to the image size the model was built
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from crnn_ocr_torch.ops.grid_sample import grid_sample_affine
+from crnn_ocr_torch.utils.profiling import span
 
 IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -82,4 +87,7 @@ class STN(nn.Module):
         return grid_sample_affine(x[..., None], theta)[..., 0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.warp(x, self.localize(x))
+        with span("crnn.stn.localize"):
+            theta = self.localize(x)
+        with span("crnn.stn.warp"):
+            return self.warp(x, theta)
